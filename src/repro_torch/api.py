@@ -1,0 +1,237 @@
+"""repro_torch.api — the user-facing facade of the PyTorch/CUDA port.
+
+One call::
+
+    from repro_torch.api import EdgeConfig, edge_detect
+
+    result = edge_detect(frames, EdgeConfig(operator="scharr3"))
+    result.magnitude      # (..., H, W) edge image, a tensor on the device
+    result.orientation    # present when with_orientation=True
+    result.components     # (..., D, H, W) when with_components=True
+    result.peak           # (...,) per-image max when with_max=True
+
+``edge_detect`` runs on the CUDA device unless ``device`` says otherwise;
+``device="cpu"`` runs the plain PyTorch version. :class:`EdgeConfig` has the
+reference's fields and defaults (``repro.api.EdgeConfig``); the options
+whose engine is not ported yet (``plan``, ``shard``, ``nms``,
+``hysteresis``, ``temporal``, ``pipeline_depth``, ``precision="int"``)
+raise ``NotImplementedError`` naming their ROADMAP item.
+
+Input layout is auto-detected (``HW`` / ``HWC`` / ``NHW`` / ``NHWC`` /
+``NTHW`` / ``NTHWC``): a trailing dimension of exactly 3 on a >= 3-D input
+is the RGB channel axis; everything before ``(H, W)`` is batch. Pass
+``layout=`` to override.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core.filters import OperatorSpec, SobelParams, get_operator
+
+__all__ = [
+    "EdgeConfig",
+    "EdgeResult",
+    "edge_detect",
+    "detect_layout",
+    "LAYOUTS",
+]
+
+LAYOUTS = ("HW", "HWC", "NHW", "NHWC", "NTHW", "NTHWC")
+
+# Hysteresis thresholds as fractions of the per-image peak (repro.core.nms).
+DEFAULT_LOW = 0.10
+DEFAULT_HIGH = 0.20
+
+
+def detect_layout(shape: Tuple[int, ...]) -> str:
+    """Canonical layout string for an input shape.
+
+    A trailing dim of exactly 3 on a >= 3-D input is the RGB channel axis;
+    the last two remaining dims are ``(H, W)``; every leading dim is batch.
+    """
+    ndim = len(shape)
+    rgb = ndim >= 3 and shape[-1] == 3
+    spatial = ndim - (1 if rgb else 0)
+    if spatial < 2:
+        raise ValueError(f"cannot interpret shape {shape} as image(s)")
+    batch = spatial - 2
+    prefix = ("", "N", "NT")[batch] if batch <= 2 else "N" * batch
+    return prefix + "HW" + ("C" if rgb else "")
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeConfig:
+    """Everything one edge-detection call needs, in one frozen value.
+
+    The fields and defaults of ``repro.api.EdgeConfig``:
+      operator:   registered operator name (``sobel5`` | ``sobel3`` |
+                  ``scharr3`` | ``prewitt3`` | ``sobel7`` | custom).
+      plan:       multi-stage stencil plan — not ported yet.
+      directions: direction count; 0 = the operator's maximum.
+      variant:    ``direct``/``separable``/``v1``/``v2``; ``auto`` = the
+                  operator's best. Unsupported ladder variants coerce down.
+      params:     custom generalized weights (Sobel-5x5 family).
+      padding:    boundary rule: ``reflect`` | ``edge`` | ``zero``.
+      normalize:  scale the magnitude into [0, 255] per image.
+      backend:    ``auto`` | ``cuda`` | ``torch``; None = auto (``cuda`` on
+                  a CUDA device, ``torch`` on the CPU).
+      block_h/block_w: CTA output tile override; None = the default.
+      precision:  ``auto`` | ``f32`` run the f32 lane; ``int`` is not ported.
+      pipeline_depth: None; the DMA-ring depths 2..8 are not ported.
+      shard:      None; multi-GPU sharding is not ported.
+      nms, hysteresis, low, high, temporal, decay: the Canny and streaming
+                  stages — validated as the reference does, not ported.
+      with_components:  also return per-direction gradients ``(..., D, H, W)``.
+      with_orientation: also return ``atan2(G_y, G_x)``.
+      with_max:         also return the per-image peak of the unnormalized
+                        magnitude.
+    """
+
+    operator: str = "sobel5"
+    plan: Any = None
+    directions: int = 0
+    variant: str = "auto"
+    params: Optional[SobelParams] = None
+    padding: str = "reflect"
+    normalize: bool = True
+    backend: Optional[str] = None
+    block_h: Optional[int] = None
+    block_w: Optional[int] = None
+    precision: str = "auto"
+    pipeline_depth: Optional[int] = None
+    shard: Any = None
+    nms: bool = False
+    hysteresis: bool = False
+    low: Optional[float] = None
+    high: Optional[float] = None
+    temporal: bool = False
+    decay: float = 0.0
+    with_components: bool = False
+    with_orientation: bool = False
+    with_max: bool = False
+
+    def replace(self, **kw) -> "EdgeConfig":
+        return dataclasses.replace(self, **kw)
+
+    def resolved(self) -> "EdgeConfig":
+        """Fill ``auto``/0 fields from the operator spec and validate, as
+        ``repro.api.EdgeConfig.resolved`` does. Idempotent."""
+        if self.precision not in ("auto", "f32", "int"):
+            raise ValueError(
+                f"unknown precision {self.precision!r}; expected 'auto', "
+                "'f32' or 'int'"
+            )
+        if self.pipeline_depth is not None and not (
+            isinstance(self.pipeline_depth, int)
+            and 2 <= self.pipeline_depth <= 8
+        ):
+            raise ValueError(
+                f"pipeline_depth must be None (automatic) or an int in "
+                f"2..8 (manual DMA ring depth), got {self.pipeline_depth!r}"
+            )
+        if not 0.0 <= self.decay <= 1.0:
+            raise ValueError(
+                f"decay={self.decay} must be a per-frame attenuation in [0, 1]"
+            )
+        if self.decay and not self.temporal:
+            raise ValueError(
+                "decay is the temporal-hysteresis attenuation; set "
+                "temporal=True or leave it 0"
+            )
+        if self.padding not in ("reflect", "edge", "zero"):
+            raise ValueError(
+                f"unknown padding {self.padding!r}; expected reflect | edge | zero"
+            )
+        hysteresis = self.hysteresis or self.temporal
+        low, high = self.low, self.high
+        if not hysteresis and (low is not None or high is not None):
+            if (low, high) == (DEFAULT_LOW, DEFAULT_HIGH):
+                low = high = None
+            else:
+                raise ValueError(
+                    "low/high are hysteresis thresholds; set hysteresis=True "
+                    "or leave them unset"
+                )
+        if hysteresis:
+            low = DEFAULT_LOW if low is None else low
+            high = DEFAULT_HIGH if high is None else high
+        for name, v in (("low", low), ("high", high)):
+            if v is not None and not 0.0 <= v <= 1.0:
+                raise ValueError(
+                    f"{name}={v} must be a fraction of the magnitude peak in [0, 1]"
+                )
+        if low is not None and high is not None and low > high:
+            raise ValueError(f"low={low} must not exceed high={high}")
+        if self.plan is not None:
+            raise NotImplementedError(
+                "EdgeConfig.plan is not ported yet: ROADMAP queue 1 item 5 "
+                "(stencil plans)"
+            )
+        spec = get_operator(self.operator, self.params)
+        return self.replace(
+            directions=spec.resolve_directions(self.directions),
+            variant=spec.resolve_variant(self.variant),
+            nms=self.nms or hysteresis,
+            hysteresis=hysteresis,
+            low=low,
+            high=high,
+        )
+
+    @property
+    def spec(self) -> OperatorSpec:
+        return get_operator(self.operator, self.params)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeResult:
+    """Structured output of :func:`edge_detect` (tensors on the device).
+
+    ``magnitude`` is always present; the optional fields mirror the
+    ``with_*`` output selection of :class:`EdgeConfig`. ``thin``, ``edges``
+    and ``skipped`` belong to the unported NMS and streaming stages and
+    stay None. ``layout`` is the detected (or overridden) input layout;
+    ``config`` the resolved config that produced the result.
+    """
+
+    magnitude: torch.Tensor                     # (..., H, W) f32
+    components: Optional[torch.Tensor] = None   # (..., D, H, W) f32
+    orientation: Optional[torch.Tensor] = None  # (..., H, W) f32, radians
+    peak: Optional[torch.Tensor] = None         # (...,) f32 per-image max
+    thin: Optional[torch.Tensor] = None
+    edges: Optional[torch.Tensor] = None
+    skipped: Optional[torch.Tensor] = None
+    layout: str = "HW"
+    config: Optional[EdgeConfig] = None
+
+
+def edge_detect(
+    images,
+    config: Optional[EdgeConfig] = None,
+    *,
+    layout: Optional[str] = None,
+    device=None,
+    **overrides,
+) -> EdgeResult:
+    """Run the edge-detection pipeline on ``images``.
+
+    Args:
+      images: numpy array or tensor, ``HW`` / ``HWC`` / ``NHW`` / ``NHWC`` /
+        ``NTHW`` / ``NTHWC``; u8 or float.
+      config: an :class:`EdgeConfig`; None = defaults.
+      layout: explicit layout override (skips auto-detection).
+      device: where to run; None = the CUDA device (raises when there is
+        none). ``"cpu"`` runs the plain PyTorch version.
+      **overrides: field overrides applied to ``config``.
+
+    Returns:
+      :class:`EdgeResult` with batch dims mirroring the input's.
+    """
+    from repro_torch.kernels import dispatch
+
+    cfg = config or EdgeConfig()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return dispatch.edge(images, cfg.resolved(), layout=layout, device=device)

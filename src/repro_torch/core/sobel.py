@@ -1,0 +1,270 @@
+"""Multi-directional Sobel operator — the paper's variant ladder in plain PyTorch.
+
+Variants (paper Table 1):
+  * ``direct``    — dense 2-D correlation per direction.
+  * ``separable`` — "RG": K_x / K_y through their separable factors
+                    (Eq. 5-7); K_d / K_dt still dense.
+  * ``v1``        — "RG-v1": the diagonal transform K_d± = K_d ± K_dt
+                    (Eq. 10-17), one horizontal pass per distinct row.
+  * ``v2``        — "RG-v2": K_d- split into two separable products
+                    (Eq. 18-19), the first reusing K_x's horizontal pass F.
+
+The operation order is part of the result. Every function here does, tap
+for tap, the f32 operations ``repro.core.sobel`` does — zero taps skipped,
+±1 taps without a multiply, left-to-right accumulation — and each
+elementwise step is its own PyTorch op, so nothing is contracted into an
+FMA. This is the plain version the CUDA kernel (``kernels/csrc/edge.cu``)
+is held against. Inputs may carry leading batch dims: ``(..., H, W)``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import filters as F
+from repro_torch.core.filters import SobelParams
+from repro_torch.kernels.tiling import boundary_index
+
+__all__ = [
+    "sobel",
+    "sobel_components",
+    "spec_components",
+    "magnitude",
+    "VARIANTS",
+]
+
+VARIANTS = F.LADDER
+
+
+def _tap(term: torch.Tensor, w: float) -> torch.Tensor:
+    """``w * term`` in f32; ±1 taps skip the multiply."""
+    if w == 1.0:
+        return term
+    if w == -1.0:
+        return -term
+    return term * w
+
+
+def _halve(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``x / 2`` of the operator transform's sums (scaling by 2^-1)."""
+    return x * 0.5
+
+
+def _hpass(x: torch.Tensor, taps: np.ndarray, out_w: int) -> torch.Tensor:
+    """Horizontal correlation: out[..., y, j] = sum_t taps[t] * x[..., y, j+t].
+    Zero taps are skipped (the paper's F pass is 4 MACs, D is 2)."""
+    acc = None
+    for t, w in enumerate(np.asarray(taps).tolist()):
+        if w == 0.0:
+            continue
+        term = _tap(x[..., t:t + out_w], w)
+        acc = term if acc is None else acc + term
+    if acc is None:
+        return x.new_zeros(x.shape[:-1] + (out_w,))
+    return acc
+
+
+def _vpass(x: torch.Tensor, taps: np.ndarray, out_h: int) -> torch.Tensor:
+    """Vertical correlation: out[..., i, x] = sum_t taps[t] * x[..., i+t, x]."""
+    acc = None
+    for t, w in enumerate(np.asarray(taps).tolist()):
+        if w == 0.0:
+            continue
+        term = _tap(x[..., t:t + out_h, :], w)
+        acc = term if acc is None else acc + term
+    if acc is None:
+        return x.new_zeros(x.shape[:-2] + (out_h,) + x.shape[-1:])
+    return acc
+
+
+def _correlate2d(x: torch.Tensor, kernel: np.ndarray, out_h: int, out_w: int) -> torch.Tensor:
+    """Dense 2-D correlation via shifted slices (valid region), row-major taps."""
+    kh, kw = kernel.shape
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            w = float(kernel[i, j])
+            if w == 0.0:
+                continue
+            term = _tap(x[..., i:i + out_h, j:j + out_w], w)
+            acc = term if acc is None else acc + term
+    if acc is None:
+        raise ValueError("all-zero correlation kernel")
+    return acc
+
+
+def _sym_rowpass(xp: torch.Tensor, dense: np.ndarray, h: int, w: int) -> torch.Tensor:
+    """Dense correlation with one horizontal pass per *distinct* row (Eqs. 13-17).
+
+    Rows equal to an earlier row reuse its pass; rows equal to its negation
+    reuse it with a subtract; all-zero rows are skipped.
+    """
+    dense = np.asarray(dense, np.float32)
+    passes = {}
+    acc = None
+    for i, r_ in enumerate(dense):
+        if not np.any(r_):
+            continue
+        key, nkey = tuple(r_.tolist()), tuple((-r_).tolist())
+        if key in passes:
+            f, sign = passes[key], 1.0
+        elif nkey in passes:
+            f, sign = passes[nkey], -1.0
+        else:
+            f, sign = passes.setdefault(key, _hpass(xp, r_, w)), 1.0
+        term = f[..., i:i + h, :]
+        if acc is None:
+            acc = term if sign > 0 else -term
+        else:
+            acc = acc + term if sign > 0 else acc - term
+    if acc is None:
+        raise ValueError("all-zero correlation kernel")
+    return acc
+
+
+def spec_components(
+    xp: torch.Tensor, spec: F.OperatorSpec, h: int, w: int, variant: str, directions: int
+) -> Tuple[torch.Tensor, ...]:
+    """Direction components of ``spec`` on the pre-padded f32 image ``xp``.
+
+    ``variant``/``directions`` must already be resolved against the spec.
+    """
+    if variant == "direct":
+        return tuple(_correlate2d(xp, k, h, w) for k in spec.bank(directions))
+
+    col_x, row_x = spec.sep_factors(0)
+    col_y, row_y = spec.sep_factors(1)
+    f = _hpass(xp, row_x, w)  # the reused F pass
+    s = _hpass(xp, row_y, w)
+    gx = _vpass(f, col_x, h)
+    gy = _vpass(s, col_y, h)
+    if directions == 2:
+        return (gx, gy)
+
+    if variant == "separable":
+        bank = spec.bank(4)
+        return (gx, gy, _correlate2d(xp, bank[2], h, w), _correlate2d(xp, bank[3], h, w))
+
+    gd_plus = _sym_rowpass(xp, spec.kd_plus_dense(), h, w)
+    if variant == "v1":
+        gd_minus = _sym_rowpass(xp, spec.kd_minus_dense(), h, w)
+    elif variant == "v2":
+        col_f, col_d, row_d = spec.v2_arrays()
+        d = _hpass(xp, row_d, w)  # 2-tap difference D = p3 - p1
+        gd_minus = _vpass(f, col_f, h) - _vpass(d, col_d, h)
+    else:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    gd = _halve(gd_plus + gd_minus)   # Eq. 11
+    gdt = _halve(gd_plus - gd_minus)
+    return (gx, gy, gd, gdt)
+
+
+def _pad(image: torch.Tensor, r: int, padding: str) -> Tuple[torch.Tensor, int, int]:
+    """Boundary-extend the last two dims by ``r`` under ``padding``.
+
+    Index maps, not ``F.pad``: ``reflect`` must work when ``r`` is at least
+    the axis length (mirror-periodic, numpy semantics).
+    """
+    h, w = image.shape[-2], image.shape[-1]
+    if padding == "valid":
+        return image, h - 2 * r, w - 2 * r
+    gr = torch.arange(-r, h + r, device=image.device)
+    gc = torch.arange(-r, w + r, device=image.device)
+    xp = image.index_select(-2, boundary_index(gr, h, padding))
+    xp = xp.index_select(-1, boundary_index(gc, w, padding))
+    if padding == "zero":
+        inside = ((gr >= 0) & (gr < h))[:, None] & ((gc >= 0) & (gc < w))[None, :]
+        xp = torch.where(inside, xp, xp.new_zeros(()))
+    return xp, h, w
+
+
+def sobel_components(
+    image: torch.Tensor,
+    *,
+    size: int = 5,
+    directions: int = 0,
+    variant: str = "v2",
+    params: SobelParams = SobelParams(),
+    padding: str = "reflect",
+    operator: "str | None" = None,
+    precision: str = "f32",
+) -> Tuple[torch.Tensor, ...]:
+    """Per-direction gradient images ``(G_x, G_y[, G_d, G_dt])`` in f32.
+
+    ``operator`` names any registered operator; when omitted, ``size``
+    picks the Sobel operator of that size. ``directions`` of 0 means the
+    operator's maximum.
+    """
+    if variant not in VARIANTS and variant != "auto":
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    if precision == "int":
+        raise NotImplementedError(
+            "precision='int' (the exact integer lane) is not ported yet: "
+            "ROADMAP queue 1 item 4"
+        )
+    if precision != "f32":
+        raise ValueError(f"unknown precision {precision!r}; expected 'f32' or 'int'")
+    spec = F.get_operator(operator or F.operator_for_size(size), params)
+    directions = spec.resolve_directions(directions)
+    variant = spec.resolve_variant(variant)
+    x = torch.as_tensor(image).to(torch.float32)
+    xp, h, w = _pad(x, spec.radius, padding)
+    return spec_components(xp, spec, h, w, variant, directions)
+
+
+def magnitude(components: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """Root-sum-of-squares aggregation (Eq. 2 / Eq. 4): ``((g0² + g1²) + g2²) + g3²``.
+
+    The square root is taken in f64 and rounded once to f32, which is the
+    correctly rounded f32 square root (IEEE ``sqrtf``); PyTorch's vectorized
+    f32 ``sqrt`` on the CPU is not.
+    """
+    acc = None
+    for g in components:
+        g2 = g * g
+        acc = g2 if acc is None else acc + g2
+    return torch.sqrt(acc.to(torch.float64)).to(torch.float32)
+
+
+def sobel(
+    image: torch.Tensor,
+    *,
+    size: int = 5,
+    directions: int = 0,
+    variant: str = "v2",
+    params: SobelParams = SobelParams(),
+    padding: str = "reflect",
+    return_components: bool = False,
+    operator: "str | None" = None,
+    precision: str = "f32",
+):
+    """Multi-directional edge magnitude ``G`` (paper Eq. 4).
+
+    Args:
+      image: ``(..., H, W)`` grayscale image(s); any real dtype.
+      size: 3, 5 or 7 (operator selector; ignored when ``operator`` is set).
+      directions: 2 or 4; 0 (default) = the operator's maximum.
+      variant: ``direct | separable | v1 | v2`` (coerced to the operator's
+        best supported variant; identical results).
+      params: generalized weights (Sobel-5x5 family only).
+      padding: ``reflect | edge | zero`` (same-size output) or ``valid``.
+      return_components: also return the per-direction gradients.
+      operator: registered operator name (overrides ``size``).
+      precision: ``f32``; ``int`` is not ported yet and raises.
+    """
+    comps = sobel_components(
+        image,
+        size=size,
+        directions=directions,
+        variant=variant,
+        params=params,
+        padding=padding,
+        operator=operator,
+        precision=precision,
+    )
+    g = magnitude(comps)
+    if return_components:
+        return g, comps
+    return g

@@ -1,0 +1,102 @@
+"""Builds the port's CUDA sources with ``nvcc`` and loads them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
+``build/repro_torch/lib<name>-<digest>.so`` at the root of the checkout, at
+first use. The digest covers every file under ``csrc/`` and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. No source
+includes PyTorch's headers, which keeps a build to seconds.
+
+Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false``: the kernels must
+round every product and sum on its own to stay bit-identical to their plain
+PyTorch versions. No ``--use_fast_math``: ``sqrtf`` and division stay IEEE.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "library_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "--fmad=false", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+BUILD_TIMEOUT_S = 900
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin); the "
+            "CUDA kernels are built from source at first use"
+        )
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named sources (default: every ``csrc/*.cu``) that are not
+    built yet, one ``nvcc`` each.
+
+    Returns ``{name: compiler output}`` for the sources compiled by this
+    call (``-Xptxas -v`` reports registers, shared memory and spills).
+    Raises ``RuntimeError`` with the compiler's output when a build fails.
+    """
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    logs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S}s on {name}.cu") from e
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        logs[name] = log
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,77 @@
+"""Boundary rules, ragged-tile masks and luma, shared by the kernel's plain version.
+
+The part of ``repro.kernels.tiling`` that is arithmetic rather than Pallas
+window geometry: the CUDA kernel (``csrc/edge.cu``) applies the same index
+maps while it stages its halo window in shared memory, and the plain
+PyTorch version builds the boundary-extended image from them.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "PAD_MODES",
+    "LUMA_WEIGHTS",
+    "window_radius",
+    "reflect_index",
+    "boundary_index",
+    "valid_mask",
+    "luma",
+]
+
+PAD_MODES = ("reflect", "edge", "zero")
+
+# BT.601 luma weights (OpenCV cvtColor convention); the same constants as
+# repro_torch.core.pipeline.rgb_to_gray and the CUDA kernel.
+LUMA_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def window_radius(radius: int, nms: bool = False) -> int:
+    """Input-window reach of a fused kernel step: the stencil radius, plus
+    the 1-px neighbourhood NMS compares against."""
+    return radius + (1 if nms else 0)
+
+
+def reflect_index(g: torch.Tensor, n: int) -> torch.Tensor:
+    """numpy ``mode='reflect'`` source index for any overhang.
+
+    The padded sequence is mirror-periodic with period ``2(n - 1)``; a
+    single-pixel axis reflects to itself.
+    """
+    if n == 1:
+        return torch.zeros_like(g)
+    period = 2 * (n - 1)
+    m = torch.remainder(g, period)          # floored: non-negative for g < 0
+    return torch.where(m < n, m, period - m)
+
+
+def boundary_index(g: torch.Tensor, n: int, padding: str) -> torch.Tensor:
+    """Source coordinate in [0, n) for requested coordinate ``g`` under the
+    padding rule. ``zero`` clamps like ``edge``; the caller zeroes the
+    out-of-range rows and columns afterwards."""
+    if padding == "reflect":
+        return torch.clamp(reflect_index(g, n), 0, n - 1)
+    if padding in ("edge", "zero"):
+        return torch.clamp(g, 0, n - 1)
+    raise ValueError(f"unknown padding {padding!r}; expected one of {PAD_MODES}")
+
+
+def valid_mask(k: int, j: int, h: int, w: int, block_h: int, block_w: int,
+               device=None) -> torch.Tensor:
+    """(block_h, block_w) bool mask of output pixels of tile (k, j) inside the
+    image — False only in the ragged overhang of the last row/column tiles."""
+    rv = (k * block_h + torch.arange(block_h, device=device)) < h
+    cv = (j * block_w + torch.arange(block_w, device=device)) < w
+    return rv[:, None] & cv[None, :]
+
+
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB -> (...) f32 grayscale as ``(0.299 R + 0.587 G) + 0.114 B``.
+
+    Each product is a separate f32 multiply and each sum a separate add, so
+    no step is contracted into an FMA.
+    """
+    x = rgb.to(torch.float32)
+    return (
+        x[..., 0] * LUMA_WEIGHTS[0] + x[..., 1] * LUMA_WEIGHTS[1]
+    ) + x[..., 2] * LUMA_WEIGHTS[2]
