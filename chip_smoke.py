@@ -4,7 +4,7 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 
 1. Prints the card's name and power limit, the torch/CUDA versions, and
    builds every kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source), printing the build seconds.
+   per source, all started together), printing the build seconds.
 2. Holds K1 (``edge_cuda``) bit-equal (``torch.equal``) to its plain PyTorch
    version (``edge_plain``) on the card: magnitude, components and per-tile
    max, for every operator x variant x directions x padding at 1x1, 2x3,
@@ -12,19 +12,47 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    fractional RGB f32, and for the default config at 2048x2048 f32 gray and
    1080x1920 RGB u8. The operators are the five built-ins and a 9x9
    separable one, the largest size the kernel takes.
+2b. Holds K1's NMS outputs (``out_nms``: thin map, centre components,
+   un-thinned magnitude, per-tile max) bit-equal to ``edge_plain`` for
+   sizes 3/5/7/9, 2 and 4 directions, every padding, gray u8/f32 and RGB
+   u8/f32, at 1x1, 2x3, 37x53 and 70x270 on two tile shapes.
+2c. Holds K3 (``edge_stream_cuda``) bit-equal to ``edge_stream_plain`` with
+   masks all-0, all-1 and random, NMS on and off, on ragged shapes and at
+   4x2048x2048 u8; with an all-1 mask K3 must equal K1.
 3. Drives the facade, ``repro_torch.api.edge_detect`` with the default
    ``EdgeConfig()``, on a 1080p RGB u8 batch and an NTHW gray u8 stack; each
    must equal ``backend="torch"`` on the same device, must agree with
    digests of the JAX reference's output on small inputs, and must launch K1.
+3b. ``edge_detect(..., nms=True, hysteresis=True)`` on the card equals the
+   torch lane, and 8 frames of 4 full-width streams through
+   ``edge_detect_stream`` with ``decay=0`` equal 8 stateless ``edge_detect``
+   calls.
 4. Serves sobel-hd at full size (2048x2048 f32 frames, 4 per request, 8
    requests) through ``repro_torch.launch.serve`` in-process, with the
    launch counts set to 0 just before and read just after; the last answer
    must equal the torch lane's on the same frames. One more request runs
-   under ``torch.profiler`` and its device time by kernel is printed.
-5. Times K1 with CUDA events at the server's shape and at 1080p RGB u8,
-   beside its plain version, its bound on the card and a library yardstick
-   (cuDNN ``F.conv2d`` of the 4-direction bank, which covers the components
-   only and is used nowhere in the port), and prints one JSON line of them.
+   under ``torch.profiler`` and its device time by kernel is printed. Then
+   the same server with ``--edges`` (K1's NMS outputs + hysteresis).
+4b. The streaming detector, the main path of this slice: ``--streams 4
+   --requests 8`` at full width (2048x2048 u8, 64x256 tiles), three runs:
+   ``--motion 2``, ``--motion 0`` (the cached path) and ``--decay 0.9``.
+   Each run must launch K3 (counts set to 0 just before), degrade and
+   retry nothing, account for every frame, and equal, frame by frame, a
+   replay of the same frames through the torch lane. Prints per-stream
+   compute and transfer p50/p99, the skip rate, and the hysteresis
+   iterations.
+4c. Times the parts of one stream step of the motion run: the transfer,
+   the change test, K3, hysteresis, the epilogue and the whole step.
+4d. The same step with hysteresis fractions that leave weak chains to link
+   (``WEAK_LOW``/``WEAK_HIGH``): must equal the torch lane and take as many
+   dilation steps; prints the steps and the linking loop's time.
+5. Times K1, K1 with ``out_nms`` and K3 (at 0%, the motion run's share and
+   100% of tiles changed) with CUDA events, beside their plain versions and
+   their bounds on the card (the NMS lane's operations counted on the
+   pixels each mask needs, ``nms_lane_ops``), with a library yardstick for K1 (cuDNN
+   ``F.conv2d`` of the 4-direction bank, which covers the components only
+   and is used nowhere in the port; no single PyTorch call computes the
+   NMS lane or K3), and prints one JSON line of them.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
@@ -50,6 +78,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 33.5e12      # 67 TFLOP/s f32 counts an FMA as 2; --fmad=false runs 1 op per instruction
 SIZES = ((1, 1), (2, 3), (37, 53), (237, 413))
+NMS_SIZES = ((1, 1), (2, 3), (37, 53), (70, 270))
+KINDS = ("u8", "f32", "rgb", "rgb_f32")
 
 # sha256 of the JAX reference's outputs, repro.api.edge_detect(...,
 # EdgeConfig(backend="xla", with_max=True)), on the _golden_inputs() frames;
@@ -149,11 +179,74 @@ def kernel_ops_per_pixel(spec, variant: str, directions: int, rgb: bool) -> int:
     return ops
 
 
-def bound(n_px: int, in_bytes_px: int, out_bytes: int, ops_px: int):
+def nms_ops_per_pixel(directions: int) -> int:
+    """f32 operations of the sector and the suppression per output pixel:
+    4 directions: 4 abs + 6 compares; 2 directions: 2 abs, 2 multiplies by
+    tan(pi/8), 2 compares and 2 sign tests; then 2 compares against the
+    neighbours."""
+    return (10 if directions == 4 else 8) + 2
+
+
+def magnitude_pixels(mask: np.ndarray, h: int, w: int, bh: int, bw: int) -> int:
+    """Pixels of the boundary-extended frames whose magnitude the NMS lane
+    needs on ``mask`` (N, gh, gw): each changed tile's pixels and its
+    one-pixel ring, each pixel counted once. A ring inside a changed
+    neighbour is that neighbour's own work, so only edges that face an
+    unchanged tile or the border add pixels: (H+2)(W+2) a frame when every
+    tile changed."""
+    changed = np.repeat(np.repeat(mask.astype(bool), bh, axis=-2), bw, axis=-1)[..., :h, :w]
+    need = np.pad(changed, [(0, 0), (1, 1), (1, 1)])
+    rows = need.copy()
+    rows[:, 1:] |= need[:, :-1]
+    rows[:, :-1] |= need[:, 1:]
+    need = rows.copy()
+    need[:, :, 1:] |= rows[:, :, :-1]
+    need[:, :, :-1] |= rows[:, :, 1:]
+    return int(need.sum())
+
+
+def nms_lane_ops(spec, variant: str, directions: int, rgb: bool, mask: np.ndarray, h: int,
+                 w: int, bh: int, bw: int) -> int:
+    """Operations of the NMS lane on ``mask`` (K3; all ones for K1
+    ``out_nms``): the luma, the sector and the suppression once per pixel of
+    a changed tile, the ladder and magnitude once per pixel in
+    :func:`magnitude_pixels`."""
+    changed_px = int((tile_pixels(h, w, bh, bw)[None] * mask.astype(bool)).sum())
+    ladder = kernel_ops_per_pixel(spec, variant, directions, rgb=False)
+    per_px = (5 if rgb else 0) + nms_ops_per_pixel(directions)
+    return ladder * magnitude_pixels(mask, h, w, bh, bw) + per_px * changed_px
+
+
+def bound(n_px: int, in_bytes_px: int, out_bytes: int, ops_px: float):
     t_bytes = (n_px * in_bytes_px + out_bytes) / HBM_BYTES_PER_S
     t_ops = n_px * ops_px / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             t_bytes * 1e3, t_ops * 1e3)
+
+
+def tile_pixels(h: int, w: int, bh: int, bw: int) -> np.ndarray:
+    """(gh, gw) in-image pixel count of each tile."""
+    rows = np.minimum(bh, h - bh * np.arange(-(-h // bh)))
+    cols = np.minimum(bw, w - bw * np.arange(-(-w // bw)))
+    return np.outer(rows, cols)
+
+
+def stream_bound(mask: np.ndarray, h: int, w: int, bh: int, bw: int, in_bytes_px: int,
+                 ops: int):
+    """K3's bound on this mask: a changed tile reads its input once and
+    writes 4 B/px; a spliced tile reads and writes 4 B/px each; the mask is
+    read, each tile max written, a spliced tile's cached max read; ``ops``
+    are the operations this mask needs (:func:`nms_lane_ops`)."""
+    px = tile_pixels(h, w, bh, bw)[None]
+    changed = mask.astype(bool)
+    changed_px = int((px * changed).sum())
+    spliced_px = int((px * ~changed).sum())
+    n_tiles = mask.size
+    t_bytes = (changed_px * (in_bytes_px + 4) + spliced_px * 8
+               + n_tiles * 8 + int((~changed).sum()) * 4) / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3, changed_px / (changed_px + spliced_px))
 
 
 def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -171,22 +264,9 @@ def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
-    from repro_torch.api import EdgeConfig, edge_detect
-    from repro_torch.configs import get_config
-    from repro_torch.core.filters import get_operator
-    from repro_torch.data.synthetic import image_batch
+def phase_build():
     from repro_torch.kernels import build
-    from repro_torch.kernels.edge import KMAX, edge_cuda, edge_plain
-    from repro_torch.launch import serve
 
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"card: {card}")
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     logs = build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s for {sorted(logs) or 'cached libraries'}")
@@ -195,13 +275,17 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # -- phase 2: kernel against plain --------------------------------------
+
+def phase_kernel_vs_plain(rng, dev):
+    """Phase 2: K1 against edge_plain; returns the full-size inputs to time."""
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import KMAX, edge_cuda, edge_plain
+
     t0 = time.perf_counter()
     check(separable9().size == KMAX, f"phase 2 must cover the largest size, {KMAX}")
-    rng = np.random.default_rng(0)
     cases = mismatches = 0
     for shape in SIZES:
-        inputs = {k: frames(k, (2,) + shape, rng, dev) for k in ("u8", "f32", "rgb", "rgb_f32")}
+        inputs = {k: frames(k, (2,) + shape, rng, dev) for k in KINDS}
         for op in ("sobel5", "sobel3", "scharr3", "prewitt3", "sobel7", "sep9"):
             spec = get_operator(op)
             for variant in spec.variants:
@@ -247,8 +331,94 @@ def main() -> None:
     print(f"kernel vs plain: {cases} cases, {mismatches} mismatches "
           f"({time.perf_counter() - t0:.1f}s)")
     check(mismatches == 0, f"K1 differs from edge_plain in {mismatches} of {cases} cases")
+    return full
 
-    # -- phase 3: the facade --------------------------------------------------
+
+def _same(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_nms_vs_plain(rng, dev):
+    """Phase 2b: K1's NMS outputs against edge_plain."""
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import edge_cuda, edge_plain
+
+    t0 = time.perf_counter()
+    cases = mismatches = 0
+    extras = (dict(), dict(out_components=True, out_mag=True, with_max=True))
+    for shape in NMS_SIZES:
+        inputs = {k: frames(k, (2,) + shape, rng, dev) for k in KINDS}
+        for op in ("sobel3", "sobel5", "sobel7", "sep9"):
+            spec = get_operator(op)
+            variant = spec.resolve_variant("auto")
+            for d in spec.directions:
+                for padding in ("reflect", "edge", "zero"):
+                    for kind, x in inputs.items():
+                        for block in ((16, 32), (64, 256)):
+                            for extra in extras:
+                                kw = dict(spec=spec, variant=variant, directions=d,
+                                          padding=padding, block_h=block[0], block_w=block[1],
+                                          rgb=kind.startswith("rgb"), out_nms=True, **extra)
+                                cases += 1
+                                if not _same(edge_cuda(x, **kw), edge_plain(x, **kw)):
+                                    mismatches += 1
+                                    print(f"  MISMATCH nms {shape} {op} {d} {padding} {kind} "
+                                          f"block={block} {sorted(extra)}")
+    torch.cuda.synchronize()
+    print(f"K1 out_nms vs plain: {cases} cases, {mismatches} mismatches "
+          f"({time.perf_counter() - t0:.1f}s)")
+    check(mismatches == 0, f"K1 out_nms differs from edge_plain in {mismatches} of {cases} cases")
+
+
+def phase_stream_vs_plain(rng, dev):
+    """Phase 2c: K3 against edge_stream_plain, and against K1 on an all-1 mask."""
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import edge_cuda, edge_stream_cuda, edge_stream_plain
+
+    t0 = time.perf_counter()
+    spec = get_operator("sobel5")
+    cases = mismatches = 0
+    for kind, shape, block in (("u8", (2, 37, 53), (16, 32)), ("f32", (2, 70, 270), (64, 256)),
+                               ("rgb", (2, 130, 300), (32, 128)), ("u8", (1, 1, 1), (8, 8)),
+                               ("u8", (4, 2048, 2048), (64, 256))):
+        x = frames(kind, shape, rng, dev)
+        n, h, w = shape
+        gh, gw = -(-h // block[0]), -(-w // block[1])
+        prev = torch.rand((n, h, w), device=dev) * 50
+        prev_max = torch.rand((n, gh, gw), device=dev) * 50
+        masks = {"0": torch.zeros((n, gh, gw), dtype=torch.int32, device=dev),
+                 "1": torch.ones((n, gh, gw), dtype=torch.int32, device=dev),
+                 "random": torch.from_numpy(rng.integers(0, 2, (n, gh, gw)).astype(np.int32)
+                                            ).to(dev)}
+        for out_nms in (False, True):
+            kw = dict(spec=spec, variant="v2", directions=4, block_h=block[0],
+                      block_w=block[1], rgb=kind == "rgb", out_nms=out_nms)
+            for name, mask in masks.items():
+                a = edge_stream_cuda(x, prev, prev_max, mask, **kw)
+                b = edge_stream_plain(x, prev, prev_max, mask, **kw)
+                cases += 1
+                ok = _same(a, b)
+                if name == "1":
+                    ok = ok and _same(a, edge_cuda(x, with_max=True, **kw))
+                if name == "0":
+                    ok = ok and torch.equal(a[0], prev) and torch.equal(a[1], prev_max)
+                if not ok:
+                    mismatches += 1
+                    print(f"  MISMATCH K3 {kind} {shape} block={block} nms={out_nms} mask={name}")
+    torch.cuda.synchronize()
+    print(f"K3 vs plain: {cases} cases, {mismatches} mismatches "
+          f"({time.perf_counter() - t0:.1f}s)")
+    check(mismatches == 0, f"K3 differs from edge_stream_plain in {mismatches} of {cases} cases")
+
+
+def phase_facade(rng, dev):
+    """Phase 3: the facade on the card against the reference's digests and
+    the torch lane."""
+    from repro_torch.api import EdgeConfig, edge_detect
+    from repro_torch.kernels.edge import edge_cuda
+
     for name, arr in golden_inputs().items():
         res = edge_detect(arr, EdgeConfig(with_max=True))
         for field in ("magnitude", "peak"):
@@ -273,7 +443,58 @@ def main() -> None:
         check(bool(torch.isfinite(res.magnitude).all()), f"facade on {label}: non-finite output")
         print(f"facade {label}: layout {res.layout}, K1 launches {launches}, equal to torch lane")
 
-    # -- phase 4: the server (the main path) ---------------------------------
+
+def video(cfg, n_streams: int, step: int, motion: float, dev):
+    """The stream server's frames of one step, stacked, on ``dev``."""
+    from repro_torch.data.synthetic import video_frame
+
+    return torch.from_numpy(np.stack([video_frame(cfg, stream=s, step=step, motion=motion)
+                                      for s in range(n_streams)])).to(dev)
+
+
+def phase_nms_facade(rng, dev):
+    """Phase 3b: NMS + hysteresis through the facade, and the stream path
+    with decay 0 against stateless calls, at full width."""
+    from repro_torch.api import EdgeConfig, edge_detect, edge_detect_stream
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.edge import edge_cuda, edge_stream_cuda
+
+    t0 = time.perf_counter()
+    x = frames("rgb", (2, 1080, 1920), rng, dev)
+    cfg = EdgeConfig(hysteresis=True, with_max=True)
+    edge_cuda.launches = 0
+    res = edge_detect(x, cfg)
+    check(edge_cuda.launches == 1, "edge_detect(hysteresis) did not launch K1 once")
+    ref = edge_detect(x, cfg.replace(backend="torch"))
+    for field in ("magnitude", "thin", "edges", "peak"):
+        check(torch.equal(getattr(res, field), getattr(ref, field)),
+              f"edge_detect(nms, hysteresis): cuda and torch lanes differ in {field}")
+    full = get_config("sobel-hd")
+    stream_cfg = full.edge_config(temporal=True, decay=0.0, with_max=True)
+    stateless = full.edge_config(hysteresis=True, with_max=True)
+    state = None
+    edge_stream_cuda.launches = 0
+    for t in range(8):
+        f = video(full, 4, t, 2.0, dev)
+        out, state = edge_detect_stream(f, stream_cfg, state)
+        want = edge_detect(f, stateless)
+        for field in ("magnitude", "edges", "peak"):
+            check(torch.equal(getattr(out, field), getattr(want, field)),
+                  f"stream step {t} with decay 0 differs from stateless edge_detect in {field}")
+    check(edge_stream_cuda.launches == 8, "edge_detect_stream did not launch K3 each frame")
+    print(f"facade nms: edge_detect(hysteresis) equals the torch lane; 8 frames of 4 "
+          f"{full.image_h}x{full.image_w} streams with decay 0 equal 8 stateless calls "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+
+def phase_server(dev):
+    """Phase 4: the image server and its --edges mode."""
+    from repro_torch.api import edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.kernels.edge import edge_cuda
+    from repro_torch.launch import serve
+
     edge_cuda.launches = 0
     stats = serve.main(["--arch", "sobel-hd", "--slots", "4", "--requests", "8"])
     server_launches = edge_cuda.launches
@@ -318,9 +539,190 @@ def main() -> None:
     for e in kernels_run[:6]:
         print(f"  {e.self_device_time_total:9.1f} us  x{e.count}  {e.key[:90]}")
 
-    # -- phase 5: timing beside the bound ------------------------------------
+    edge_cuda.launches = 0
+    edges = serve.main(["--arch", "sobel-hd", "--slots", "4", "--requests", "4", "--edges"])
+    edges_launches = edge_cuda.launches
+    check(edges_launches >= 1, "the --edges server did not launch K1")
+    last = torch.from_numpy(image_batch(full_cfg, 4, step=3)["images"]).to(dev)
+    plain = edge_detect(last, full_cfg.edge_config(with_max=True, nms=True, hysteresis=True,
+                                                   backend="torch"))
+    res = edges["result"]
+    for field in ("magnitude", "thin", "edges", "peak"):
+        check(torch.equal(getattr(res, field), getattr(plain, field)),
+              f"the --edges server's last answer differs from the torch lane in {field}")
+    check(0.0 < edges["edge_density"] < 0.5, f"edge density {edges['edge_density']}")
+    print(f"--edges server: {edges_launches} K1 launches (NMS outputs); compute p50 "
+          f"{edges['compute_p50_ms']:.2f} ms p95 {edges['compute_p95_ms']:.2f} ms; edge density "
+          f"{edges['edge_density']:.4f}; last answer equal to the torch lane")
+    return server_launches, edges_launches
+
+
+def phase_stream_server(dev):
+    """Phase 4b: the stream server at full width, three runs, each replayed
+    through the torch lane frame by frame."""
+    from repro_torch.api import edge_detect_stream
+    from repro_torch.configs import get_config
+    from repro_torch.core import nms
+    from repro_torch.kernels.edge import edge_cuda, edge_stream_cuda
+    from repro_torch.launch import serve
+
+    full = get_config("sobel-hd")
+    n_streams, n_frames = 4, 8
+    runs = {}
+    for label, motion, decay in (("motion", 2.0, 0.0), ("static", 0.0, 0.0),
+                                 ("decay", 2.0, 0.9)):
+        edge_cuda.launches = edge_stream_cuda.launches = 0
+        stats = serve.main(["--arch", "sobel-hd", "--streams", str(n_streams), "--slots",
+                            str(n_streams), "--requests", str(n_frames), "--motion", str(motion),
+                            "--decay", str(decay), "--collect"])
+        k3 = edge_stream_cuda.launches
+        k1 = edge_cuda.launches
+        health = stats["health"]
+        check(not health.degraded and health.retries == 0,
+              f"stream run {label}: degraded={health.degraded} retries={health.retries}")
+        counts = health.counts
+        check(counts["served"] + counts["retried"] + counts["degraded"] + counts["shed"]
+              + counts["quarantined"] == health.submitted == n_streams * n_frames,
+              f"stream run {label}: accounting {counts} vs submitted {health.submitted}")
+        check(k3 >= 1, f"stream run {label} did not launch K3")
+        cached = sum(st.cached_steps for st in stats["streams"].values())
+        if label == "motion":
+            check(stats["skip_rate"] > 0, "the motion run skipped no tile")
+        if label == "static":
+            check(k3 == 1 and cached == n_streams * (n_frames - 1),
+                  f"the static run launched K3 {k3} times with {cached} cached steps")
+        # Replay the same frames through the torch lane and hold every served
+        # frame of every stream against it.
+        cfg = stats["config"].replace(backend="torch")
+        state, iters, replayed = None, [], {}
+        for t in range(n_frames):
+            f = video(full, n_streams, t, motion, dev)
+            res, state = edge_detect_stream(f, cfg, state)
+            iters.append(nms.hysteresis.iterations)
+            for sid in range(n_streams):
+                out = stats["streams"][sid].outputs[t]
+                ok = (np.array_equal(out["magnitude"], res.magnitude[sid].cpu().numpy())
+                      and np.array_equal(out["edges"], res.edges[sid].cpu().numpy())
+                      and out["skipped"] == int(res.skipped[sid]))
+                check(ok, f"stream run {label}: stream {sid} frame {t} differs from the torch lane")
+            if t >= n_frames - 2:
+                replayed[t] = (f, state)
+        ps = stats["per_stream"]
+        print(f"stream server {label} (motion {motion}, decay {decay}): K3 launches {k3}, "
+              f"K1 launches {k1}, cached steps {cached}, skip rate {stats['skip_rate']:.4f}, "
+              f"{stats['frames_per_s']:.1f} frames/s; every frame equal to the torch lane; "
+              f"hysteresis dilation steps per frame {iters}")
+        for sid, row in ps.items():
+            print(f"  stream {sid}: compute p50 {row['compute_p50_ms']:.3f} ms p99 "
+                  f"{row['compute_p99_ms']:.3f} ms; transfer p50 {row['transfer_p50_ms']:.3f} ms "
+                  f"p99 {row['transfer_p99_ms']:.3f} ms; skip {row['skip_rate']:.4f}")
+        print(f"  {health.summary()}")
+        for st in stats["streams"].values():
+            st.outputs.clear()
+        runs[label] = dict(k3=k3, cfg=stats["config"], replayed=replayed, motion=motion)
+    return runs
+
+
+def phase_step_parts(run, dev):
+    """Phase 4c: where one stream step of the motion run goes; returns the
+    step's change mask."""
+    from repro_torch.core import nms
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import video_frame
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.edge import edge_stream_cuda
+
+    cfg = run["cfg"]
+    full = get_config("sobel-hd")
+    (_, (_, state)), (t_last, (x, _)) = sorted(run["replayed"].items())
+    host = torch.from_numpy(np.stack([video_frame(full, stream=s, step=t_last, motion=run["motion"])
+                                      for s in range(x.shape[0])]))
+    xfer = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        host.to(dev)
+        torch.cuda.synchronize()
+        xfer.append((time.perf_counter() - t0) * 1e3)
+    changed, skipped = dispatch.stream_delta(x, state, cfg)
+    mask = changed.to(torch.int32).contiguous()
+    bh, bw = state.block
+    kw = dict(spec=cfg.spec, variant=cfg.variant, directions=cfg.directions,
+              padding=cfg.padding, block_h=bh, block_w=bw, out_nms=True)
+    primary, bmax = edge_stream_cuda(x, state.primary, state.bmax, mask, **kw)
+    peak = bmax.amax(dim=(-2, -1), keepdim=True)
+    low, high = nms.resolve_thresholds(peak, cfg.low, cfg.high)
+    parts = {
+        "transfer (host clock, pageable)": statistics.median(xfer),
+        "change test (stream_delta)": median_ms(lambda: dispatch.stream_delta(x, state, cfg),
+                                                reps=10),
+        "K3": median_ms(lambda: edge_stream_cuda(x, state.primary, state.bmax, mask, **kw),
+                        reps=10),
+        "hysteresis": median_ms(lambda: nms.hysteresis(primary, low, high), reps=5, warm=1),
+        "epilogue (peak, hysteresis, normalize)": median_ms(
+            lambda: dispatch._stream_epilogue(x, cfg, state, primary, bmax, skipped,
+                                              batch_shape=(x.shape[0],), layout="NHW"),
+            reps=5, warm=1),
+        "whole step (edge_stream)": median_ms(
+            lambda: dispatch.edge_stream(x, cfg, state), reps=5, warm=1),
+    }
+    iters = nms.hysteresis.iterations
+    share = float(changed.float().mean())
+    print(f"one stream step of the motion run (frame {t_last}, 4x{x.shape[1]}x{x.shape[2]} u8, "
+          f"{100 * share:.2f}% of tiles changed; hysteresis {iters} dilation steps):")
+    for name, ms in parts.items():
+        print(f"  {ms:9.4f} ms  {name}")
+    return mask
+
+
+# Hysteresis fractions that give the synthetic frames weak chains: the
+# textured background's thin maxima lie between 1% and 3% of the peak, so
+# they link to the strong ridges over hundreds of dilation steps (the
+# defaults, 10% and 20%, leave nothing weak but unlinked).
+WEAK_LOW, WEAK_HIGH = 0.01, 0.03
+
+
+def phase_linking(run, dev):
+    """Phase 4d: one stream step of the motion run with weak chains to link,
+    on the card and on the torch lane; times the linking loop."""
+    from repro_torch.api import edge_detect_stream
+    from repro_torch.core import nms
+    from repro_torch.kernels.edge import edge_stream_cuda
+
+    cfg = run["cfg"].replace(low=WEAK_LOW, high=WEAK_HIGH)
+    (_, (_, state)), (t_last, (x, _)) = sorted(run["replayed"].items())
+    launches = edge_stream_cuda.launches
+    res, new_state = edge_detect_stream(x, cfg, state)
+    check(edge_stream_cuda.launches > launches, "the linking step did not launch K3")
+    steps = nms.hysteresis.iterations
+    ref, ref_state = edge_detect_stream(x, cfg.replace(backend="torch"), state)
+    check(nms.hysteresis.iterations == steps, "the torch lane linked in another number of steps")
+    ok = (torch.equal(res.magnitude, ref.magnitude) and torch.equal(res.edges, ref.edges)
+          and torch.equal(res.skipped, ref.skipped)
+          and torch.equal(new_state.primary, ref_state.primary))
+    check(ok, "the linking step differs from the torch lane")
+    peak = new_state.bmax.amax(dim=(-2, -1), keepdim=True)
+    low, high = nms.resolve_thresholds(peak, cfg.low, cfg.high)
+    thin = new_state.primary
+    weak, strong = int((thin > low).sum()), int(((thin > high) & (thin > low)).sum())
+    hyst_ms = median_ms(lambda: nms.hysteresis(thin, low, high), reps=3, warm=1)
+    step_ms = median_ms(lambda: edge_detect_stream(x, cfg, state), reps=3, warm=1)
+    print(f"linking (frame {t_last} of the motion run, low {WEAK_LOW}, high {WEAK_HIGH}): "
+          f"{weak} weak and {strong} strong pixels, {int(res.edges.sum())} edges; "
+          f"{steps} dilation steps; equal to the torch lane")
+    print(f"  {hyst_ms:9.4f} ms  hysteresis ({hyst_ms / steps:.4f} ms a dilation step)")
+    print(f"  {step_ms:9.4f} ms  whole edge_detect_stream step")
+    return dict(steps=steps, hysteresis_ms=hyst_ms, step_ms=step_ms, weak=weak, strong=strong)
+
+
+def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches):
+    """Phase 5: K1, K1 out_nms and K3 beside their plain versions and bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import edge_cuda, edge_plain, edge_stream_cuda, edge_stream_plain
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    spec5 = get_operator("sobel5")
     bank = torch.from_numpy(spec5.bank(4)).to(dev)[:, None]
 
     def conv_components(x, rgb):
@@ -350,8 +752,59 @@ def main() -> None:
               f"(bytes {t_bytes:.4f} ms, {ops} ops/px {t_ops:.4f} ms); "
               f"cuDNN conv2d of the 4-direction bank (components only) {library_ms:.4f} ms")
 
+    # The stream server's shape: 4 x 2048 x 2048 u8, 64 x 256 tiles, NMS on.
+    cfg = get_config("sobel-hd")
+    rng = np.random.default_rng(5)
+    n, h, w = motion_mask.shape[0], cfg.image_h, cfg.image_w
+    bh, bw = cfg.sobel_block_h, cfg.sobel_block_w
+    x = video(cfg, n, 3, 2.0, dev)
+    n_px = n * h * w
+    kw = dict(spec=spec5, variant="v2", directions=4, padding="reflect", block_h=bh,
+              block_w=bw, out_nms=True)
+    gh, gw = -(-h // bh), -(-w // bw)
+    nms_ops = nms_lane_ops(spec5, "v2", 4, False, np.ones((n, gh, gw), bool), h, w, bh, bw) / n_px
+    a, am = edge_cuda(x, with_max=True, **kw)
+    b, bm = edge_plain(x, with_max=True, **kw)
+    check(torch.equal(a, b) and torch.equal(am, bm), "K1 out_nms at the stream shape differs")
+    nms_err = float((a - b).abs().max())
+    b_ms, b_by, t_bytes, t_ops = bound(n_px, 1, n_px * 4 + n * gh * gw * 4, nms_ops)
+    k1_nms = dict(ms=median_ms(lambda: edge_cuda(x, with_max=True, **kw)),
+                  plain_ms=median_ms(lambda: edge_plain(x, with_max=True, **kw), reps=5, warm=1),
+                  bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
+                  ops_per_px=nms_ops, max_abs_err=nms_err, shape=[n, h, w], library_ms=None,
+                  launches_edges_server=edges_launches)
+    print(f"K1 out_nms at 4x{h}x{w} u8 block {bh}x{bw}: {k1_nms['ms']:.4f} ms; plain "
+          f"{k1_nms['plain_ms']:.3f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
+          f"{nms_ops:.1f} ops/px {t_ops:.4f} ms); library: none")
+
+    prev = b.contiguous()
+    prev_max = bm.contiguous()
+    x_next = video(cfg, n, 4, 2.0, dev)
+    k3 = {}
+    for share_label, mask in (("0%", torch.zeros_like(motion_mask)),
+                              ("motion", motion_mask),
+                              ("100%", torch.ones_like(motion_mask))):
+        ka = edge_stream_cuda(x_next, prev, prev_max, mask, **kw)
+        kb = edge_stream_plain(x_next, prev, prev_max, mask, **kw)
+        check(_same(ka, kb), f"K3 at {share_label} differs from its plain version")
+        err = float((ka[0] - kb[0]).abs().max())
+        m = mask.cpu().numpy()
+        b_ms, b_by, t_bytes, t_ops, share = stream_bound(
+            m, h, w, bh, bw, 1, nms_lane_ops(spec5, "v2", 4, False, m, h, w, bh, bw))
+        row = dict(ms=median_ms(lambda: edge_stream_cuda(x_next, prev, prev_max, mask, **kw)),
+                   plain_ms=median_ms(lambda: edge_stream_plain(x_next, prev, prev_max, mask, **kw),
+                                      reps=5, warm=1),
+                   bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
+                   changed_share=share, max_abs_err=err, library_ms=None)
+        k3[share_label] = row
+        print(f"K3 at 4x{h}x{w} u8 block {bh}x{bw}, {100 * share:.2f}% of pixels in changed "
+              f"tiles ({share_label}): {row['ms']:.4f} ms; plain {row['plain_ms']:.3f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms); "
+              "library: none")
+
     main_t = timings["2048x2048 f32"]
-    kernels = [{
+    k3_main = k3["motion"]
+    return [{
         "name": "K1 edge (fused Sobel megakernel)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/edge.cu",
@@ -364,7 +817,46 @@ def main() -> None:
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shapes": timings,
+        "out_nms": k1_nms,
+    }, {
+        "name": "K3 edge_stream (masked-grid delta-skip kernel)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/edge_stream.cu",
+        "replaces": "src/repro/kernels/edge.py:359",
+        "launches": k3_launches,
+        "max_abs_err": k3_main["max_abs_err"],
+        "ms": k3_main["ms"],
+        "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"],
+        "bound_by": k3_main["bound_by"],
+        "library_ms": None,
+        "shares": k3,
     }]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    phase_build()
+    rng = np.random.default_rng(0)
+    full = phase_kernel_vs_plain(rng, dev)
+    phase_nms_vs_plain(rng, dev)
+    phase_stream_vs_plain(rng, dev)
+    phase_facade(rng, dev)
+    phase_nms_facade(rng, dev)
+    server_launches, edges_launches = phase_server(dev)
+    runs = phase_stream_server(dev)
+    mask = phase_step_parts(runs["motion"], dev)
+    phase_linking(runs["motion"], dev)
+    kernels = phase_timing(full, dev, mask, server_launches, edges_launches,
+                           runs["motion"]["k3"])
+    print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

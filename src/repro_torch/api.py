@@ -10,12 +10,20 @@ One call::
     result.components     # (..., D, H, W) when with_components=True
     result.peak           # (...,) per-image max when with_max=True
 
-``edge_detect`` runs on the CUDA device unless ``device`` says otherwise;
-``device="cpu"`` runs the plain PyTorch version. :class:`EdgeConfig` has the
-reference's fields and defaults (``repro.api.EdgeConfig``); the options
-whose engine is not ported yet (``plan``, ``shard``, ``nms``,
-``hysteresis``, ``temporal``, ``pipeline_depth``, ``precision="int"``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+    result.thin, result.edges   # with nms=True / hysteresis=True
+
+    # streaming: one frame per stream per call, state carried between calls
+    cfg = EdgeConfig(temporal=True, decay=0.9)
+    result, state = edge_detect_stream(frame, cfg)              # cold start
+    result, state = edge_detect_stream(next_frame, cfg, state)
+    result.skipped        # delta-skipped tiles per stream
+
+``edge_detect`` and ``edge_detect_stream`` run on the CUDA device unless
+``device`` says otherwise; ``device="cpu"`` runs the plain PyTorch version.
+:class:`EdgeConfig` has the reference's fields and defaults
+(``repro.api.EdgeConfig``); the options whose engine is not ported yet
+(``plan``, ``shard``, ``pipeline_depth``, ``precision="int"``) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Input layout is auto-detected (``HW`` / ``HWC`` / ``NHW`` / ``NHWC`` /
 ``NTHW`` / ``NTHWC``): a trailing dimension of exactly 3 on a >= 3-D input
@@ -30,20 +38,19 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.core.filters import OperatorSpec, SobelParams, get_operator
+from repro_torch.core.nms import DEFAULT_HIGH, DEFAULT_LOW
 
 __all__ = [
     "EdgeConfig",
     "EdgeResult",
+    "StreamState",
     "edge_detect",
+    "edge_detect_stream",
     "detect_layout",
     "LAYOUTS",
 ]
 
 LAYOUTS = ("HW", "HWC", "NHW", "NHWC", "NTHW", "NTHWC")
-
-# Hysteresis thresholds as fractions of the per-image peak (repro.core.nms).
-DEFAULT_LOW = 0.10
-DEFAULT_HIGH = 0.20
 
 
 def detect_layout(shape: Tuple[int, ...]) -> str:
@@ -82,8 +89,11 @@ class EdgeConfig:
       precision:  ``auto`` | ``f32`` run the f32 lane; ``int`` is not ported.
       pipeline_depth: None; the DMA-ring depths 2..8 are not ported.
       shard:      None; multi-GPU sharding is not ported.
-      nms, hysteresis, low, high, temporal, decay: the Canny and streaming
-                  stages — validated as the reference does, not ported.
+      nms:        thin the magnitude by non-maximum suppression (in K1).
+      hysteresis: link the thin map into a bool edge map (implies nms).
+      low/high:   hysteresis thresholds as fractions of the peak.
+      temporal, decay: temporal hysteresis on the stream path
+                  (:func:`edge_detect_stream` only).
       with_components:  also return per-direction gradients ``(..., D, H, W)``.
       with_orientation: also return ``atan2(G_y, G_x)``.
       with_max:         also return the per-image peak of the unnormalized
@@ -190,21 +200,102 @@ class EdgeResult:
     """Structured output of :func:`edge_detect` (tensors on the device).
 
     ``magnitude`` is always present; the optional fields mirror the
-    ``with_*`` output selection of :class:`EdgeConfig`. ``thin``, ``edges``
-    and ``skipped`` belong to the unported NMS and streaming stages and
-    stay None. ``layout`` is the detected (or overridden) input layout;
-    ``config`` the resolved config that produced the result.
+    ``with_*`` output selection of :class:`EdgeConfig`. ``thin`` is the NMS
+    thin map (``nms``; the same tensor as ``magnitude``, normalized when
+    ``normalize``), ``edges`` the bool hysteresis map (``hysteresis``) and
+    ``skipped`` the per-stream count of delta-skipped tiles (stream path).
+    ``layout`` is the detected (or overridden) input layout; ``config`` the
+    resolved config that produced the result.
     """
 
     magnitude: torch.Tensor                     # (..., H, W) f32
     components: Optional[torch.Tensor] = None   # (..., D, H, W) f32
     orientation: Optional[torch.Tensor] = None  # (..., H, W) f32, radians
     peak: Optional[torch.Tensor] = None         # (...,) f32 per-image max
-    thin: Optional[torch.Tensor] = None
-    edges: Optional[torch.Tensor] = None
-    skipped: Optional[torch.Tensor] = None
+    thin: Optional[torch.Tensor] = None         # (..., H, W) f32, nms=True
+    edges: Optional[torch.Tensor] = None        # (..., H, W) bool, hysteresis
+    skipped: Optional[torch.Tensor] = None      # (...,) i32 delta-skipped tiles
     layout: str = "HW"
     config: Optional[EdgeConfig] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamState:
+    """Per-stream state carried between the frames of one video stream.
+
+    Tensors on the stream's device, batched ``(B, ...)``, one slice per
+    stream when the engine batches same-resolution streams:
+
+      * ``frame``   — the previous input frames in kernel dtype (u8 stays
+        u8), the reference of the exact per-tile change test.
+      * ``primary`` — the previous un-normalized primary map (the thin map
+        with ``nms``, else the magnitude), the splice source of skipped
+        tiles.
+      * ``bmax``    — the previous per-tile maxima ``(B, gh, gw)`` of the
+        un-thinned magnitude, spliced per tile so the peak stays exact.
+      * ``seed``    — the temporal seed strength (``config.temporal``;
+        ``None`` otherwise).
+
+    ``block`` pins the ``(block_h, block_w)`` tile grid for every frame of
+    the stream. ``initialized`` is False for the zero state :meth:`init`
+    returns; the first frame then recomputes every tile.
+    """
+
+    frame: Optional[torch.Tensor]
+    primary: Optional[torch.Tensor]
+    bmax: Optional[torch.Tensor]
+    seed: Optional[torch.Tensor]
+    block: Tuple[int, int] = (0, 0)
+    initialized: bool = False
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(gh, gw) tile grid of the cached ``bmax``."""
+        return self.bmax.shape[-2], self.bmax.shape[-1]
+
+    @property
+    def tiles(self) -> int:
+        """Tiles per frame (the denominator of skip rates)."""
+        gh, gw = self.grid
+        return gh * gw
+
+    def map(self, fn) -> "StreamState":
+        """The state with ``fn`` applied to each tensor leaf."""
+        return dataclasses.replace(
+            self, **{f: None if getattr(self, f) is None else fn(getattr(self, f))
+                     for f in ("frame", "primary", "bmax", "seed")})
+
+    @staticmethod
+    def concat(states) -> "StreamState":
+        """Concatenate states along the batch (one batched call)."""
+        first = states[0]
+        return dataclasses.replace(
+            first, **{f: None if getattr(first, f) is None
+                      else torch.cat([getattr(s, f) for s in states], dim=0)
+                      for f in ("frame", "primary", "bmax", "seed")})
+
+    @classmethod
+    def init(cls, batch, h, w, config: "EdgeConfig", *, rgb: bool = False,
+             dtype=torch.uint8, device=None) -> "StreamState":
+        """Zero state for ``batch`` streams of ``(h, w)`` frames on
+        ``device`` (``None`` = the CUDA device). The first frame on it
+        recomputes every tile and fills the caches."""
+        from repro_torch.kernels import dispatch
+
+        dev = dispatch.resolve_device(device)
+        config = config.resolved()
+        bh, bw = dispatch.stream_block_shape(h, w, config)
+        gh, gw = -(-h // bh), -(-w // bw)
+        shape = (batch, h, w, 3) if rgb else (batch, h, w)
+        return cls(
+            frame=torch.zeros(shape, dtype=dtype, device=dev),
+            primary=torch.zeros((batch, h, w), dtype=torch.float32, device=dev),
+            bmax=torch.zeros((batch, gh, gw), dtype=torch.float32, device=dev),
+            seed=(torch.zeros((batch, h, w), dtype=torch.float32, device=dev)
+                  if config.temporal else None),
+            block=(bh, bw),
+            initialized=False,
+        )
 
 
 def edge_detect(
@@ -235,3 +326,41 @@ def edge_detect(
     if overrides:
         cfg = cfg.replace(**overrides)
     return dispatch.edge(images, cfg.resolved(), layout=layout, device=device)
+
+
+def edge_detect_stream(
+    frames,
+    config: Optional[EdgeConfig] = None,
+    state: Optional[StreamState] = None,
+    *,
+    layout: Optional[str] = None,
+    device=None,
+    **overrides,
+) -> Tuple[EdgeResult, StreamState]:
+    """One frame step of the stateful streaming pipeline.
+
+    ``frames`` is one frame per stream: ``HW`` / ``HWC`` for one stream or
+    ``NHW`` / ``NHWC`` for a batch of same-resolution streams (time is the
+    successive calls). ``state`` is the previous call's
+    :class:`StreamState` (``None`` = cold start). ``device`` as for
+    :func:`edge_detect`.
+
+    Returns ``(result, new_state)``. On top of the stateless pipeline:
+
+      * **Delta-skip tiles**: an exact per-tile change test against
+        ``state.frame``; unchanged tiles splice the cached primary map and
+        tile maxima instead of recomputing (``result.skipped`` counts
+        them). The output equals a full recompute bit for bit.
+      * **Temporal hysteresis**: with ``config.temporal``, recent frames'
+        edges seed this frame's linking, decayed by ``config.decay``.
+        ``decay=0`` equals stateless :func:`edge_detect` bit for bit.
+
+    ``repro_torch.serve.streams.StreamEngine`` drives it for many
+    concurrent streams.
+    """
+    from repro_torch.kernels import dispatch
+
+    cfg = config or EdgeConfig()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return dispatch.edge_stream(frames, cfg.resolved(), state, layout=layout, device=device)

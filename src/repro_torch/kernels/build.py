@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch/lib<name>-<digest>.so`` at the root of the checkout, at
-first use. The digest covers every file under ``csrc/`` and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. No source
+first use; the sources share ``csrc/*.cuh`` headers. The digest covers every
+file under ``csrc/`` and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. The sources compile in parallel. No source
 includes PyTorch's headers, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false``: the kernels must
@@ -61,7 +62,7 @@ def library_path(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named sources (default: every ``csrc/*.cu``) that are not
-    built yet, one ``nvcc`` each.
+    built yet: one ``nvcc`` each, all started together.
 
     Returns ``{name: compiler output}`` for the sources compiled by this
     call (``-Xptxas -v`` reports registers, shared memory and spills).
@@ -69,7 +70,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    logs = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -77,17 +78,24 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired as e:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S}s on {name}.cu") from e
-        log = proc.stdout + proc.stderr
+            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            log = f"nvcc timed out after {BUILD_TIMEOUT_S}s\n{log}"
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         logs[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

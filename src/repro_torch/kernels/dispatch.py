@@ -1,29 +1,44 @@
 """The edge engine under the ``repro_torch.api`` facade, with backend routing.
 
 Backends:
-  * ``cuda``  — K1, the hand-written CUDA kernel (``kernels/csrc/edge.cu``),
-                through :func:`repro_torch.kernels.edge.edge_cuda`.
-  * ``torch`` — its plain PyTorch version, ``edge_plain``: the counterpart of
-                the reference's ``xla`` lane, on any device.
+  * ``cuda``  — the hand-written CUDA kernels: K1 (``kernels/csrc/edge.cu``)
+                through :func:`repro_torch.kernels.edge.edge_cuda`, and on
+                the stream path K3 (``kernels/csrc/edge_stream.cu``) through
+                ``edge_stream_cuda``.
+  * ``torch`` — their plain PyTorch versions, ``edge_plain`` and
+                ``edge_stream_plain``: the counterpart of the reference's
+                ``xla`` lane, on any device.
   * ``auto``  — ``cuda`` for a CUDA device, ``torch`` for the CPU.
 
-This slice ports the single-device branch of ``repro.kernels.dispatch.edge``:
-one fused launch emits the magnitude (or the components) and the per-tile
-maxima; the per-image peak is the max of the tile maxima, and the
-normalize epilogue scales by ``255 / max(peak, 1e-8)``. There is no
-fallback: a CUDA tensor either goes through the kernel or the call raises.
+:func:`edge` ports the single-device branch of ``repro.kernels.dispatch.edge``:
+one fused launch emits the magnitude (or the components, or with ``nms``
+the thin map) and the per-tile maxima of the un-thinned magnitude; the
+per-image peak is the max of the tile maxima; hysteresis links the
+assembled thin map (a global fixpoint, so never inside the kernel); the
+normalize epilogue scales by ``255 / max(peak, 1e-8)``.
+
+:func:`edge_stream` is one frame step of the streaming detector: a per-tile
+change test against the previous frame (:func:`stream_delta`), one K3
+launch that recomputes the changed tiles and splices the cached ones, then
+the epilogue (peak, plain or temporal hysteresis, normalize).
+:func:`edge_stream_cached` serves a frame in which nothing changed from the
+caches alone. There is no fallback: a CUDA tensor either goes through the
+kernels or the call raises.
 """
 from __future__ import annotations
 
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import nms as core_nms
 from repro_torch.core.sobel import magnitude
 from repro_torch.kernels import edge as ekern
+from repro_torch.kernels.tiling import ALIGN_INTERPRET, window_radius, window_shape
 
 if TYPE_CHECKING:  # no runtime import: repro_torch.api imports this module
-    from repro_torch.api import EdgeConfig, EdgeResult
+    from repro_torch.api import EdgeConfig, EdgeResult, StreamState
 
 __all__ = [
     "BACKENDS",
@@ -31,7 +46,11 @@ __all__ = [
     "resolve_backend",
     "resolve_precision",
     "choose_block_shape",
+    "stream_block_shape",
     "edge",
+    "stream_delta",
+    "edge_stream",
+    "edge_stream_cached",
 ]
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -40,9 +59,6 @@ BACKENDS = ("auto", "cuda", "torch")
 _UNPORTED = (
     ("plan", "queue 1 item 5 (stencil plans)"),
     ("shard", "queue 1 item 10 (multi-GPU halo sharding)"),
-    ("nms", "queue 1 item 3 (NMS and hysteresis)"),
-    ("hysteresis", "queue 1 item 3 (NMS and hysteresis)"),
-    ("temporal", "queue 1 item 8 (streaming)"),
     ("pipeline_depth", "queue 1 item 7 (DMA-ring variant, kernel K2)"),
 )
 
@@ -101,27 +117,10 @@ def choose_block_shape(
     return block_h or dbh, block_w or dbw
 
 
-def edge(
-    images,
-    config: "EdgeConfig",
-    *,
-    layout: Optional[str] = None,
-    device=None,
-) -> "EdgeResult":
-    """Run one :class:`~repro_torch.api.EdgeConfig` end to end on ``device``
-    (``None`` = the CUDA device); ``layout`` names the input layout (the
-    facade detects it)."""
-    from repro_torch.api import EdgeResult, detect_layout
-
-    config = config.resolved()
-    for field, item in _UNPORTED:
-        if getattr(config, field):
-            raise NotImplementedError(
-                f"EdgeConfig.{field} is not ported yet: ROADMAP {item}"
-            )
-    resolve_precision(config.precision)
-    dev = resolve_device(device)
-    backend = resolve_backend(config.backend, dev)
+def _flatten(images, layout: Optional[str], dev: torch.device):
+    """``images`` on ``dev`` in kernel dtype, as a contiguous ``(B, H, W[,
+    3])`` batch; returns ``(x, layout, rgb, batch_shape, h, w)``."""
+    from repro_torch.api import detect_layout
 
     images = torch.as_tensor(images)
     layout = layout or detect_layout(tuple(images.shape))
@@ -135,39 +134,89 @@ def edge(
         batch_shape = tuple(x.shape[:-2])
         h, w = x.shape[-2], x.shape[-1]
         x = x.reshape((-1, h, w))
-    x = x.contiguous()
+    return x.contiguous(), layout, rgb, batch_shape, h, w
+
+
+def _normalize(mag: torch.Tensor, peak: torch.Tensor) -> torch.Tensor:
+    """``mag * (255 / max(peak, 1e-8))`` with the reference's roundings.
+
+    torch.full, not torch.tensor: a host-to-device copy of the constant would
+    synchronise the stream behind the kernel. Tensor / tensor is IEEE
+    division; a Python-scalar divisor would become a reciprocal multiply.
+    """
+    scale = torch.div(torch.full((), 255.0, dtype=torch.float32, device=mag.device),
+                      peak.clamp_min(1e-8))
+    return mag * scale
+
+
+def edge(
+    images,
+    config: "EdgeConfig",
+    *,
+    layout: Optional[str] = None,
+    device=None,
+) -> "EdgeResult":
+    """Run one :class:`~repro_torch.api.EdgeConfig` end to end on ``device``
+    (``None`` = the CUDA device); ``layout`` names the input layout (the
+    facade detects it)."""
+    from repro_torch.api import EdgeResult
+
+    config = config.resolved()
+    if config.temporal:
+        raise ValueError(
+            "temporal hysteresis carries per-stream state; use "
+            "repro_torch.api.edge_detect_stream (or drop temporal for stateless "
+            "calls)"
+        )
+    for field, item in _UNPORTED:
+        if getattr(config, field):
+            raise NotImplementedError(
+                f"EdgeConfig.{field} is not ported yet: ROADMAP {item}"
+            )
+    resolve_precision(config.precision)
+    dev = resolve_device(device)
+    backend = resolve_backend(config.backend, dev)
+    x, layout, rgb, batch_shape, h, w = _flatten(images, layout, dev)
 
     spec = config.spec
     need_comps = config.with_components or config.with_orientation
-    need_peak = config.normalize or config.with_max
+    # Hysteresis thresholds are fractions of the per-image magnitude peak.
+    need_peak = config.normalize or config.with_max or config.hysteresis
     bh, bw = choose_block_shape(h, w, size=spec.size, block_h=config.block_h,
                                 block_w=config.block_w)
     run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
     out = run(
         x, spec=spec, variant=config.variant, directions=config.directions,
         padding=config.padding, block_h=bh, block_w=bw, rgb=rgb,
-        out_components=need_comps, with_max=need_peak,
+        out_components=need_comps, out_nms=config.nms, with_max=need_peak,
     )
-    primary, bmax = out if need_peak else (out, None)
+    outs = list(out) if isinstance(out, tuple) else [out]
+    bmax = outs.pop() if need_peak else None
     comps = None
-    if need_comps:
-        comps = primary
+    if config.nms:
+        mag = outs.pop(0)  # the thin map
+        comps = outs.pop(0) if need_comps else None
+    elif need_comps:
+        comps = outs.pop(0)
         mag = magnitude(comps.unbind(dim=1))
     else:
-        mag = primary
+        mag = outs.pop(0)
     peak = bmax.amax(dim=(-2, -1), keepdim=True) if need_peak else None
 
     orientation = None
     if config.with_orientation:
         orientation = torch.atan2(comps[:, 1], comps[:, 0])
 
+    edges = None
+    if config.hysteresis:
+        # On the assembled thin map: linking is a global fixpoint. The
+        # thresholds scale with the un-thinned peak and apply to the
+        # un-normalized thin map.
+        low, high = core_nms.resolve_thresholds(peak, config.low, config.high)
+        edges = core_nms.hysteresis(mag, low, high)
+
     if config.normalize:
-        # torch.full, not torch.tensor: a host-to-device copy of the constant
-        # would synchronise the stream behind K1. Tensor / tensor is IEEE
-        # division; a Python-scalar divisor would become a reciprocal multiply.
-        scale = torch.div(torch.full((), 255.0, dtype=torch.float32, device=dev),
-                          peak.clamp_min(1e-8))
-        mag = mag * scale
+        mag = _normalize(mag, peak)
 
     def unbatch(a, extra_dims=0):
         return a.reshape(batch_shape + tuple(a.shape[a.ndim - 2 - extra_dims:]))
@@ -177,6 +226,246 @@ def edge(
         components=unbatch(comps, extra_dims=1) if config.with_components else None,
         orientation=unbatch(orientation) if config.with_orientation else None,
         peak=peak.reshape(batch_shape) if config.with_max else None,
+        thin=unbatch(mag) if config.nms else None,
+        edges=unbatch(edges) if config.hysteresis else None,
         layout=layout,
         config=config,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The streaming engine: per-frame delta-skip + temporal hysteresis
+# ---------------------------------------------------------------------------
+
+def stream_block_shape(h: int, w: int, config: "EdgeConfig") -> Tuple[int, int]:
+    """The ``(block_h, block_w)`` delta-tile grid of a stream of ``(h, w)``
+    frames: K3's CTA tile. Explicit config fields win; otherwise the
+    default tile of :func:`choose_block_shape`. The reference's default
+    is a TPU rule, so grids compare only when the config pins both."""
+    return choose_block_shape(h, w, size=config.spec.size, block_h=config.block_h,
+                              block_w=config.block_w)
+
+
+def _window_reach(n: int, b: int, g: int, t: int, r: int) -> Tuple[int, int]:
+    """(up, down) reach, in whole tiles, of any tile's input window along
+    one axis of length ``n`` tiled by ``b`` into ``g`` tiles, with clamped
+    window extent ``t`` and stencil radius ``r`` (the reference's formula:
+    interior, clamped at 0 and clamped at ``n - t``). Over-reach only costs
+    the recompute of an unchanged tile, so the bounds round up."""
+    if g <= 1:
+        return 0, 0
+    s = n - (g - 1) * b
+    up = max(-(-r // b), -(-(t - s) // b))
+    down = -(-(t - b) // b)
+    return max(0, up), max(0, down)
+
+
+def _dilate_blocks(
+    changed: torch.Tensor, reach_h: Tuple[int, int], reach_w: Tuple[int, int]
+) -> torch.Tensor:
+    """OR-dilate the (B, gh, gw) change map so every tile whose input
+    window can see a changed tile is marked for recompute."""
+    (uh, dh), (uw, dw) = reach_h, reach_w
+    if uh == dh == uw == dw == 0:
+        return changed
+    p = F.pad(changed.to(torch.float32), (uw, dw, uh, dh))
+    y = F.max_pool2d(p[:, None], kernel_size=(uh + dh + 1, uw + dw + 1), stride=1)
+    return y[:, 0] > 0
+
+
+def stream_delta(
+    x: torch.Tensor,
+    state: "StreamState",
+    config: "EdgeConfig",
+    *,
+    rgb: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile change test of ``x`` against the cached previous frame.
+
+    ``x``: ``(B, H, W[, 3])`` in kernel dtype (u8 and f32 compares are
+    exact). Returns ``(changed, skipped)``: the ``(B, gh, gw)`` bool
+    recompute mask (the per-tile difference OR-dilated by the input
+    window's reach) and the ``(B,)`` int32 count of skippable tiles. An
+    uninitialized state marks every tile changed.
+    """
+    bh, bw = state.block
+    h, w = (x.shape[-3], x.shape[-2]) if rgb else (x.shape[-2], x.shape[-1])
+    b = x.shape[0]
+    gh, gw = -(-h // bh), -(-w // bw)
+    if not state.initialized:
+        changed = torch.ones((b, gh, gw), dtype=torch.bool, device=x.device)
+    else:
+        diff = x != state.frame
+        if rgb:
+            diff = diff.any(dim=-1)
+        blocks = ekern._block_max(diff.to(torch.float32), bh, bw) > 0
+        config = config.resolved()
+        r_in = window_radius(config.spec.radius, config.nms)
+        th, tw = window_shape(h, w, bh, bw, r_in, align=ALIGN_INTERPRET)
+        changed = _dilate_blocks(
+            blocks,
+            _window_reach(h, bh, gh, th, r_in),
+            _window_reach(w, bw, gw, tw, r_in),
+        )
+    skipped = (gh * gw - changed.sum(dim=(-2, -1))).to(torch.int32)
+    return changed, skipped
+
+
+def _stream_epilogue(
+    x, config, state, primary, bmax, skipped, *, batch_shape, layout
+):
+    """Shared tail of the streaming paths: peak from the (spliced) tile
+    maxima, plain or temporal hysteresis, normalization, result and next
+    state. Runs every frame, a fully spliced one too, because the temporal
+    seed strength decays per frame."""
+    from repro_torch.api import EdgeResult, StreamState
+
+    need_peak = config.normalize or config.with_max or config.hysteresis
+    peak = bmax.amax(dim=(-2, -1), keepdim=True) if need_peak else None
+
+    edges = None
+    new_seed = None
+    if config.hysteresis:
+        low, high = core_nms.resolve_thresholds(peak, config.low, config.high)
+        if config.temporal:
+            seeds, decayed = core_nms.temporal_seeds(state.seed, config.decay)
+            edges = core_nms.hysteresis(primary, low, high, seed=seeds)
+            new_seed = core_nms.update_seed_strength(decayed, edges)
+        else:
+            edges = core_nms.hysteresis(primary, low, high)
+
+    mag = primary
+    if config.normalize:
+        mag = _normalize(mag, peak)
+
+    new_state = StreamState(
+        frame=x, primary=primary, bmax=bmax, seed=new_seed,
+        block=state.block, initialized=True,
+    )
+
+    def unbatch(a):
+        return a.reshape(batch_shape + tuple(a.shape[-2:]))
+
+    result = EdgeResult(
+        magnitude=unbatch(mag),
+        peak=peak.reshape(batch_shape) if config.with_max else None,
+        thin=unbatch(mag) if config.nms else None,
+        edges=unbatch(edges) if config.hysteresis else None,
+        skipped=skipped.reshape(batch_shape),
+        layout=layout,
+        config=config,
+    )
+    return result, new_state
+
+
+def _check_stream_config(config: "EdgeConfig") -> None:
+    if config.shard is not None:
+        raise ValueError(
+            "streaming is single-device per stream group for now; drop "
+            "config.shard (batch parallelism comes from grouping streams)"
+        )
+    if config.with_components or config.with_orientation:
+        raise ValueError(
+            "streaming caches the primary map only; with_components/"
+            "with_orientation are not supported on the stream path"
+        )
+    if config.precision == "int" or config.pipeline_depth is not None:
+        raise ValueError(
+            "streaming runs the f32 masked-grid kernel; explicit "
+            "precision='int' / pipeline_depth are not supported on the "
+            "stream path"
+        )
+
+
+def edge_stream(
+    images,
+    config: "EdgeConfig",
+    state: Optional["StreamState"] = None,
+    *,
+    layout: Optional[str] = None,
+    changed: Optional[torch.Tensor] = None,
+    device=None,
+) -> tuple:
+    """One streaming frame step: delta-skip compute + temporal epilogue.
+
+    ``images``: one frame per stream, ``HW``/``HWC`` or a same-resolution
+    batch ``NHW``/``NHWC``. ``state`` is the previous step's
+    :class:`~repro_torch.api.StreamState` (``None`` = cold start: every
+    tile recomputes and the caches fill). ``changed`` lets a caller that
+    already ran :func:`stream_delta` pass the mask in. ``device`` as for
+    :func:`edge`.
+
+    The ``cuda`` backend runs K3, which recomputes the flagged tiles and
+    copies the cached ones; ``torch`` recomputes the frame and selects per
+    tile. Either way the output equals a stateless full recompute bit for
+    bit. Returns ``(EdgeResult, StreamState)``; ``result.skipped`` counts
+    the delta-skipped tiles per stream.
+    """
+    from repro_torch.api import StreamState
+
+    config = config.resolved()
+    _check_stream_config(config)
+    dev = resolve_device(device)
+    backend = resolve_backend(config.backend, dev)
+    x, layout, rgb, batch_shape, h, w = _flatten(images, layout, dev)
+    if "T" in layout or layout.count("N") > 1:
+        raise ValueError(
+            "streaming takes one frame per stream per call, not a video "
+            f"stack (layout {layout!r}); iterate frames through the state"
+        )
+
+    if state is None:
+        state = StreamState.init(x.shape[0], h, w, config, rgb=rgb, dtype=x.dtype,
+                                 device=dev)
+    bh, bw = state.block
+    if tuple(state.frame.shape) != tuple(x.shape):
+        raise ValueError(
+            f"stream state was built for frames {tuple(state.frame.shape)}, got "
+            f"{tuple(x.shape)}; streams of different shape need their own state"
+        )
+
+    if changed is None:
+        changed, skipped = stream_delta(x, state, config, rgb=rgb)
+    else:
+        gh, gw = state.grid
+        skipped = (gh * gw - changed.sum(dim=(-2, -1))).to(torch.int32)
+
+    run = ekern.edge_stream_cuda if backend == "cuda" else ekern.edge_stream_plain
+    primary, bmax = run(
+        x, state.primary, state.bmax, changed.to(torch.int32).contiguous(),
+        spec=config.spec, variant=config.variant, directions=config.directions,
+        padding=config.padding, block_h=bh, block_w=bw, rgb=rgb, out_nms=config.nms,
+    )
+    return _stream_epilogue(
+        x, config, state, primary, bmax, skipped,
+        batch_shape=batch_shape, layout=layout,
+    )
+
+
+def edge_stream_cached(
+    config: "EdgeConfig",
+    state: "StreamState",
+    *,
+    layout: str = "NHW",
+) -> tuple:
+    """The all-static fast path: a frame step with no kernel launch.
+
+    When nothing changed across the group, the cached primary map and tile
+    maxima are this frame's outputs; only the epilogue runs (the temporal
+    seed strength still decays). Equal to :func:`edge_stream` on the same
+    static frame, bit for bit.
+    """
+    config = config.resolved()
+    _check_stream_config(config)
+    if not state.initialized:
+        raise ValueError(
+            "edge_stream_cached needs an initialized state (run at least "
+            "one edge_stream step first)"
+        )
+    batch_shape = () if layout in ("HW", "HWC") else tuple(state.primary.shape[:1])
+    skipped = torch.full((state.primary.shape[0],), state.tiles, dtype=torch.int32,
+                         device=state.primary.device)
+    return _stream_epilogue(
+        state.frame, config, state, state.primary, state.bmax, skipped,
+        batch_shape=batch_shape, layout=layout,
     )

@@ -1,15 +1,19 @@
-"""K1, the fused edge kernel: its CUDA wrapper and its plain PyTorch version.
+"""K1 and K3, the edge kernels: their CUDA wrappers and their plain PyTorch versions.
 
-``edge_cuda`` launches ``csrc/edge.cu`` (the Hopper port of
-``repro/kernels/edge.py::_kernel``) on a CUDA tensor and raises on anything
-else. ``edge_plain`` computes the same outputs from ``repro_torch.core``
-functions on any device; the CPU lane runs it, and the kernel is held
-against it on the card.
+``edge_cuda`` launches K1, ``csrc/edge.cu`` (the Hopper port of
+``repro/kernels/edge.py::_kernel``), and ``edge_stream_cuda`` launches K3,
+``csrc/edge_stream.cu`` (the port of ``_stream_kernel``), on CUDA tensors
+and raise on anything else. ``edge_plain`` and ``edge_stream_plain``
+compute the same outputs from ``repro_torch.core`` functions on any device;
+the CPU lane runs them, and the kernels are held against them on the card.
 
-One launch takes the raw ``(N, H, W)`` u8/f32 gray or ``(N, H, W, 3)`` RGB
-batch and emits the magnitude, or the ``(N, D, H, W)`` components, and
-optionally the ``(N, gh, gw)`` per-tile max of the magnitude over the
-``block_h x block_w`` output tiles, the source of the per-image peak.
+One K1 launch takes the raw ``(N, H, W)`` u8/f32 gray or ``(N, H, W, 3)``
+RGB batch and emits the magnitude, or the ``(N, D, H, W)`` components, or
+with ``out_nms`` the thin map (plus, on demand, the centre components and
+the un-thinned magnitude), and optionally the ``(N, gh, gw)`` per-tile max
+of the un-thinned magnitude over the ``block_h x block_w`` output tiles,
+the source of the per-image peak. One K3 launch recomputes the tiles a mask
+flags and splices the cached primary map and maxima everywhere else.
 """
 from __future__ import annotations
 
@@ -20,12 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.filters import OperatorSpec
+from repro_torch.core.nms import TAN_PI8_F32, thin_map
 from repro_torch.core.sobel import _pad, magnitude, spec_components
-from repro_torch.kernels.tiling import PAD_MODES, luma
+from repro_torch.kernels.tiling import PAD_MODES, luma, window_radius
 
 __all__ = [
     "edge_cuda",
     "edge_plain",
+    "edge_stream_cuda",
+    "edge_stream_plain",
     "default_block_shape",
     "kernel_dtype",
     "window_smem_bytes",
@@ -42,9 +49,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def window_smem_bytes(block_h: int, block_w: int, radius: int) -> int:
-    """Shared memory of one CTA: its f32 halo window."""
-    return 4 * (block_h + 2 * radius) * (block_w + 2 * radius)
+def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False) -> int:
+    """Dynamic shared memory of one CTA (``csrc/edge_tile.cuh``,
+    ``tile_smem_bytes``): its f32 halo window, and with NMS the f32
+    magnitude of the ``(block + 2)`` inner tile and a sector byte per
+    output pixel."""
+    halo = window_radius(radius, nms)
+    smem = 4 * (block_h + 2 * halo) * (block_w + 2 * halo)
+    if nms:
+        smem += 4 * (block_h + 2) * (block_w + 2) + block_h * block_w
+    return smem
 
 
 def default_block_shape(h: int, w: int, size: int = 5) -> tuple:
@@ -113,50 +127,116 @@ def edge_plain(
     block_w: "int | None" = None,
     rgb: bool = False,
     out_components: bool = False,
+    out_nms: bool = False,
+    out_mag: bool = False,
     with_max: bool = False,
 ):
     """The plain PyTorch version of :func:`edge_cuda`: same arguments, same
     outputs, on any device.
 
     Luma (RGB) or the f32 cast, the boundary-extended image
-    (``core.sobel._pad``), ``spec_components`` and ``magnitude``; the
-    per-tile max is taken over the same ``block_h x block_w`` tiles.
+    (``core.sobel._pad``), ``spec_components`` and ``magnitude``, or with
+    ``out_nms`` ``core.nms.thin_map``; the per-tile max is taken over the
+    same ``block_h x block_w`` tiles.
     """
+    _check_out_mag(out_nms, out_mag)
     n, h, w = _dims(x, rgb)
     bh, bw, _gh, _gw = _grid(h, w, block_h, block_w)
     gray = luma(x) if rgb else x.to(torch.float32)
-    xp, _, _ = _pad(gray, spec.radius, padding)
-    comps = spec_components(xp, spec, h, w, variant, directions)
-    mag = magnitude(comps) if (with_max or not out_components) else None
-    primary = torch.stack(comps, dim=1) if out_components else mag
-    if not with_max:
-        return primary
-    return primary, _block_max(mag, bh, bw)
+    if out_nms:
+        thin, comps, mag = thin_map(gray, spec, variant=variant, directions=directions,
+                                    padding=padding)
+        outs = [thin]
+        if out_components:
+            outs.append(torch.stack(comps, dim=1))
+        if out_mag:
+            outs.append(mag.contiguous())
+    else:
+        xp, _, _ = _pad(gray, spec.radius, padding)
+        comps = spec_components(xp, spec, h, w, variant, directions)
+        mag = magnitude(comps) if (with_max or not out_components) else None
+        outs = [torch.stack(comps, dim=1) if out_components else mag]
+    if with_max:
+        outs.append(_block_max(mag, bh, bw))
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def edge_stream_plain(
+    x: torch.Tensor,
+    prev_primary: torch.Tensor,
+    prev_bmax: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    spec: OperatorSpec,
+    variant: str,
+    directions: int,
+    padding: str = "reflect",
+    block_h: int = 64,
+    block_w: "int | None" = None,
+    rgb: bool = False,
+    out_nms: bool = False,
+):
+    """The plain PyTorch version of :func:`edge_stream_cuda`: a full
+    :func:`edge_plain` recompute, then a per-tile select against the caches
+    (the reference's XLA stream lane). Returns ``(primary, bmax)``."""
+    n, h, w = _dims(x, rgb)
+    bh, bw, gh, gw = _grid(h, w, block_h, block_w)
+    _check_stream_shapes(prev_primary, prev_bmax, mask, n, h, w, gh, gw, bh, bw)
+    fresh, fresh_bmax = edge_plain(x, spec=spec, variant=variant, directions=directions,
+                                   padding=padding, block_h=bh, block_w=bw, rgb=rgb,
+                                   out_nms=out_nms, with_max=True)
+    changed = mask.to(torch.bool)
+    pixels = changed.repeat_interleave(bh, dim=-2).repeat_interleave(bw, dim=-1)[:, :h, :w]
+    return torch.where(pixels, fresh, prev_primary), torch.where(changed, fresh_bmax, prev_bmax)
+
+
+def _check_out_mag(out_nms: bool, out_mag: bool) -> None:
+    if out_mag and not out_nms:
+        raise ValueError("out_mag only applies with out_nms (the magnitude is already "
+                         "the primary output otherwise)")
+
+
+def _check_stream_shapes(prev_primary, prev_bmax, mask, n, h, w, gh, gw, bh, bw) -> None:
+    if tuple(prev_bmax.shape) != (n, gh, gw) or tuple(mask.shape) != (n, gh, gw):
+        raise ValueError(
+            f"prev_bmax/mask {tuple(prev_bmax.shape)}/{tuple(mask.shape)} do not match the "
+            f"({n}, {gh}, {gw}) tile grid of block ({bh}, {bw})"
+        )
+    if tuple(prev_primary.shape) != (n, h, w):
+        raise ValueError(f"prev_primary {tuple(prev_primary.shape)} is not ({n}, {h}, {w})")
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, its entry points typed."""
     from repro_torch.kernels import build
 
-    lib = build.load("edge")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_edge_launch.argtypes = [p, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
-    lib.repro_edge_launch.restype = i
-    lib.repro_edge_taps_len.argtypes = []
-    lib.repro_edge_taps_len.restype = i
-    lib.repro_edge_max_size.argtypes = []
-    lib.repro_edge_max_size.restype = i
-    lib.repro_edge_error_string.argtypes = [i]
-    lib.repro_edge_error_string.restype = ctypes.c_char_p
-    if lib.repro_edge_max_size() != KMAX:
-        raise RuntimeError("csrc/edge.cu and kernels/edge.py disagree on KMAX")
-    if lib.repro_edge_taps_len() != _taps_len():
-        raise RuntimeError("csrc/edge.cu's Taps layout differs from _pack_taps")
+    lib = build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geometry = [p, i, i, i, i, i, i, i, i, i, i, i, i, f, p]
+    # repro_edge_launch: 4 outputs + stream; repro_stream_launch: mask, 2
+    # caches, 2 outputs + stream. Both return a cudaError_t as int.
+    launch = lib.repro_edge_launch if name == "edge" else lib.repro_stream_launch
+    launch.argtypes = geometry + [p] * (5 if name == "edge" else 6)
+    launch.restype = i
+    for fn in ("repro_taps_len", "repro_max_size"):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = [], i
+    lib.repro_error_string.argtypes, lib.repro_error_string.restype = [i], ctypes.c_char_p
+    if lib.repro_max_size() != KMAX:
+        raise RuntimeError(f"csrc/{name}.cu and kernels/edge.py disagree on KMAX")
+    if lib.repro_taps_len() != _taps_len():
+        raise RuntimeError(f"csrc/{name}.cu's Taps layout differs from _pack_taps")
     return lib
+
+
+def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        text = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {text} (cudaError {err})")
 
 
 def _taps_len() -> int:
@@ -226,6 +306,59 @@ def _pack_taps(spec: OperatorSpec) -> np.ndarray:
     return flat
 
 
+def _check_launch(x: torch.Tensor, fn: str, spec: OperatorSpec, variant: str,
+                  directions: int, padding: str) -> None:
+    """What both kernels refuse: a CPU tensor, another dtype, a strided
+    tensor, an operator above KMAX, unresolved options."""
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"{fn} launches a CUDA kernel and takes CUDA tensors, got a "
+            f"{x.device.type} tensor; {fn.replace('cuda', 'plain')} is the plain version"
+        )
+    if x.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"{fn} takes uint8 or float32 input, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn} takes a contiguous tensor")
+    if spec.size > KMAX:
+        raise ValueError(
+            f"operator {spec.name!r} is {spec.size}x{spec.size}; the kernels "
+            f"instantiate sizes up to {KMAX}"
+        )
+    if variant not in spec.variants or directions not in spec.directions:
+        raise ValueError(
+            f"unresolved variant/directions {variant!r}/{directions} for operator "
+            f"{spec.name!r}; resolve them with the spec first"
+        )
+    if variant != "direct" and (spec.sep_factors(0) is None or spec.sep_factors(1) is None):
+        raise ValueError(f"operator {spec.name!r} has no separable factors for {variant!r}")
+    if padding not in _PADDING_CODES:
+        raise ValueError(f"unknown padding {padding!r}; expected one of {PAD_MODES}")
+
+
+def _check_grid(n: int, bh: int, bw: int, gh: int, gw: int, radius: int, nms: bool) -> None:
+    smem = window_smem_bytes(bh, bw, radius, nms)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"tile {bh}x{bw} needs {smem} B of shared memory for its halo "
+            f"window{' and NMS buffers' if nms else ''}; a CTA may use at most {SMEM_MAX} B"
+        )
+    if n * gh * gw >= 2**31:
+        raise ValueError(f"{n * gh * gw} tiles exceed the CUDA grid limit")
+
+
+def _geometry(x: torch.Tensor, rgb: bool, n: int, h: int, w: int, bh: int, bw: int,
+              spec: OperatorSpec, variant: str, directions: int, padding: str,
+              nms: bool) -> list:
+    """The leading arguments both C entry points take."""
+    return [x.data_ptr(), int(x.dtype == torch.uint8), int(rgb), n, h, w, bh, bw, spec.size,
+            _VARIANT_CODES[variant], directions, _PADDING_CODES[padding], int(nms),
+            float(TAN_PI8_F32), _pack_taps(spec).ctypes.data]
+
+
+def _ptr(t: "torch.Tensor | None"):
+    return None if t is None else t.data_ptr()
+
+
 def edge_cuda(
     x: torch.Tensor,
     *,
@@ -237,83 +370,125 @@ def edge_cuda(
     block_w: "int | None" = None,
     rgb: bool = False,
     out_components: bool = False,
+    out_nms: bool = False,
+    out_mag: bool = False,
     with_max: bool = False,
 ):
     """Launch K1 (``csrc/edge.cu``) on a contiguous CUDA tensor.
 
     ``x``: ``(N, H, W)`` u8/f32 gray, or ``(N, H, W, 3)`` u8/f32 RGB when
     ``rgb``. ``variant``/``directions`` must be resolved against ``spec``.
-    Returns the ``(N, H, W)`` f32 magnitude, or the ``(N, D, H, W)`` f32
-    components when ``out_components``; with ``with_max`` also the
-    ``(N, gh, gw)`` f32 per-tile max of the magnitude, as a tuple.
+    Outputs, in the reference's order (a bare tensor when only one), all
+    f32:
+
+      * the ``(N, H, W)`` magnitude, or with ``out_nms`` the thin map, or
+        (without ``out_nms``) the ``(N, D, H, W)`` components when
+        ``out_components``;
+      * with ``out_nms``: the centre components when ``out_components``,
+        then the un-thinned magnitude when ``out_mag``;
+      * with ``with_max``: the ``(N, gh, gw)`` per-tile max of the
+        un-thinned magnitude.
 
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
     device refuses. ``edge_cuda.launches`` counts the launches.
     """
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"edge_cuda launches a CUDA kernel and takes CUDA tensors, got a "
-            f"{x.device.type} tensor; edge_plain is the plain version"
-        )
-    if x.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"edge_cuda takes uint8 or float32 input, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("edge_cuda takes a contiguous tensor")
-    if spec.size > KMAX:
-        raise ValueError(
-            f"operator {spec.name!r} is {spec.size}x{spec.size}; csrc/edge.cu "
-            f"instantiates sizes up to {KMAX}"
-        )
-    if variant not in spec.variants or directions not in spec.directions:
-        raise ValueError(
-            f"unresolved variant/directions {variant!r}/{directions} for operator "
-            f"{spec.name!r}; resolve them with the spec first"
-        )
-    if variant != "direct" and (spec.sep_factors(0) is None or spec.sep_factors(1) is None):
-        raise ValueError(f"operator {spec.name!r} has no separable factors for {variant!r}")
-    if padding not in _PADDING_CODES:
-        raise ValueError(f"unknown padding {padding!r}; expected one of {PAD_MODES}")
+    _check_out_mag(out_nms, out_mag)
+    _check_launch(x, "edge_cuda", spec, variant, directions, padding)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
-    smem = window_smem_bytes(bh, bw, spec.radius)
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"tile {bh}x{bw} needs {smem} B of shared memory for its halo "
-            f"window; a CTA may use at most {SMEM_MAX} B"
-        )
-    if n * gh * gw >= 2**31:
-        raise ValueError(f"{n * gh * gw} tiles exceed the CUDA grid limit")
+    _check_grid(n, bh, bw, gh, gw, spec.radius, out_nms)
 
-    mag = comps = bmax = None
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    primary = comps = mag = bmax = None
+    if out_nms or not out_components:
+        primary = empty(n, h, w)
     if out_components:
-        comps = torch.empty((n, directions, h, w), dtype=torch.float32, device=x.device)
-    else:
-        mag = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+        comps = empty(n, directions, h, w)
+    if out_mag:
+        mag = empty(n, h, w)
     if with_max:
-        bmax = torch.empty((n, gh, gw), dtype=torch.float32, device=x.device)
+        bmax = empty(n, gh, gw)
     if n > 0 and h > 0 and w > 0:
-        lib = _lib()
-        taps = _pack_taps(spec)
+        lib = _lib("edge")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.repro_edge_launch(
-                x.data_ptr(), int(x.dtype == torch.uint8), int(rgb), n, h, w,
-                bh, bw, spec.size, _VARIANT_CODES[variant], directions,
-                _PADDING_CODES[padding], taps.ctypes.data,
-                None if mag is None else mag.data_ptr(),
-                None if comps is None else comps.data_ptr(),
-                None if bmax is None else bmax.data_ptr(),
-                stream,
+                *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
+                           out_nms),
+                _ptr(primary), _ptr(comps), _ptr(mag), _ptr(bmax), stream,
             )
-        if err != 0:
-            raise RuntimeError(
-                f"edge kernel launch failed: {lib.repro_edge_error_string(err).decode()} "
-                f"(cudaError {err})"
-            )
+        _raise_on_error(lib, "edge", err)
         edge_cuda.launches += 1
-    primary = comps if out_components else mag
-    return (primary, bmax) if with_max else primary
+    if out_nms:
+        outs = [primary] + [t for t in (comps, mag) if t is not None]
+    else:
+        outs = [comps if out_components else primary]
+    if with_max:
+        outs.append(bmax)
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 edge_cuda.launches = 0
+
+
+def edge_stream_cuda(
+    x: torch.Tensor,
+    prev_primary: torch.Tensor,
+    prev_bmax: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    spec: OperatorSpec,
+    variant: str,
+    directions: int,
+    padding: str = "reflect",
+    block_h: int = 64,
+    block_w: "int | None" = None,
+    rgb: bool = False,
+    out_nms: bool = False,
+):
+    """Launch K3 (``csrc/edge_stream.cu``): recompute the tiles ``mask``
+    flags, splice the cached tiles and maxima everywhere else.
+
+    ``x`` as for :func:`edge_cuda`; ``prev_primary`` ``(N, H, W)`` f32 (the
+    previous thin map with ``out_nms``, else magnitude), ``prev_bmax``
+    ``(N, gh, gw)`` f32 and ``mask`` ``(N, gh, gw)`` int32, all contiguous
+    CUDA tensors on the tile grid of ``block_h x block_w``. Returns fresh
+    ``(primary, bmax)``, bit-identical to a full recompute where the
+    unflagged tiles' input windows did not change.
+
+    Launches on PyTorch's current stream and does not synchronise. Raises
+    for a CPU tensor, an input the kernel does not take, or a launch the
+    device refuses. ``edge_stream_cuda.launches`` counts the launches.
+    """
+    _check_launch(x, "edge_stream_cuda", spec, variant, directions, padding)
+    n, h, w = _dims(x, rgb)
+    bh, bw, gh, gw = _grid(h, w, block_h, block_w)
+    _check_stream_shapes(prev_primary, prev_bmax, mask, n, h, w, gh, gw, bh, bw)
+    for name, t, dtype in (("prev_primary", prev_primary, torch.float32),
+                           ("prev_bmax", prev_bmax, torch.float32),
+                           ("mask", mask, torch.int32)):
+        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {x.device}, "
+                             f"got {t.dtype} on {t.device}")
+    _check_grid(n, bh, bw, gh, gw, spec.radius, out_nms)
+    primary = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+    bmax = torch.empty((n, gh, gw), dtype=torch.float32, device=x.device)
+    if n > 0 and h > 0 and w > 0:
+        lib = _lib("edge_stream")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.repro_stream_launch(
+                *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
+                           out_nms),
+                mask.data_ptr(), prev_primary.data_ptr(), prev_bmax.data_ptr(),
+                primary.data_ptr(), bmax.data_ptr(), stream,
+            )
+        _raise_on_error(lib, "edge_stream", err)
+        edge_stream_cuda.launches += 1
+    return primary, bmax
+
+
+edge_stream_cuda.launches = 0

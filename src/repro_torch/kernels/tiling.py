@@ -4,8 +4,12 @@ The part of ``repro.kernels.tiling`` that is arithmetic rather than Pallas
 window geometry: the CUDA kernel (``csrc/edge.cu``) applies the same index
 maps while it stages its halo window in shared memory, and the plain
 PyTorch version builds the boundary-extended image from them.
+``window_shape`` keeps the reference's clamped window extent (with the
+off-TPU alignment) because the streaming change test reaches that far.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -13,6 +17,8 @@ __all__ = [
     "PAD_MODES",
     "LUMA_WEIGHTS",
     "window_radius",
+    "ALIGN_INTERPRET",
+    "window_shape",
     "reflect_index",
     "boundary_index",
     "valid_mask",
@@ -30,6 +36,25 @@ def window_radius(radius: int, nms: bool = False) -> int:
     """Input-window reach of a fused kernel step: the stencil radius, plus
     the 1-px neighbourhood NMS compares against."""
     return radius + (1 if nms else 0)
+
+
+# The reference's window alignment off the TPU. The CUDA kernels stage their
+# windows element by element, so no alignment applies.
+ALIGN_INTERPRET = (1, 1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def window_shape(h: int, w: int, block_h: int, block_w: int, r: int, *,
+                 align: Tuple[int, int] = ALIGN_INTERPRET) -> Tuple[int, int]:
+    """(tile_h, tile_w) of the clamped input window of one output tile:
+    ``block + 2r`` rounded up to ``align``, clamped to the image. The
+    streaming change test reaches as far as this window."""
+    th = min(_round_up(block_h + 2 * r, align[0]), h)
+    tw = min(_round_up(block_w + 2 * r, align[1]), w)
+    return th, tw
 
 
 def reflect_index(g: torch.Tensor, n: int) -> torch.Tensor:

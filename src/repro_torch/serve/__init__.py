@@ -1,0 +1,14 @@
+"""Serving: the streaming engine and its degradation ladder."""
+from repro_torch.serve.guard import (  # noqa: F401
+    GuardPolicy,
+    Health,
+    Outcome,
+    Shedder,
+    StepGuard,
+    quarantine_reason,
+)
+from repro_torch.serve.streams import (  # noqa: F401
+    StreamEngine,
+    StreamRequest,
+    StreamStats,
+)

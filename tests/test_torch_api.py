@@ -129,9 +129,6 @@ def test_backends_resolve_by_device():
 
 
 @pytest.mark.parametrize("override,item", (
-    (dict(nms=True), "item 3"),
-    (dict(hysteresis=True), "item 3"),
-    (dict(temporal=True), "item 3"),
     (dict(plan="canny5"), "item 5"),
     (dict(shard="2x1x1"), "item 10"),
     (dict(pipeline_depth=2), "item 7"),
@@ -192,3 +189,38 @@ def test_chip_smoke_counts_the_ladder_operations():
     # halving 4, magnitude 8.
     assert cs.kernel_ops_per_pixel(spec, "v2", 4, rgb=False) == 73
     assert cs.kernel_ops_per_pixel(spec, "v2", 4, rgb=True) == 78
+
+
+def test_chip_smoke_bounds_the_nms_lane_and_k3():
+    """The NMS lane's operations and K3's bound on a mask: the ladder runs
+    once per pixel whose magnitude a changed tile needs (its pixels and its
+    one-pixel ring, each counted once), the sector and suppression once per
+    changed pixel."""
+    from repro_torch.core.filters import get_operator
+
+    cs = _chip_smoke()
+    spec = get_operator("sobel5")
+    assert cs.nms_ops_per_pixel(4) == 12 and cs.nms_ops_per_pixel(2) == 10
+    px = cs.tile_pixels(5, 7, 2, 4)
+    assert px.tolist() == [[8, 6], [8, 6], [4, 3]] and px.sum() == 35
+    mask = np.zeros((1, 3, 2), np.int32)
+    ones = np.ones_like(mask)
+    # Every tile changed: the (H+2)(W+2) extended frame, whatever the tiles.
+    assert cs.magnitude_pixels(ones, 5, 7, 2, 4) == 7 * 9
+    assert cs.magnitude_pixels(np.ones((2, 1, 1)), 5, 7, 5, 7) == 2 * 7 * 9
+    assert cs.magnitude_pixels(mask, 5, 7, 2, 4) == 0
+    one = mask.copy()
+    one[0, 0, 0] = 1            # rows -1..2, cols -1..4
+    assert cs.magnitude_pixels(one, 5, 7, 2, 4) == 4 * 6
+    one[0, 0, 1] = 1            # its right neighbour: cols -1..7, one ring shared
+    assert cs.magnitude_pixels(one, 5, 7, 2, 4) == 4 * 9
+    assert cs.nms_lane_ops(spec, "v2", 4, False, one, 5, 7, 2, 4) == 73 * 36 + 12 * 14
+    assert cs.nms_lane_ops(spec, "v2", 4, True, ones, 5, 7, 2, 4) == 73 * 63 + 17 * 35
+    t_none = cs.stream_bound(mask, 5, 7, 2, 4, 1, 0)
+    assert t_none[4] == 0.0 and t_none[1] == "bytes"
+    # Nothing changed: read and write 4 B/px, the mask and the maxima.
+    assert t_none[2] == pytest.approx((35 * 8 + 6 * 8 + 6 * 4) / cs.HBM_BYTES_PER_S * 1e3)
+    ops = cs.nms_lane_ops(spec, "v2", 4, False, ones, 5, 7, 2, 4)
+    t_all = cs.stream_bound(ones, 5, 7, 2, 4, 1, ops)
+    assert t_all[4] == 1.0
+    assert t_all[3] == pytest.approx((73 * 63 + 12 * 35) / cs.F32_OPS_PER_S * 1e3)

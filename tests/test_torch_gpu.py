@@ -1,4 +1,4 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1 and K3 on the card: the CUDA kernels against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernel is built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they skip.
@@ -107,3 +107,134 @@ def test_facade_cuda_lane_equals_torch_lane(cuda_device, config):
             assert (a is None) == (b is None), field
             if a is not None:
                 assert a.device.type == "cuda" and torch.equal(a, b), field
+
+
+NMS_OPERATORS = ("sobel5", "sobel3", "scharr3", "sobel7", "sep9")
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (2, 3), (37, 53), (70, 270)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb", "rgb_f32"))
+def test_edge_cuda_nms_equals_plain(cuda_device, kind, shape):
+    """K1's NMS outputs: thin map, centre components, un-thinned magnitude
+    and per-tile max, for every size, direction count and padding."""
+    x = _frames(kind, (2,) + shape, cuda_device)
+    for op in NMS_OPERATORS:
+        spec = get_operator(op)
+        variant = spec.resolve_variant("auto")
+        for d in spec.directions:
+            for padding in ("reflect", "edge", "zero"):
+                for block in ((16, 32), (64, 256)):
+                    for extras in (dict(), dict(out_components=True, out_mag=True,
+                                                with_max=True), dict(with_max=True)):
+                        kw = dict(spec=spec, variant=variant, directions=d, padding=padding,
+                                  block_h=block[0], block_w=block[1],
+                                  rgb=kind.startswith("rgb"), out_nms=True, **extras)
+                        a = ekern.edge_cuda(x, **kw)
+                        b = ekern.edge_plain(x, **kw)
+                        a = a if isinstance(a, tuple) else (a,)
+                        b = b if isinstance(b, tuple) else (b,)
+                        assert len(a) == len(b)
+                        for u, v in zip(a, b):
+                            assert torch.equal(u, v), (op, d, padding, block, extras)
+
+
+def _masks(n, gh, gw, device):
+    rng = np.random.default_rng(3)
+    return {
+        "none": torch.zeros((n, gh, gw), dtype=torch.int32, device=device),
+        "all": torch.ones((n, gh, gw), dtype=torch.int32, device=device),
+        "random": torch.from_numpy(rng.integers(0, 2, (n, gh, gw)).astype(np.int32)).to(device),
+    }
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (37, 53), (130, 300)), ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb"))
+@pytest.mark.parametrize("out_nms", (False, True), ids=("mag", "nms"))
+def test_edge_stream_cuda_equals_plain(cuda_device, out_nms, kind, shape):
+    x = _frames(kind, (2,) + shape, cuda_device)
+    spec = get_operator("sobel5")
+    bh, bw = 16, 64
+    gh, gw = -(-shape[0] // bh), -(-shape[1] // bw)
+    prev = torch.from_numpy(np.random.default_rng(1).uniform(0, 9, (2,) + shape)
+                            .astype(np.float32)).to(cuda_device)
+    prev_max = torch.full((2, gh, gw), 7.0, device=cuda_device)
+    kw = dict(spec=spec, variant="v2", directions=4, block_h=bh, block_w=bw,
+              rgb=kind == "rgb", out_nms=out_nms)
+    for name, mask in _masks(2, gh, gw, cuda_device).items():
+        before = ekern.edge_stream_cuda.launches
+        a = ekern.edge_stream_cuda(x, prev, prev_max, mask, **kw)
+        assert ekern.edge_stream_cuda.launches == before + 1
+        b = ekern.edge_stream_plain(x, prev, prev_max, mask, **kw)
+        assert ekern.edge_stream_cuda.launches == before + 1
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), name
+        if name == "all":   # every tile recomputed: K3 equals K1
+            k1 = ekern.edge_cuda(x, spec=spec, variant="v2", directions=4, block_h=bh,
+                                 block_w=bw, rgb=kind == "rgb", out_nms=out_nms,
+                                 with_max=True)
+            assert torch.equal(a[0], k1[0]) and torch.equal(a[1], k1[1])
+        if name == "none":
+            assert torch.equal(a[0], prev) and torch.equal(a[1], prev_max)
+
+
+def test_edge_stream_cuda_rejects_what_it_does_not_take(cuda_device):
+    spec = get_operator("sobel5")
+    x = torch.zeros((1, 16, 16), dtype=torch.uint8, device=cuda_device)
+    prev = torch.zeros((1, 16, 16), device=cuda_device)
+    bmax = torch.zeros((1, 2, 2), device=cuda_device)
+    mask = torch.ones((1, 2, 2), dtype=torch.int32, device=cuda_device)
+    kw = dict(spec=spec, variant="v2", directions=4, block_h=8, block_w=8)
+    with pytest.raises(ValueError, match="int32"):
+        ekern.edge_stream_cuda(x, prev, bmax, mask.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="tile grid"):
+        ekern.edge_stream_cuda(x, prev, bmax[:, :1], mask, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        ekern.edge_stream_cuda(x, prev.cpu(), bmax, mask, **kw)
+    with pytest.raises(ValueError, match="out_mag"):
+        ekern.edge_cuda(x, out_mag=True, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        ekern.edge_cuda(x, **dict(kw, block_h=200, block_w=200), out_nms=True)
+
+
+def test_nms_facade_and_stream_cuda_lane_equal_torch_lane(cuda_device):
+    from repro_torch.api import edge_detect_stream
+
+    x = _frames("u8", (2, 45, 67), cuda_device)
+    cfg = EdgeConfig(hysteresis=True, with_max=True)
+    res = edge_detect(x, cfg)
+    ref = edge_detect(x, cfg.replace(backend="torch"))
+    for field in ("magnitude", "thin", "edges", "peak"):
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+    cfg = EdgeConfig(temporal=True, decay=0.9, block_h=16, block_w=32)
+    state = ref_state = None
+    before = ekern.edge_stream_cuda.launches
+    for t in range(4):
+        f = x.clone()
+        f[:, 10 + 3 * t:20 + 3 * t, 5:15] = 255
+        out, state = edge_detect_stream(f, cfg, state)
+        want, ref_state = edge_detect_stream(f, cfg.replace(backend="torch"), ref_state)
+        assert torch.equal(out.edges, want.edges) and torch.equal(out.skipped, want.skipped)
+        assert torch.equal(state.seed, ref_state.seed)
+    assert ekern.edge_stream_cuda.launches == before + 4
+
+
+def test_stream_engine_raises_when_k3_keeps_failing(cuda_device, monkeypatch):
+    """On the card a K3 that fails past the retries raises out of the
+    engine; nothing serves the step through the plain lane instead."""
+    from repro_torch.runtime.fault import FaultPolicy
+    from repro_torch.serve import StreamEngine, StreamRequest
+    from repro_torch.serve.guard import GuardPolicy
+
+    def refused(*a, **k):
+        raise RuntimeError("K3 launch refused")
+
+    monkeypatch.setattr(ekern, "edge_stream_cuda", refused)
+    policy = GuardPolicy(fault=FaultPolicy(max_retries_per_step=2, backoff_s=0.0))
+    eng = StreamEngine(EdgeConfig(hysteresis=True, block_h=16, block_w=32), max_streams=1,
+                       guard=policy)
+    frame = np.random.default_rng(3).integers(0, 256, (45, 67)).astype(np.uint8)
+    eng.submit(StreamRequest(sid=0, frames=[frame, frame]))
+    with pytest.raises(RuntimeError, match="K3 launch refused"):
+        eng.run()
+    assert eng.health.backend == "cuda" and not eng.health.degraded
+    assert eng.health.counts["degraded"] == 0

@@ -36,7 +36,9 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_leaves_jax_out():
     code = (
         "import sys; import repro_torch.api, repro_torch.launch.serve, "
-        "repro_torch.kernels.build, repro_torch.configs.sobel_hd; "
+        "repro_torch.kernels.build, repro_torch.configs.sobel_hd, repro_torch.core.nms, "
+        "repro_torch.serve.streams, repro_torch.serve.guard, repro_torch.runtime, "
+        "repro_torch.data.synthetic; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1,11 +1,13 @@
 """The port's frame server runs end to end on the CPU and serves the
-reference's frames and answers."""
+reference's frames and answers: magnitude, edge maps (``--edges``) and
+video streams (``--streams``)."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro.api import EdgeConfig as RefConfig
@@ -61,3 +63,75 @@ def test_edge_config_matches_reference():
     for f in ("operator", "directions", "variant", "padding", "block_h", "block_w", "normalize"):
         assert getattr(cfg, f) == getattr(ref, f), f
     assert RefConfig().normalize == cfg.normalize
+
+
+def test_served_edges_match_reference():
+    """--edges: NMS + hysteresis through the facade; the last answer equals
+    the reference's XLA lane on the same frames."""
+    stats = serve.main(["--arch", "sobel-hd", "--smoke", "--requests", "2", "--slots", "2",
+                        "--device", "cpu", "--edges"])
+    res = stats["result"]
+    ref_cfg = ref_get_config("sobel-hd", smoke=True)
+    frames = ref_image_batch(ref_cfg, 2, step=1)["images"]
+    ref = ref_edge_detect(frames, ref_cfg.edge_config(with_max=True, backend="xla", nms=True,
+                                                       hysteresis=True))
+    for field in ("magnitude", "thin", "edges", "peak"):
+        np.testing.assert_array_equal(getattr(res, field).numpy(), np.asarray(getattr(ref, field)))
+    assert 0.0 < stats["edge_density"] < 0.5
+
+
+def _ref_stream_outputs(n_streams, n_frames, motion, decay):
+    """The reference's stream path over the server's frames: per stream, the
+    (magnitude, edges) of every frame."""
+    from repro.api import edge_detect_stream as ref_stream
+    from repro.data.synthetic import video_frame as ref_video_frame
+
+    cfg = ref_get_config("sobel-hd", smoke=True)
+    kw = dict(with_max=True, nms=True, hysteresis=True, backend="xla")
+    if decay:
+        kw.update(temporal=True, decay=decay)
+    edge_cfg = cfg.edge_config(**kw)
+    outs = {}
+    for sid in range(n_streams):
+        state, outs[sid] = None, []
+        for t in range(n_frames):
+            f = ref_video_frame(cfg, stream=sid, step=t, motion=motion)
+            res, state = ref_stream(f, edge_cfg, state)
+            outs[sid].append((np.asarray(res.magnitude), np.asarray(res.edges)))
+    return outs
+
+
+@pytest.mark.parametrize("motion,decay", ((2.0, 0.0), (0.0, 0.0), (2.0, 0.9)))
+def test_served_streams_match_reference(motion, decay):
+    """--streams: every served frame of every stream equals the reference's
+    stream path on the same frames; the health ledger accounts for all."""
+    stats = serve.main(["--arch", "sobel-hd", "--smoke", "--streams", "3", "--requests", "3",
+                        "--slots", "2", "--device", "cpu", "--collect",
+                        "--motion", str(motion), "--decay", str(decay)])
+    health = stats["health"]
+    assert health.unaccounted == 0 and health.submitted == 9 == health.counts["served"]
+    assert health.retries == 0 and not health.degraded
+    ref = _ref_stream_outputs(3, 3, motion, decay)
+    for sid, st in stats["streams"].items():
+        assert st.frames == 3 and len(st.outputs) == 3
+        for t, out in enumerate(st.outputs):
+            np.testing.assert_array_equal(out["magnitude"], ref[sid][t][0])
+            np.testing.assert_array_equal(out["edges"], ref[sid][t][1])
+        assert set(stats["per_stream"][sid]) >= {"compute_p50_ms", "compute_p99_ms",
+                                                 "transfer_p50_ms", "transfer_p99_ms"}
+        if motion == 0.0:
+            assert st.cached_steps == 2
+    if motion == 0.0:
+        assert stats["skip_rate"] == 1.0
+
+
+def test_serve_cli_streams_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "sobel-hd", "--smoke",
+         "--streams", "2", "--requests", "3", "--decay", "0.9", "--device", "cpu"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "stream 1: 3 frames" in proc.stdout and "frames/s aggregate" in proc.stdout
+    assert "unaccounted=0" in proc.stdout and "backend=torch" in proc.stdout
