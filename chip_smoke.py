@@ -3,8 +3,10 @@
 Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 
 1. Prints the card's name and power limit, the torch/CUDA versions, and
-   builds every kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source, all started together), printing the build seconds.
+   builds every kernel under ``src/repro_torch/kernels/csrc`` (K1
+   ``edge.cu``, K2 ``edge_pipelined.cu``, K3 ``edge_stream.cu``: one
+   ``nvcc`` per source, all started together), printing each source's
+   compile seconds. Every phase prints its seconds.
 2. Holds K1 (``edge_cuda``) bit-equal (``torch.equal``) to its plain PyTorch
    version (``edge_plain``) on the card: magnitude, components and per-tile
    max, for every operator x variant x directions x padding at 1x1, 2x3,
@@ -19,6 +21,19 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 2c. Holds K3 (``edge_stream_cuda``) bit-equal to ``edge_stream_plain`` with
    masks all-0, all-1 and random, NMS on and off, on ragged shapes and at
    4x2048x2048 u8; with an all-1 mask K3 must equal K1.
+2d. Holds K2 (``edge_cuda(pipeline_depth=d)``, the DMA ring) bit-equal to
+   ``edge_plain`` and to K1 at depths 2, 3 and 8, for every operator x
+   variant x directions x padding on gray u8/f32 and RGB u8/f32 at the
+   phase-2 sizes (the 237x413 grid has fewer tiles in a row than depth 8),
+   with NMS off (magnitude, components, per-tile max) and on (thin map,
+   components, un-thinned magnitude, per-tile max), and at 4x2048x2048 f32
+   and u8 on the FULL 64x256 tile at every depth that fits; every depth
+   whose footprint exceeds ``SMEM_MAX`` must raise, and
+   ``edge.pipelined_smem_bytes`` must equal the source's own layout.
+2e. Holds the integer lane (``precision="int"``) of K1 and K2 bit-equal to
+   the f32 plain lane for every int-eligible operator x variant x
+   directions x padding on u8 gray at the phase-2 sizes, and at
+   4x2048x2048 u8.
 3. Drives the facade, ``repro_torch.api.edge_detect`` with the default
    ``EdgeConfig()``, on a 1080p RGB u8 batch and an NTHW gray u8 stack; each
    must equal ``backend="torch"`` on the same device, must agree with
@@ -27,6 +42,17 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    torch lane, and 8 frames of 4 full-width streams through
    ``edge_detect_stream`` with ``decay=0`` equal 8 stateless ``edge_detect``
    calls.
+3c. This slice's main path: ``edge_detect`` on the sobel-hd FULL config at
+   4x2048x2048 with ``pipeline_depth=d`` for every depth that fits, on f32
+   and u8 frames, must launch K2 (u8 on its integer lane) and equal the
+   torch lane; on u8 with ``precision="auto"`` it must run K1's integer
+   lane. Counts are set to 0 just before each call and read just after.
+3d. ``tuning.autotune`` of the image server's workload (4 f32 frames of
+   2048x2048, ``TUNE_SHAPES`` x depths 0 and 2, best of 3) into this run's
+   cache (``REPRO_TUNE_CACHE`` under ``build/chip_smoke``), printing the
+   rows of a second sweep of the same candidates; then ``edge_detect`` with no tile must report ``"tuned"``
+   and launch the kernel of the recorded depth, and again with the depth
+   pinned to 2 (its own tuned slot, K2). Every output equals the torch lane.
 4. Serves sobel-hd at full size (2048x2048 f32 frames, 4 per request, 8
    requests) through ``repro_torch.launch.serve`` in-process, with the
    launch counts set to 0 just before and read just after; the last answer
@@ -46,10 +72,13 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 4d. The same step with hysteresis fractions that leave weak chains to link
    (``WEAK_LOW``/``WEAK_HIGH``): must equal the torch lane and take as many
    dilation steps; prints the steps and the linking loop's time.
-5. Times K1, K1 with ``out_nms`` and K3 (at 0%, the motion run's share and
-   100% of tiles changed) with CUDA events, beside their plain versions and
-   their bounds on the card (the NMS lane's operations counted on the
-   pixels each mask needs, ``nms_lane_ops``), with a library yardstick for K1 (cuDNN
+5. Times K1, K1 with ``out_nms``, K2 at every depth that fits at
+   4x2048x2048 f32 and u8, the integer lane of K1 and K2 at 4x2048x2048 u8,
+   and K3 (at 0%, the motion run's share and 100% of tiles changed) with
+   CUDA events, beside their plain versions and their bounds on the card
+   (the NMS lane's operations counted on the pixels each mask needs,
+   ``nms_lane_ops``; the integer lane's ladder at the card's INT32 rate,
+   ``int_lane_bound``), with a library yardstick for K1 and K2 (cuDNN
    ``F.conv2d`` of the 4-direction bank, which covers the components only
    and is used nowhere in the port; no single PyTorch call computes the
    NMS lane or K3), and prints one JSON line of them.
@@ -62,6 +91,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -80,6 +110,17 @@ F32_OPS_PER_S = 33.5e12      # 67 TFLOP/s f32 counts an FMA as 2; --fmad=false r
 SIZES = ((1, 1), (2, 3), (37, 53), (237, 413))
 NMS_SIZES = ((1, 1), (2, 3), (37, 53), (70, 270))
 KINDS = ("u8", "f32", "rgb", "rgb_f32")
+PADDINGS = ("reflect", "edge", "zero")
+OPERATORS = ("sobel5", "sobel3", "scharr3", "prewitt3", "sobel7", "sep9")
+INT_OPERATORS = ("prewitt3", "scharr3", "sobel3", "sobel5", "sobel7")  # integer taps
+K2_DEPTHS = (2, 3, 8)   # with 32x64 tiles the 237x413 grid has gw = 7 < 8
+# The outputs K2 and the integer lane are held to: magnitude and per-tile
+# max; components and max; the NMS lane's thin map, components, un-thinned
+# magnitude and max.
+LANE_OUTPUTS = (dict(with_max=True), dict(out_components=True, with_max=True),
+                dict(out_nms=True, out_components=True, out_mag=True, with_max=True))
+# Candidate tiles of phase 3d's sweep at 2048x2048.
+TUNE_SHAPES = ((16, 256), (32, 128), (32, 256), (64, 128), (64, 256), (128, 128))
 
 # sha256 of the JAX reference's outputs, repro.api.edge_detect(...,
 # EdgeConfig(backend="xla", with_max=True)), on the _golden_inputs() frames;
@@ -224,6 +265,58 @@ def bound(n_px: int, in_bytes_px: int, out_bytes: int, ops_px: float):
             t_bytes * 1e3, t_ops * 1e3)
 
 
+def int32_ops_per_s() -> float:
+    """The card's peak 32-bit integer rate: 64 INT32 lanes per SM (half of
+    the 128 FP32 lanes) x the SM count x the maximum SM clock that
+    ``nvidia-smi`` reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return 64 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def int_lane_bound(n_px: int, in_bytes_px: int, out_bytes: int, spec, variant: str,
+                   directions: int, int_rate: float):
+    """The integer lane's bound: the ladder's operations (the f32 count of
+    :func:`kernel_ops_per_pixel` without the magnitude) at the 32-bit
+    integer rate, the conversions and the magnitude at the f32 rate, the two
+    units working side by side; the bytes as for K1."""
+    f32_px = 3 * directions   # D conversions to f32, D squares, D - 1 adds, 1 sqrt
+    int_px = kernel_ops_per_pixel(spec, variant, directions, rgb=False) - 2 * directions
+    t_bytes = (n_px * in_bytes_px + out_bytes) / HBM_BYTES_PER_S
+    t_ops = max(n_px * int_px / int_rate, n_px * f32_px / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3, int_px)
+
+
+def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bool,
+                   variant: str, directions: int):
+    """K2's ring depths whose footprint fits a CTA's shared memory."""
+    from repro_torch.kernels.edge import PIPELINE_DEPTHS, SMEM_MAX, pipelined_smem_bytes
+
+    return [d for d in PIPELINE_DEPTHS
+            if pipelined_smem_bytes(bh, bw, spec.radius, d, in_bytes, channels, nms, variant,
+                                    directions) <= SMEM_MAX]
+
+
+def reset_counts():
+    """Every kernel's launch counts to 0 (before a main-path run)."""
+    from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
+
+    for fn in (edge_cuda, edge_pipelined_cuda, edge_stream_cuda):
+        fn.launches = 0
+    edge_cuda.int_launches = edge_pipelined_cuda.int_launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
+
+    return dict(k1=edge_cuda.launches, k1_int=edge_cuda.int_launches,
+                k2=edge_pipelined_cuda.launches, k2_int=edge_pipelined_cuda.int_launches,
+                k3=edge_stream_cuda.launches)
+
+
 def tile_pixels(h: int, w: int, bh: int, bw: int) -> np.ndarray:
     """(gh, gw) in-image pixel count of each tile."""
     rows = np.minimum(bh, h - bh * np.arange(-(-h // bh)))
@@ -272,7 +365,8 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f}s for {sorted(logs) or 'cached libraries'}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or line.startswith("nvcc ")):
                 print(f"  {name}: {line.strip()}")
 
 
@@ -413,6 +507,150 @@ def phase_stream_vs_plain(rng, dev):
     check(mismatches == 0, f"K3 differs from edge_stream_plain in {mismatches} of {cases} cases")
 
 
+def k2_against(x, kw: dict, depths, fits, label: str):
+    """K2 at each of ``depths`` on ``x``: bit-equal to ``edge_plain`` and to
+    K1 where the depth fits, a ``ValueError`` where it does not. Returns
+    ``(cases, mismatches, raised)``."""
+    from repro_torch.kernels.edge import edge_cuda, edge_plain
+
+    want, k1 = edge_plain(x, **kw), edge_cuda(x, **kw)
+    cases = mismatches = raised = 0
+    for depth in depths:
+        if depth not in fits:
+            try:
+                edge_cuda(x, pipeline_depth=depth, **kw)
+            except ValueError:
+                raised += 1
+                continue
+            check(False, f"K2 depth {depth} over the shared-memory budget did not raise ({label})")
+        got = edge_cuda(x, pipeline_depth=depth, **kw)
+        cases += 1
+        if not (_same(got, want) and _same(got, k1)):
+            mismatches += 1
+            print(f"  MISMATCH K2 {label} depth={depth}")
+    return cases, mismatches, raised
+
+
+def phase_k2_vs_plain(rng, dev):
+    """Phase 2d: K2 against edge_plain and K1 over the whole matrix, and at
+    full width on the FULL tile at every depth that fits; a depth whose
+    footprint exceeds SMEM_MAX must raise. Returns the full-width inputs."""
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import PIPELINE_DEPTHS
+
+    t0 = time.perf_counter()
+    results = []  # (cases, mismatches, raised) of each k2_against
+    for shape in SIZES:
+        inputs = {k: frames(k, (2,) + shape, rng, dev) for k in KINDS}
+        for op in OPERATORS:
+            spec = get_operator(op)
+            for variant in spec.variants:
+                for d in spec.directions:
+                    for padding in PADDINGS:
+                        for kind, x in inputs.items():
+                            rgb = kind.startswith("rgb")
+                            for extra in LANE_OUTPUTS:
+                                kw = dict(spec=spec, variant=variant, directions=d,
+                                          padding=padding, block_h=32, block_w=64, rgb=rgb,
+                                          **extra)
+                                fits = fitting_depths(32, 64, spec, x.element_size(),
+                                                      3 if rgb else 1, "out_nms" in extra,
+                                                      variant, d)
+                                results.append(k2_against(
+                                    x, kw, K2_DEPTHS, fits,
+                                    f"{shape} {op} {variant} {d} {padding} {kind} "
+                                    f"{sorted(extra)}"))
+    spec5 = get_operator("sobel5")
+    full = {}
+    for kind in ("f32", "u8"):
+        x = frames(kind, (4, 2048, 2048), rng, dev)
+        full[kind] = x
+        for extra in (dict(with_max=True), dict(out_nms=True, with_max=True)):
+            kw = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256, **extra)
+            fits = fitting_depths(64, 256, spec5, x.element_size(), 1, "out_nms" in extra,
+                                  "v2", 4)
+            results.append(k2_against(x, kw, PIPELINE_DEPTHS, fits,
+                                      f"4x2048x2048 {kind} {sorted(extra)}"))
+            print(f"  4x2048x2048 {kind} 64x256 {sorted(extra)}: depths that fit {fits}")
+    torch.cuda.synchronize()
+    cases, mismatches, raised = map(sum, zip(*results))
+    print(f"K2 vs plain and K1: {cases} cases, {mismatches} mismatches; {raised} over-budget "
+          f"depths raised ({time.perf_counter() - t0:.1f}s)")
+    check(mismatches == 0, f"K2 differs from edge_plain/K1 in {mismatches} of {cases} cases")
+    check(raised > 0, "no over-budget depth was tried")
+    k2_footprints_agree()
+    return full
+
+
+def k2_footprints_agree():
+    """``edge.pipelined_smem_bytes`` against the source's own
+    ``pipelined_layout`` (``repro_pipelined_smem_bytes``) over tiles,
+    radii, depths, input types, layouts, NMS, variants and directions."""
+    import itertools
+
+    from repro_torch.kernels.edge import (PIPELINE_DEPTHS, _VARIANT_CODES, _lib,
+                                          pipelined_smem_bytes)
+
+    lib = _lib("edge_pipelined")
+    cases = bad = 0
+    for (bh, bw), r, d, nb, ch, nms, variant, dirs in itertools.product(
+            ((1, 1), (8, 32), (32, 64), (64, 256), (128, 128)), (1, 2, 3, 4), PIPELINE_DEPTHS,
+            (1, 4), (1, 3), (False, True), tuple(_VARIANT_CODES), (2, 4)):
+        want = pipelined_smem_bytes(bh, bw, r, d, nb, ch, nms, variant, dirs)
+        got = lib.repro_pipelined_smem_bytes(bh, bw, r, d, nb, ch, int(nms),
+                                             _VARIANT_CODES[variant], dirs)
+        cases += 1
+        bad += int(got != want)
+    print(f"K2 footprint, pipelined_smem_bytes vs the source's pipelined_layout: {cases} "
+          f"cases, {bad} differ")
+    check(bad == 0, f"pipelined_smem_bytes differs from csrc/edge_pipelined.cu in {bad} cases")
+
+
+def phase_int_lane(rng, dev, full):
+    """Phase 2e: K1 and K2 on the integer lane against the f32 plain lane."""
+    from repro_torch.core.filters import get_operator
+    from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_plain
+
+    t0 = time.perf_counter()
+    cases = mismatches = 0
+    for shape in SIZES:
+        x = frames("u8", (2,) + shape, rng, dev)
+        for op in INT_OPERATORS:
+            spec = get_operator(op)
+            for variant in spec.variants:
+                for d in spec.directions:
+                    for padding in PADDINGS:
+                        for extra in LANE_OUTPUTS:
+                            kw = dict(spec=spec, variant=variant, directions=d, padding=padding,
+                                      block_h=32, block_w=64, **extra)
+                            want = edge_plain(x, **kw)
+                            for depth in (0,) + K2_DEPTHS:
+                                got = edge_cuda(x, precision="int", pipeline_depth=depth, **kw)
+                                cases += 1
+                                if not _same(got, want):
+                                    mismatches += 1
+                                    print(f"  MISMATCH int {shape} {op} {variant} {d} {padding} "
+                                          f"depth={depth} {sorted(extra)}")
+    spec5 = get_operator("sobel5")
+    x = full["u8"]
+    kw = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256, with_max=True)
+    want = edge_plain(x, **kw)
+    k1_int, k2_int = edge_cuda.int_launches, edge_pipelined_cuda.int_launches
+    depths = [0] + fitting_depths(64, 256, spec5, 1, 1, False, "v2", 4)
+    for depth in depths:
+        cases += 1
+        if not _same(edge_cuda(x, precision="int", pipeline_depth=depth, **kw), want):
+            mismatches += 1
+            print(f"  MISMATCH int 4x2048x2048 depth={depth}")
+    check(edge_cuda.int_launches == k1_int + 1
+          and edge_pipelined_cuda.int_launches == k2_int + len(depths) - 1,
+          "the integer lane's launches were not counted as such")
+    torch.cuda.synchronize()
+    print(f"int lane (K1, K2) vs f32 plain lane: {cases} cases, {mismatches} mismatches "
+          f"({time.perf_counter() - t0:.1f}s)")
+    check(mismatches == 0, f"the integer lane differs from f32 in {mismatches} of {cases} cases")
+
+
 def phase_facade(rng, dev):
     """Phase 3: the facade on the card against the reference's digests and
     the torch lane."""
@@ -442,6 +680,112 @@ def phase_facade(rng, dev):
         check(res.magnitude.shape == want_shape, f"facade on {label}: shape {tuple(res.magnitude.shape)}")
         check(bool(torch.isfinite(res.magnitude).all()), f"facade on {label}: non-finite output")
         print(f"facade {label}: layout {res.layout}, K1 launches {launches}, equal to torch lane")
+
+
+def phase_depth_facade(full_inputs, dev):
+    """Phase 3c, this slice's main path: ``edge_detect`` on the sobel-hd
+    FULL config at 4x2048x2048 with an explicit ring depth (each depth that
+    fits, f32 and u8 frames) and, on u8, the default ``precision="auto"``.
+    Counts are set to 0 just before each call and read just after. Returns
+    the summed counts of these runs."""
+    from repro_torch.api import edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.core.filters import get_operator
+
+    t0 = time.perf_counter()
+    full = get_config("sobel-hd")
+    spec5 = get_operator("sobel5")
+    total = dict.fromkeys(("k1", "k1_int", "k2", "k2_int", "k3"), 0)
+    runs = []
+    for kind, x in full_inputs.items():
+        for depth in fitting_depths(full.sobel_block_h, full.sobel_block_w, spec5,
+                                    x.element_size(), 1, False, "v2", 4):
+            cfg = full.edge_config(pipeline_depth=depth, with_max=True)
+            reset_counts()
+            res = edge_detect(x, cfg)
+            counts = read_counts()
+            lane = "int" if kind == "u8" else "f32"
+            check(counts["k2"] == 1 and counts["k1"] == 0,
+                  f"edge_detect(pipeline_depth={depth}) on {kind} launched {counts}")
+            check(counts["k2_int"] == (1 if lane == "int" else 0),
+                  f"edge_detect(pipeline_depth={depth}) on {kind} ran the wrong lane: {counts}")
+            ref = edge_detect(x, cfg.replace(backend="torch"))
+            check(torch.equal(res.magnitude, ref.magnitude) and torch.equal(res.peak, ref.peak),
+                  f"edge_detect(pipeline_depth={depth}) on {kind} differs from the torch lane")
+            check(bool(torch.isfinite(res.magnitude).all()), "non-finite facade output")
+            for k, v in counts.items():
+                total[k] += v
+            runs.append(f"{kind}/d{depth}/{lane}")
+    cfg = full.edge_config(with_max=True)
+    reset_counts()
+    res = edge_detect(full_inputs["u8"], cfg)
+    counts = read_counts()
+    check(counts["k1_int"] == 1 and counts["k2"] == 0,
+          f"edge_detect on u8 gray with precision='auto' did not run K1's int lane: {counts}")
+    ref = edge_detect(full_inputs["u8"], cfg.replace(backend="torch"))
+    check(torch.equal(res.magnitude, ref.magnitude), "the auto int lane differs from torch")
+    for k, v in counts.items():
+        total[k] += v
+    print(f"facade depth/lane at 4x{full.image_h}x{full.image_w} ({', '.join(runs)}, u8/auto "
+          f"-> K1 int): every output equal to the torch lane; launches {total} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    return total
+
+
+def phase_tuned_facade(full_inputs, dev):
+    """Phase 3d: autotune the image server's workload (4 f32 frames of
+    2048x2048) on the card into this run's cache, then ``edge_detect`` with
+    no tile must take the tuned tile and depth, unpinned and with the depth
+    pinned to 2. Returns the summed counts of the two main-path calls and
+    the sweep's rows."""
+    from repro_torch.api import edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch, tuning
+
+    t0 = time.perf_counter()
+    full = get_config("sobel-hd")
+    x = full_inputs["f32"]
+    h, w = full.image_h, full.image_w
+    rows = {}
+    best = {}
+    for pinned in (None, 2):
+        best[pinned] = tuning.autotune(h, w, backend="cuda", dtype="float32",
+                                       shapes=TUNE_SHAPES, iters=3, batch=x.shape[0],
+                                       pipeline_depth=pinned)
+        # The rows autotune chose from are not returned; a second sweep of
+        # the same candidates shows them (its order may differ by noise).
+        rows[pinned] = tuning.sweep(h, w, backend="cuda", dtype="float32", shapes=TUNE_SHAPES,
+                                    iters=3, batch=x.shape[0],
+                                    depths=(0, 2) if pinned is None else (pinned,))
+        print(f"autotune 4x{h}x{w} f32 (depth {'0 or 2' if pinned is None else pinned}): "
+              f"winner {best[pinned]}; the candidates swept again:")
+        for r in sorted(rows[pinned], key=lambda r: r["us"]):
+            print(f"  {r['block_h']:4d}x{r['block_w']:<4d} depth {r['depth']}: {r['us']:9.1f} us "
+                  f"(host clock, best of 3); smem {r['smem_bytes']} B, halo overhead "
+                  f"{r['halo_overhead']:.3f}")
+    total = dict.fromkeys(("k1", "k1_int", "k2", "k2_int", "k3"), 0)
+    for pinned in (None, 2):
+        cfg = full.edge_config(block_h=None, block_w=None, pipeline_depth=pinned,
+                               with_max=True)
+        choice = dispatch.choose_block_shape(h, w, operator=cfg.operator, variant="v2",
+                                             backend="cuda", pipeline_depth=pinned)
+        check(choice == best[pinned] + ("tuned",),
+              f"choose_block_shape gave {choice}, not the tuned {best[pinned]}")
+        reset_counts()
+        res = edge_detect(x, cfg)
+        counts = read_counts()
+        want_k2 = best[pinned][2] != 0
+        check(counts["k2"] == int(want_k2) and counts["k1"] == int(not want_k2),
+              f"the tuned call (depth {best[pinned][2]}) launched {counts}")
+        ref = edge_detect(x, cfg.replace(backend="torch"))
+        check(torch.equal(res.magnitude, ref.magnitude) and torch.equal(res.peak, ref.peak),
+              "the tuned call differs from the torch lane")
+        for k, v in counts.items():
+            total[k] += v
+        print(f"tuned edge_detect (pipeline_depth={pinned}): {choice}, launches {counts}; "
+              "equal to the torch lane")
+    print(f"tuned facade: {time.perf_counter() - t0:.1f}s")
+    return total, rows, best
 
 
 def video(cfg, n_streams: int, step: int, motion: float, dev):
@@ -714,8 +1058,10 @@ def phase_linking(run, dev):
     return dict(steps=steps, hysteresis_ms=hyst_ms, step_ms=step_ms, weak=weak, strong=strong)
 
 
-def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches):
-    """Phase 5: K1, K1 out_nms and K3 beside their plain versions and bounds."""
+def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches,
+                 full_inputs, main_counts, tuned):
+    """Phase 5: K1, K1 out_nms, K2 (each fitting depth), the integer lane
+    of K1 and K2, and K3 beside their plain versions and bounds."""
     from repro_torch.configs import get_config
     from repro_torch.core.filters import get_operator
     from repro_torch.kernels.edge import edge_cuda, edge_plain, edge_stream_cuda, edge_stream_plain
@@ -751,6 +1097,72 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
               f"{ms_default:.4f} ms); plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
               f"(bytes {t_bytes:.4f} ms, {ops} ops/px {t_ops:.4f} ms); "
               f"cuDNN conv2d of the 4-direction bank (components only) {library_ms:.4f} ms")
+
+    # K2 at every depth that fits, and the integer lane of K1 and K2, at the
+    # FULL config's shape: 4 x 2048 x 2048, 64 x 256 tiles, f32 and u8.
+    int_rate = int32_ops_per_s()
+    print(f"INT32 rate: 64 lanes x {torch.cuda.get_device_properties(0).multi_processor_count} "
+          f"SMs x max SM clock = {int_rate / 1e12:.2f} T ops/s (f32 without FMA: "
+          f"{F32_OPS_PER_S / 1e12:.2f} T ops/s)")
+    k2_rows, int_rows = {}, {}
+    for kind, x in full_inputs.items():
+        n, h, w = x.shape
+        n_px = n * h * w
+        kw = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256,
+                  with_max=True)
+        out_bytes = n_px * 4 + n * (-(-h // 64)) * (-(-w // 256)) * 4
+        ops = kernel_ops_per_pixel(spec5, "v2", 4, False)
+        b_ms, b_by, t_bytes, t_ops = bound(n_px, x.element_size(), out_bytes, ops)
+        want = edge_plain(x, **kw)
+        plain_ms = median_ms(lambda: edge_plain(x, **kw), reps=5, warm=1)
+        library_ms = median_ms(lambda: conv_components(x, False))
+        k1_ms = median_ms(lambda: edge_cuda(x, **kw))
+        for depth in fitting_depths(64, 256, spec5, x.element_size(), 1, False, "v2", 4):
+            got = edge_cuda(x, pipeline_depth=depth, **kw)
+            check(_same(got, want), f"K2 {kind} depth {depth} differs at the timing shape")
+            row = dict(ms=median_ms(lambda: edge_cuda(x, pipeline_depth=depth, **kw)),
+                       k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       bytes_ms=t_bytes, ops_ms=t_ops, ops_per_px=ops, library_ms=library_ms,
+                       max_abs_err=float((got[0] - want[0]).abs().max()), shape=[n, h, w])
+            k2_rows[f"{kind} depth {depth}"] = row
+            print(f"K2 at 4x{h}x{w} {kind} block 64x256 depth {depth}: {row['ms']:.4f} ms "
+                  f"(K1 {k1_ms:.4f} ms); plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
+                  f"cuDNN conv2d {library_ms:.4f} ms")
+        if kind == "f32":
+            # The tuned facade's choice for this workload (phase 3d).
+            bh, bw, depth = tuned
+            tkw = dict(kw, block_h=bh, block_w=bw)
+            got = edge_cuda(x, pipeline_depth=depth, **tkw)
+            check(_same(got, edge_plain(x, **tkw)), f"the tuned {tuned} differs at the timing shape")
+            tb_ms, tb_by, _tb, _to = bound(
+                n_px, x.element_size(), n_px * 4 + n * (-(-h // bh)) * (-(-w // bw)) * 4, ops)
+            row = dict(ms=median_ms(lambda: edge_cuda(x, pipeline_depth=depth, **tkw)),
+                       k1_ms=median_ms(lambda: edge_cuda(x, **tkw)), plain_ms=plain_ms,
+                       bound_ms=tb_ms, bound_by=tb_by, library_ms=library_ms,
+                       max_abs_err=float((got[0] - want[0]).abs().max()),
+                       block=[bh, bw], shape=[n, h, w])
+            k2_rows[f"f32 tuned {bh}x{bw} depth {depth}"] = row
+            print(f"tuned choice {bh}x{bw} depth {depth} at 4x{h}x{w} f32: {row['ms']:.4f} ms "
+                  f"(K1 at that tile {row['k1_ms']:.4f} ms); bound {row['bound_ms']:.4f} ms")
+            continue
+        ib_ms, ib_by, it_bytes, it_ops, int_px = int_lane_bound(
+            n_px, 1, out_bytes, spec5, "v2", 4, int_rate)
+        for depth in [0] + fitting_depths(64, 256, spec5, 1, 1, False, "v2", 4):
+            got = edge_cuda(x, precision="int", pipeline_depth=depth, **kw)
+            check(_same(got, want), f"int lane depth {depth} differs at the timing shape")
+            row = dict(ms=median_ms(lambda: edge_cuda(x, precision="int", pipeline_depth=depth,
+                                                      **kw)),
+                       f32_lane_ms=(k1_ms if depth == 0 else k2_rows[f"u8 depth {depth}"]["ms"]),
+                       plain_ms=plain_ms, bound_ms=ib_ms, bound_by=ib_by, bytes_ms=it_bytes,
+                       ops_ms=it_ops, int_ops_per_px=int_px, int32_ops_per_s=int_rate,
+                       library_ms=library_ms, max_abs_err=float((got[0] - want[0]).abs().max()),
+                       shape=[n, h, w])
+            int_rows[f"{'K1' if depth == 0 else 'K2'} depth {depth}"] = row
+            print(f"int lane {'K1' if depth == 0 else 'K2'} depth {depth} at 4x{h}x{w} u8: "
+                  f"{row['ms']:.4f} ms (f32 lane {row['f32_lane_ms']:.4f} ms); bound "
+                  f"{ib_ms:.4f} ms by {ib_by} ({int_px} int ops/px {it_ops:.4f} ms, bytes "
+                  f"{it_bytes:.4f} ms)")
+    del want, got
 
     # The stream server's shape: 4 x 2048 x 2048 u8, 64 x 256 tiles, NMS on.
     cfg = get_config("sobel-hd")
@@ -818,6 +1230,23 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         "library_ms": main_t["library_ms"],
         "shapes": timings,
         "out_nms": k1_nms,
+        "int_lane": int_rows["K1 depth 0"],
+        "launches_depth_facade": main_counts["k1"],
+    }, {
+        "name": "K2 edge_pipelined (DMA-ring megakernel)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/edge_pipelined.cu",
+        "replaces": "src/repro/kernels/edge.py:274",
+        "launches": main_counts["k2"],
+        "max_abs_err": k2_rows["f32 depth 2"]["max_abs_err"],
+        "ms": k2_rows["f32 depth 2"]["ms"],
+        "plain_ms": k2_rows["f32 depth 2"]["plain_ms"],
+        "bound_ms": k2_rows["f32 depth 2"]["bound_ms"],
+        "bound_by": k2_rows["f32 depth 2"]["bound_by"],
+        "library_ms": k2_rows["f32 depth 2"]["library_ms"],
+        "depths": k2_rows,
+        "int_lane": {k: v for k, v in int_rows.items() if k != "K1 depth 0"},
+        "int_launches": main_counts["k2_int"],
     }, {
         "name": "K3 edge_stream (masked-grid delta-skip kernel)",
         "route": "cuda",
@@ -834,6 +1263,14 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
     }]
 
 
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase {name}: {time.perf_counter() - t0:.1f}s]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
@@ -842,20 +1279,32 @@ def main() -> None:
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    # This run's tuning cache, inside the checkout: empty until phase 3d.
+    cache = ROOT / "build" / "chip_smoke" / "sobel_blocks.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TUNE_CACHE"] = str(cache)
     t_all = time.perf_counter()
-    phase_build()
+    timed("1 build", phase_build)
     rng = np.random.default_rng(0)
-    full = phase_kernel_vs_plain(rng, dev)
-    phase_nms_vs_plain(rng, dev)
-    phase_stream_vs_plain(rng, dev)
-    phase_facade(rng, dev)
-    phase_nms_facade(rng, dev)
-    server_launches, edges_launches = phase_server(dev)
-    runs = phase_stream_server(dev)
-    mask = phase_step_parts(runs["motion"], dev)
-    phase_linking(runs["motion"], dev)
-    kernels = phase_timing(full, dev, mask, server_launches, edges_launches,
-                           runs["motion"]["k3"])
+    full = timed("2 K1 vs plain", phase_kernel_vs_plain, rng, dev)
+    timed("2b K1 out_nms vs plain", phase_nms_vs_plain, rng, dev)
+    timed("2c K3 vs plain", phase_stream_vs_plain, rng, dev)
+    full_inputs = timed("2d K2 vs plain", phase_k2_vs_plain, rng, dev)
+    timed("2e int lane", phase_int_lane, rng, dev, full_inputs)
+    timed("3 facade", phase_facade, rng, dev)
+    timed("3b facade nms", phase_nms_facade, rng, dev)
+    main_counts = timed("3c depth and lane", phase_depth_facade, full_inputs, dev)
+    tuned_counts, _rows, best = timed("3d tuned facade", phase_tuned_facade, full_inputs, dev)
+    for k, v in tuned_counts.items():
+        main_counts[k] += v
+    check(main_counts["k2"] >= 1 and main_counts["k1_int"] >= 1 and main_counts["k2_int"] >= 1,
+          f"this slice's main path did not launch K2 and both integer lanes: {main_counts}")
+    server_launches, edges_launches = timed("4 servers", phase_server, dev)
+    runs = timed("4b stream server", phase_stream_server, dev)
+    mask = timed("4c stream step", phase_step_parts, runs["motion"], dev)
+    timed("4d linking", phase_linking, runs["motion"], dev)
+    kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
+                    runs["motion"]["k3"], full_inputs, main_counts, best[None])
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

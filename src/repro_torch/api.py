@@ -22,8 +22,9 @@ One call::
 ``device`` says otherwise; ``device="cpu"`` runs the plain PyTorch version.
 :class:`EdgeConfig` has the reference's fields and defaults
 (``repro.api.EdgeConfig``); the options whose engine is not ported yet
-(``plan``, ``shard``, ``pipeline_depth``, ``precision="int"``) raise
-``NotImplementedError`` naming their ROADMAP item.
+(``plan``, ``shard``) raise ``NotImplementedError`` naming their ROADMAP
+item. With no explicit tile, the tuning cache (``REPRO_TUNE_CACHE``,
+``repro_torch.kernels.tuning``) picks the tile and ring depth.
 
 Input layout is auto-detected (``HW`` / ``HWC`` / ``NHW`` / ``NHWC`` /
 ``NTHW`` / ``NTHWC``): a trailing dimension of exactly 3 on a >= 3-D input
@@ -85,9 +86,21 @@ class EdgeConfig:
       normalize:  scale the magnitude into [0, 255] per image.
       backend:    ``auto`` | ``cuda`` | ``torch``; None = auto (``cuda`` on
                   a CUDA device, ``torch`` on the CPU).
-      block_h/block_w: CTA output tile override; None = the default.
-      precision:  ``auto`` | ``f32`` run the f32 lane; ``int`` is not ported.
-      pipeline_depth: None; the DMA-ring depths 2..8 are not ported.
+      block_h/block_w: CTA output tile override; None = the tuning cache's
+                  tile, else the default.
+      precision:  arithmetic lane: ``auto`` | ``f32`` | ``int``. ``int`` is
+                  the exact integer lane: u8 gray frames x integer taps
+                  accumulate in int32 on the card (the i16/i32 dtype
+                  ``core/ladder.py`` licenses in the plain lane), f32 only
+                  at the magnitude and NMS, bit-identical to ``f32``; it
+                  raises naming the failing gate on RGB, float frames or
+                  fractional taps. ``auto`` takes it for eligible frames on
+                  the ``cuda`` backend and stays f32 on ``torch``
+                  (``kernels.dispatch.resolve_precision``).
+      pipeline_depth: None = the tuned depth, else 0 (kernel K1); 2..8 runs
+                  kernel K2, a ring of that many input windows copied ahead
+                  of the compute (bit-identical to K1; raises when the ring
+                  does not fit the tile's shared memory).
       shard:      None; multi-GPU sharding is not ported.
       nms:        thin the magnitude by non-maximum suppression (in K1).
       hysteresis: link the thin map into a bool edge map (implies nms).
@@ -284,7 +297,9 @@ class StreamState:
 
         dev = dispatch.resolve_device(device)
         config = config.resolved()
-        bh, bw = dispatch.stream_block_shape(h, w, config)
+        bh, bw = dispatch.stream_block_shape(
+            h, w, config, backend=dispatch.resolve_backend(config.backend, dev), rgb=rgb,
+            dtype="uint8" if dtype == torch.uint8 else "float32")
         gh, gw = -(-h // bh), -(-w // bw)
         shape = (batch, h, w, 3) if rgb else (batch, h, w)
         return cls(

@@ -39,16 +39,31 @@ VARIANTS = F.LADDER
 
 
 def _tap(term: torch.Tensor, w: float) -> torch.Tensor:
-    """``w * term`` in f32; ±1 taps skip the multiply."""
+    """``w * term``; ±1 taps skip the multiply.
+
+    An integer tensor (the exact integer lane, ``core/ladder.py``) multiplies
+    by ``int(w)`` in its own dtype; a fractional tap cannot reach it.
+    """
     if w == 1.0:
         return term
     if w == -1.0:
         return -term
+    if not term.is_floating_point():
+        if w != int(w):
+            raise ValueError(
+                f"fractional tap {w!r} reached the integer lane; "
+                "repro_torch.core.ladder.int_lane_eligible should have gated this"
+            )
+        return term * int(w)
     return term * w
 
 
 def _halve(x: torch.Tensor) -> torch.Tensor:
-    """Exact ``x / 2`` of the operator transform's sums (scaling by 2^-1)."""
+    """Exact ``x / 2`` of the operator transform's sums, which are even by
+    construction: an arithmetic ``>> 1`` on the integer lane, ``* 0.5`` in
+    f32 (scaling by 2^-1)."""
+    if not x.is_floating_point():
+        return x >> 1
     return x * 0.5
 
 
@@ -127,9 +142,10 @@ def _sym_rowpass(xp: torch.Tensor, dense: np.ndarray, h: int, w: int) -> torch.T
 def spec_components(
     xp: torch.Tensor, spec: F.OperatorSpec, h: int, w: int, variant: str, directions: int
 ) -> Tuple[torch.Tensor, ...]:
-    """Direction components of ``spec`` on the pre-padded f32 image ``xp``.
+    """Direction components of ``spec`` on the pre-padded image ``xp``.
 
     ``variant``/``directions`` must already be resolved against the spec.
+    The arithmetic runs in ``xp.dtype``: f32, or the integer lane's i16/i32.
     """
     if variant == "direct":
         return tuple(_correlate2d(xp, k, h, w) for k in spec.bank(directions))
@@ -165,7 +181,7 @@ def _pad(image: torch.Tensor, r: int, padding: str) -> Tuple[torch.Tensor, int, 
     """Boundary-extend the last two dims by ``r`` under ``padding``.
 
     Index maps, not ``F.pad``: ``reflect`` must work when ``r`` is at least
-    the axis length (mirror-periodic, numpy semantics).
+    the axis length (mirror-periodic, numpy semantics). Keeps the dtype.
     """
     h, w = image.shape[-2], image.shape[-1]
     if padding == "valid":
@@ -196,22 +212,41 @@ def sobel_components(
     ``operator`` names any registered operator; when omitted, ``size``
     picks the Sobel operator of that size. ``directions`` of 0 means the
     operator's maximum.
+
+    ``precision="int"`` runs the exact integer lane: the uint8 image is cast
+    to the i16/i32 dtype ``core.ladder.accum_dtype`` proves, the ladder
+    accumulates in integers, and the components are cast to f32 on return,
+    bit-identical to the f32 lane. Raises ``ValueError`` naming the first
+    failing gate for inputs or operators the budget does not cover.
     """
     if variant not in VARIANTS and variant != "auto":
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
-    if precision == "int":
-        raise NotImplementedError(
-            "precision='int' (the exact integer lane) is not ported yet: "
-            "ROADMAP queue 1 item 4"
-        )
-    if precision != "f32":
+    if precision not in ("f32", "int"):
         raise ValueError(f"unknown precision {precision!r}; expected 'f32' or 'int'")
     spec = F.get_operator(operator or F.operator_for_size(size), params)
     directions = spec.resolve_directions(directions)
     variant = spec.resolve_variant(variant)
-    x = torch.as_tensor(image).to(torch.float32)
+    image = torch.as_tensor(image)
+    x = to_lane(image, spec, precision)
     xp, h, w = _pad(x, spec.radius, padding)
-    return spec_components(xp, spec, h, w, variant, directions)
+    comps = spec_components(xp, spec, h, w, variant, directions)
+    if precision == "int":
+        comps = tuple(c.to(torch.float32) for c in comps)
+    return comps
+
+
+def to_lane(gray: torch.Tensor, spec: F.OperatorSpec, precision: str) -> torch.Tensor:
+    """``gray`` in the lane's ladder dtype: f32, or for ``precision="int"``
+    the integer dtype ``core.ladder.accum_dtype`` licenses (after checking
+    that the lane covers this input and operator)."""
+    if precision != "int":
+        return gray.to(torch.float32)
+    from repro_torch.core import ladder
+
+    ok, reason = ladder.int_lane_eligible(spec, rgb=False, input_dtype=gray.dtype)
+    if not ok:
+        raise ValueError(f"precision='int' unavailable: {reason}")
+    return gray.to(getattr(torch, ladder.accum_dtype(spec)))
 
 
 def magnitude(components: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -252,7 +287,8 @@ def sobel(
       padding: ``reflect | edge | zero`` (same-size output) or ``valid``.
       return_components: also return the per-direction gradients.
       operator: registered operator name (overrides ``size``).
-      precision: ``f32``; ``int`` is not ported yet and raises.
+      precision: ``f32``, or ``int`` for the exact integer lane (u8 input,
+        integer taps; bit-identical to ``f32``).
     """
     comps = sobel_components(
         image,

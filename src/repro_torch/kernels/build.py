@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/repro_torch/lib<name>-<digest>.so`` at the root of the checkout, at
 first use; the sources share ``csrc/*.cuh`` headers. The digest covers every
 file under ``csrc/`` and the flags, so an edited source or header is rebuilt
-and an unchanged one is loaded as it is. The sources compile in parallel. No source
-includes PyTorch's headers, which keeps a build to seconds.
+and an unchanged one is loaded as it is. The sources compile in parallel,
+each in its own thread's ``nvcc``. No source includes PyTorch's headers,
+which keeps a build to a minute or two rather than many minutes.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false``: the kernels must
 round every product and sum on its own to stay bit-identical to their plain
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -60,40 +63,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
+def _compile(name: str):
+    """One ``nvcc`` for ``csrc/<name>.cu``: ``(name, ok, log)``, the log
+    ending in the compile's seconds."""
+    out = library_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+        ok, log = proc.returncode == 0, proc.stdout
+    except subprocess.TimeoutExpired as e:
+        ok, log = False, f"nvcc timed out after {BUILD_TIMEOUT_S}s\n{e.output or ''}"
+    if not ok:
+        tmp.unlink(missing_ok=True)
+        return name, False, log
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return name, True, f"{log}\nnvcc {name}.cu: {time.perf_counter() - t0:.1f}s"
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named sources (default: every ``csrc/*.cu``) that are not
     built yet: one ``nvcc`` each, all started together.
 
     Returns ``{name: compiler output}`` for the sources compiled by this
-    call (``-Xptxas -v`` reports registers, shared memory and spills).
+    call (``-Xptxas -v`` reports registers, shared memory and spills),
+    each ending in a line with the source's compile seconds.
     Raises ``RuntimeError`` with the compiler's output when a build fails.
     """
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    jobs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+    todo = [name for name in names if not library_path(name).exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out)
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            results = list(pool.map(_compile, todo))
+    else:
+        results = []
     logs, failed = {}, []
-    for name, (proc, tmp, out) in jobs.items():
-        try:
-            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            log, _ = proc.communicate()
-            log = f"nvcc timed out after {BUILD_TIMEOUT_S}s\n{log}"
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
+    for name, ok, log in results:
+        if ok:
+            logs[name] = log
+        else:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        logs[name] = log
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

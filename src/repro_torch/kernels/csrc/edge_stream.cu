@@ -37,7 +37,7 @@ stream_kernel(const T* __restrict__ x, const Geom g, const int* __restrict__ mas
   int tr, tc;
   tile_of(g, &img, &tr, &tc);
   if (mask[blockIdx.x] != 0) {
-    const float tmax = edge_tile<K, T>(taps, g, x, img, tr, tc, smem, out_primary, nullptr,
+    const float tmax = edge_tile<K, T, float>(taps, g, x, img, tr, tc, smem, out_primary, nullptr,
                                        nullptr, true);
     const float m = block_max(tmax, warp_max);
     if (threadIdx.x == 0) out_bmax[blockIdx.x] = m;

@@ -2,8 +2,10 @@
 
 Backends:
   * ``cuda``  — the hand-written CUDA kernels: K1 (``kernels/csrc/edge.cu``)
-                through :func:`repro_torch.kernels.edge.edge_cuda`, and on
-                the stream path K3 (``kernels/csrc/edge_stream.cu``) through
+                through :func:`repro_torch.kernels.edge.edge_cuda`, K2 (the
+                DMA ring, ``kernels/csrc/edge_pipelined.cu``) for a ring
+                depth of 2..8, and on the stream path K3
+                (``kernels/csrc/edge_stream.cu``) through
                 ``edge_stream_cuda``.
   * ``torch`` — their plain PyTorch versions, ``edge_plain`` and
                 ``edge_stream_plain``: the counterpart of the reference's
@@ -11,8 +13,12 @@ Backends:
   * ``auto``  — ``cuda`` for a CUDA device, ``torch`` for the CPU.
 
 :func:`edge` ports the single-device branch of ``repro.kernels.dispatch.edge``:
-one fused launch emits the magnitude (or the components, or with ``nms``
-the thin map) and the per-tile maxima of the un-thinned magnitude; the
+:func:`resolve_precision` picks the lane (the exact integer lane for
+eligible u8 gray frames on ``cuda``), :func:`choose_block_shape` the tile
+and ring depth (explicit config fields, then the tuning cache
+``kernels/tuning.py``, then the default), and one fused launch emits the
+magnitude (or the components, or with ``nms`` the thin map) and the
+per-tile maxima of the un-thinned magnitude; the
 per-image peak is the max of the tile maxima; hysteresis links the
 assembled thin map (a global fixpoint, so never inside the kernel); the
 normalize epilogue scales by ``255 / max(peak, 1e-8)``.
@@ -27,14 +33,18 @@ kernels or the call raises.
 """
 from __future__ import annotations
 
+import warnings
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import ladder
 from repro_torch.core import nms as core_nms
+from repro_torch.core.filters import get_operator
 from repro_torch.core.sobel import magnitude
 from repro_torch.kernels import edge as ekern
+from repro_torch.kernels import tuning
 from repro_torch.kernels.tiling import ALIGN_INTERPRET, window_radius, window_shape
 
 if TYPE_CHECKING:  # no runtime import: repro_torch.api imports this module
@@ -59,7 +69,6 @@ BACKENDS = ("auto", "cuda", "torch")
 _UNPORTED = (
     ("plan", "queue 1 item 5 (stencil plans)"),
     ("shard", "queue 1 item 10 (multi-GPU halo sharding)"),
-    ("pipeline_depth", "queue 1 item 7 (DMA-ring variant, kernel K2)"),
 )
 
 
@@ -90,31 +99,98 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     return b
 
 
-def resolve_precision(precision: str) -> str:
-    """``auto`` and ``f32`` run the f32 lane: on this lane ``auto`` cannot
-    choose the integer lane, which the reference proves bit-identical."""
-    if precision in ("auto", "f32"):
+def resolve_precision(precision: str, backend: str, *, spec, rgb: bool, input_dtype) -> str:
+    """Resolve ``EdgeConfig.precision`` to the lane that runs: f32 | int.
+
+    The reference's table, with ``cuda`` for ``pallas-tpu`` and ``torch``
+    for ``xla``: explicit ``"int"`` runs on either backend but raises, with
+    the first failing gate of ``core.ladder.int_lane_eligible``, when the
+    exactness proof does not cover the workload (fractional taps, RGB
+    input, non-u8 frames); ``"auto"`` takes the integer lane for eligible
+    workloads on ``cuda`` only and stays f32 on ``torch``. ``input_dtype``
+    is the dtype the kernel sees.
+    """
+    if precision == "f32":
         return "f32"
     if precision == "int":
-        raise NotImplementedError(
-            "precision='int' (the exact integer lane) is not ported yet: "
-            "ROADMAP queue 1 item 4"
+        ok, reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype)
+        if not ok:
+            raise ValueError(f"precision='int' unavailable: {reason}")
+        return "int"
+    if precision != "auto":
+        raise ValueError(
+            f"unknown precision {precision!r}; expected 'auto', 'f32' or 'int'"
         )
-    raise ValueError(
-        f"unknown precision {precision!r}; expected 'auto', 'f32' or 'int'"
-    )
+    if backend == "torch":
+        return "f32"
+    ok, _reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype)
+    return "int" if ok else "f32"
 
 
 def choose_block_shape(
-    h: int, w: int, *, size: int, block_h: Optional[int] = None,
+    h: int,
+    w: int,
+    *,
+    operator: str = "sobel5",
+    variant: str = "v2",
+    dtype: str = "float32",
+    backend: str = "torch",
+    padding: str = "reflect",
+    layout: str = "gray",
+    block_h: Optional[int] = None,
     block_w: Optional[int] = None,
-) -> Tuple[int, int]:
-    """Explicit ``block_h``/``block_w`` win field by field; the rest comes
-    from ``edge.default_block_shape``."""
+    cache: Optional[tuning.TuningCache] = None,
+    precision: str = "f32",
+    pipeline_depth: Optional[int] = None,
+    nms: bool = False,
+    directions: int = 0,
+) -> Tuple[int, int, int, str]:
+    """Resolve ``(block_h, block_w, depth, source)`` as the reference does.
+
+    ``source`` is ``"explicit"`` (both tile fields given), ``"tuned"`` (a
+    hit in the tuning cache, ``kernels.tuning``) or ``"default"``
+    (``edge.default_block_shape``). The cache key carries the resolved
+    ``precision`` and the requested depth: an explicit ``pipeline_depth``
+    pins the returned depth and looks up its own slot; ``None`` looks up
+    slot 0 and lets a tuned entry supply the depth its sweep measured
+    faster, else 0 (K1). One explicit tile field overrides that field of a
+    tuned or default tile.
+
+    The key carries no ``nms``, so on ``cuda`` a tuned tile whose
+    footprint for this call (``nms``, ``directions``, the depth) exceeds
+    ``SMEM_MAX`` is skipped with a warning, like a corrupt entry: a cache
+    entry never turns a call that works into an error.
+    """
     if block_h and block_w:
-        return block_h, block_w
-    dbh, dbw = ekern.default_block_shape(h, w, size)
-    return block_h or dbh, block_w or dbw
+        return block_h, block_w, pipeline_depth or 0, "explicit"
+    cache = cache if cache is not None else tuning.get_default_cache()
+    spec = get_operator(operator)
+    key = tuning.TuneKey(backend, dtype, operator, variant, h, w, padding, layout, 1, "1x1x1",
+                         precision, pipeline_depth or 0, "-")
+    hit = cache.lookup(key)
+    if hit is not None:
+        bh, bw, depth = hit
+        if pipeline_depth is not None:
+            depth = pipeline_depth
+        bh, bw = block_h or bh, block_w or bw
+        smem = tuning.tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
+                                      variant=variant, directions=directions,
+                                      precision=precision, nms=nms)
+        if backend != "cuda" or smem <= ekern.SMEM_MAX:
+            return bh, bw, depth, "tuned"
+        warnings.warn(
+            f"skipping tuned tile {bh}x{bw} depth {depth} of {key.to_str()!r}: with "
+            f"nms={nms} it needs {smem} B of shared memory, above {ekern.SMEM_MAX} B",
+            RuntimeWarning, stacklevel=2,
+        )
+    dbh, dbw = ekern.default_block_shape(h, w, spec.size)
+    return block_h or dbh, block_w or dbw, pipeline_depth or 0, "default"
+
+
+def _kernel_dtype_name(x: torch.Tensor) -> str:
+    """The input dtype the kernel sees (``edge.kernel_dtype``), as the
+    tuning cache names it."""
+    return "uint8" if x.dtype == torch.uint8 else "float32"
 
 
 def _flatten(images, layout: Optional[str], dev: torch.device):
@@ -155,10 +231,11 @@ def edge(
     *,
     layout: Optional[str] = None,
     device=None,
+    tuning_cache: Optional[tuning.TuningCache] = None,
 ) -> "EdgeResult":
     """Run one :class:`~repro_torch.api.EdgeConfig` end to end on ``device``
     (``None`` = the CUDA device); ``layout`` names the input layout (the
-    facade detects it)."""
+    facade detects it); ``tuning_cache`` replaces the process-wide cache."""
     from repro_torch.api import EdgeResult
 
     config = config.resolved()
@@ -173,7 +250,6 @@ def edge(
             raise NotImplementedError(
                 f"EdgeConfig.{field} is not ported yet: ROADMAP {item}"
             )
-    resolve_precision(config.precision)
     dev = resolve_device(device)
     backend = resolve_backend(config.backend, dev)
     x, layout, rgb, batch_shape, h, w = _flatten(images, layout, dev)
@@ -182,13 +258,22 @@ def edge(
     need_comps = config.with_components or config.with_orientation
     # Hysteresis thresholds are fractions of the per-image magnitude peak.
     need_peak = config.normalize or config.with_max or config.hysteresis
-    bh, bw = choose_block_shape(h, w, size=spec.size, block_h=config.block_h,
-                                block_w=config.block_w)
+    # The lane is resolved once, against the dtype the kernel sees.
+    precision = resolve_precision(config.precision, backend, spec=spec, rgb=rgb,
+                                  input_dtype=x.dtype)
+    bh, bw, depth, _source = choose_block_shape(
+        h, w, operator=config.operator, variant=config.variant,
+        dtype=_kernel_dtype_name(x), backend=backend, padding=config.padding,
+        layout="rgb" if rgb else "gray", block_h=config.block_h, block_w=config.block_w,
+        cache=tuning_cache, precision=precision, pipeline_depth=config.pipeline_depth,
+        nms=config.nms, directions=config.directions,
+    )
     run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
     out = run(
         x, spec=spec, variant=config.variant, directions=config.directions,
         padding=config.padding, block_h=bh, block_w=bw, rgb=rgb,
         out_components=need_comps, out_nms=config.nms, with_max=need_peak,
+        precision=precision, pipeline_depth=depth,
     )
     outs = list(out) if isinstance(out, tuple) else [out]
     bmax = outs.pop() if need_peak else None
@@ -237,13 +322,32 @@ def edge(
 # The streaming engine: per-frame delta-skip + temporal hysteresis
 # ---------------------------------------------------------------------------
 
-def stream_block_shape(h: int, w: int, config: "EdgeConfig") -> Tuple[int, int]:
+def stream_block_shape(
+    h: int,
+    w: int,
+    config: "EdgeConfig",
+    *,
+    backend: str = "torch",
+    rgb: bool = False,
+    dtype: str = "float32",
+) -> Tuple[int, int]:
     """The ``(block_h, block_w)`` delta-tile grid of a stream of ``(h, w)``
-    frames: K3's CTA tile. Explicit config fields win; otherwise the
-    default tile of :func:`choose_block_shape`. The reference's default
-    is a TPU rule, so grids compare only when the config pins both."""
-    return choose_block_shape(h, w, size=config.spec.size, block_h=config.block_h,
-                              block_w=config.block_w)
+    frames: K3's CTA tile. Explicit config fields win; otherwise ``cuda``
+    consults the tuning cache (the f32 lane's slot, as the reference's
+    Pallas backends do; K3 has no ring, so the tile must fit at depth 0)
+    and ``torch`` takes the default tile. The reference's default is a TPU
+    rule, so grids compare only when the config pins both."""
+    if config.block_h and config.block_w:
+        return config.block_h, config.block_w
+    if backend == "torch":
+        return ekern.default_block_shape(h, w, config.spec.size)
+    bh, bw, _depth, _src = choose_block_shape(
+        h, w, operator=config.operator, variant=config.variant, dtype=dtype,
+        backend=backend, padding=config.padding, layout="rgb" if rgb else "gray",
+        block_h=config.block_h, block_w=config.block_w, pipeline_depth=0,
+        nms=config.nms, directions=config.directions,
+    )
+    return bh, bw
 
 
 def _window_reach(n: int, b: int, g: int, t: int, r: int) -> Tuple[int, int]:
@@ -370,6 +474,7 @@ def _check_stream_config(config: "EdgeConfig") -> None:
             "with_orientation are not supported on the stream path"
         )
     if config.precision == "int" or config.pipeline_depth is not None:
+        # precision="auto" stays f32 here, as in the reference.
         raise ValueError(
             "streaming runs the f32 masked-grid kernel; explicit "
             "precision='int' / pipeline_depth are not supported on the "

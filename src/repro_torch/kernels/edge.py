@@ -1,11 +1,15 @@
-"""K1 and K3, the edge kernels: their CUDA wrappers and their plain PyTorch versions.
+"""K1, K2 and K3, the edge kernels: their CUDA wrappers and their plain PyTorch versions.
 
 ``edge_cuda`` launches K1, ``csrc/edge.cu`` (the Hopper port of
-``repro/kernels/edge.py::_kernel``), and ``edge_stream_cuda`` launches K3,
-``csrc/edge_stream.cu`` (the port of ``_stream_kernel``), on CUDA tensors
-and raise on anything else. ``edge_plain`` and ``edge_stream_plain``
-compute the same outputs from ``repro_torch.core`` functions on any device;
-the CPU lane runs them, and the kernels are held against them on the card.
+``repro/kernels/edge.py::_kernel``), or with ``pipeline_depth`` 2..8 K2,
+``csrc/edge_pipelined.cu`` (the port of ``_pipelined_kernel``, the DMA
+ring), through ``edge_pipelined_cuda``; ``edge_stream_cuda`` launches K3,
+``csrc/edge_stream.cu`` (the port of ``_stream_kernel``). They take CUDA
+tensors and raise on anything else. ``edge_plain`` and
+``edge_stream_plain`` compute the same outputs from ``repro_torch.core``
+functions on any device; the CPU lane runs them, and the kernels are held
+against them on the card. ``precision="int"`` selects the exact integer
+lane of K1, K2 and the plain version (u8 gray input, ``core/ladder.py``).
 
 One K1 launch takes the raw ``(N, H, W)`` u8/f32 gray or ``(N, H, W, 3)``
 RGB batch and emits the magnitude, or the ``(N, D, H, W)`` components, or
@@ -23,19 +27,23 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import ladder
 from repro_torch.core.filters import OperatorSpec
 from repro_torch.core.nms import TAN_PI8_F32, thin_map
-from repro_torch.core.sobel import _pad, magnitude, spec_components
+from repro_torch.core.sobel import _pad, magnitude, spec_components, to_lane
 from repro_torch.kernels.tiling import PAD_MODES, luma, window_radius
 
 __all__ = [
     "edge_cuda",
+    "edge_pipelined_cuda",
     "edge_plain",
     "edge_stream_cuda",
     "edge_stream_plain",
     "default_block_shape",
     "kernel_dtype",
     "window_smem_bytes",
+    "pipelined_smem_bytes",
+    "PIPELINE_DEPTHS",
 ]
 
 _VARIANT_CODES = {"direct": 0, "separable": 1, "v1": 2, "v2": 3}
@@ -43,6 +51,8 @@ _PADDING_CODES = {p: i for i, p in enumerate(PAD_MODES)}
 KMAX = 9                 # largest operator size csrc/edge.cu instantiates
 SMEM_MAX = 232448        # shared memory one CTA may opt into on an H100
 SMEM_DEFAULT = 48 * 1024  # default tiles stay under the no-opt-in limit
+PIPELINE_DEPTHS = range(2, 9)  # K2's ring depths; 0 means K1
+STRIP = 16               # K2's row-pass strip height (csrc/edge_pipelined.cu)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,6 +69,57 @@ def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False
     if nms:
         smem += 4 * (block_h + 2) * (block_w + 2) + block_h * block_w
     return smem
+
+
+def _align16(b: int) -> int:
+    return _round_up(b, 16)
+
+
+def sink_slots(variant: str, directions: int) -> int:
+    """Row-pass planes K2 keeps in shared memory (reference ``_sink_slots``):
+    F and S for the separable ladders, plus v2's D with 4 directions;
+    ``direct`` has none."""
+    if variant == "direct":
+        return 0
+    return 3 if (variant == "v2" and directions != 2) else 2
+
+
+def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: int,
+                         channels: int, nms: bool, variant: str, directions: int,
+                         acc: str = "f32") -> int:
+    """Dynamic shared memory of one K2 CTA (``csrc/edge_pipelined.cu``,
+    ``pipelined_layout``), each part aligned to 16 B:
+
+      * the ring: ``depth`` slots of the raw ``(bh + 2 R_in) x (bw + 2 R_in)``
+        window (``R_in`` = radius, + 1 with NMS), ``channels`` x ``in_bytes``
+        per pixel, each row padded to 4 B (+ 3 B for a u8 row's lead);
+      * an int32 byte offset per row and per column of the extended tile;
+      * one strip of the extended tile read out of the ring: ``min(STRIP,
+        mh) + 2 radius`` rows x ``bw + 2 R_in`` 4-byte values (``mh x mw``
+        is the tile, or with NMS its inner tile);
+      * the row-pass sink: :func:`sink_slots` planes of as many rows x
+        ``mw`` 4-byte values;
+      * with NMS, K1's inner-tile f32 magnitude and a sector byte per pixel.
+
+    ``acc`` is the lane, ``"f32"`` or ``"int"``; both accumulate in 4 bytes.
+    """
+    if acc not in ("f32", "int"):
+        raise ValueError(f"unknown accumulator lane {acc!r}; expected 'f32' or 'int'")
+    nms = int(bool(nms))
+    r_in = radius + nms
+    wh, ww = bh + 2 * r_in, bw + 2 * r_in
+    row_stride = _round_up(ww * channels * in_bytes + (3 if in_bytes == 1 else 0), 4)
+    mh, mw = bh + 2 * nms, bw + 2 * nms
+    sink_rows = min(mh, STRIP) + 2 * radius
+    off = depth * _align16(wh * row_stride)
+    off = _align16(off + 4 * wh)
+    off = _align16(off + 4 * ww)
+    off = _align16(off + 4 * sink_rows * ww)
+    off = _align16(off + 4 * sink_slots(variant, directions) * sink_rows * mw)
+    if nms:
+        off = _align16(off + 4 * mh * mw)
+        off = _align16(off + bh * bw)
+    return off
 
 
 def default_block_shape(h: int, w: int, size: int = 5) -> tuple:
@@ -130,30 +191,41 @@ def edge_plain(
     out_nms: bool = False,
     out_mag: bool = False,
     with_max: bool = False,
+    precision: str = "f32",
+    pipeline_depth: int = 0,
 ):
-    """The plain PyTorch version of :func:`edge_cuda`: same arguments, same
-    outputs, on any device.
+    """The plain PyTorch version of :func:`edge_cuda`, of K1 and K2 alike:
+    same arguments, same outputs, on any device.
 
-    Luma (RGB) or the f32 cast, the boundary-extended image
-    (``core.sobel._pad``), ``spec_components`` and ``magnitude``, or with
-    ``out_nms`` ``core.nms.thin_map``; the per-tile max is taken over the
-    same ``block_h x block_w`` tiles.
+    Luma (RGB) or the f32 cast (the raw u8 frame on the integer lane), the
+    boundary-extended image (``core.sobel._pad``), ``spec_components`` and
+    ``magnitude``, or with ``out_nms`` ``core.nms.thin_map``; the per-tile
+    max is taken over the same ``block_h x block_w`` tiles. A ring depth
+    changes where K2 keeps its input, not the values, so ``pipeline_depth``
+    is checked and otherwise ignored, as the reference's XLA lane does.
     """
     _check_out_mag(out_nms, out_mag)
+    _check_depth(pipeline_depth)
+    _check_precision(x, spec, rgb, precision)
     n, h, w = _dims(x, rgb)
     bh, bw, _gh, _gw = _grid(h, w, block_h, block_w)
-    gray = luma(x) if rgb else x.to(torch.float32)
+    if precision == "int":
+        gray = x  # the ladder casts the u8 frame to its integer dtype
+    else:
+        gray = luma(x) if rgb else x.to(torch.float32)
     if out_nms:
         thin, comps, mag = thin_map(gray, spec, variant=variant, directions=directions,
-                                    padding=padding)
+                                    padding=padding, precision=precision)
         outs = [thin]
         if out_components:
             outs.append(torch.stack(comps, dim=1))
         if out_mag:
             outs.append(mag.contiguous())
     else:
-        xp, _, _ = _pad(gray, spec.radius, padding)
+        xp, _, _ = _pad(to_lane(gray, spec, precision), spec.radius, padding)
         comps = spec_components(xp, spec, h, w, variant, directions)
+        if precision == "int":
+            comps = tuple(c.to(torch.float32) for c in comps)
         mag = magnitude(comps) if (with_max or not out_components) else None
         outs = [torch.stack(comps, dim=1) if out_components else mag]
     if with_max:
@@ -190,6 +262,29 @@ def edge_stream_plain(
     return torch.where(pixels, fresh, prev_primary), torch.where(changed, fresh_bmax, prev_bmax)
 
 
+def _check_depth(pipeline_depth: int) -> None:
+    if pipeline_depth and not (isinstance(pipeline_depth, int)
+                               and pipeline_depth in PIPELINE_DEPTHS):
+        raise ValueError(
+            f"pipeline_depth must be 0 (automatic) or 2..8 (manual DMA "
+            f"ring), got {pipeline_depth}"
+        )
+
+
+def _check_precision(x: torch.Tensor, spec: OperatorSpec, rgb: bool, precision: str) -> bool:
+    """True for the integer lane, after checking that it covers ``x``
+    (``core.ladder.int_lane_eligible``); False for f32."""
+    if precision not in ("f32", "int"):
+        # "auto" is a dispatch-level policy (kernels.dispatch.resolve_precision).
+        raise ValueError(f"unknown precision {precision!r}; expected 'f32' or 'int'")
+    if precision == "f32":
+        return False
+    ok, reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=x.dtype)
+    if not ok:
+        raise ValueError(f"precision='int' unavailable: {reason}")
+    return True
+
+
 def _check_out_mag(out_nms: bool, out_mag: bool) -> None:
     if out_mag and not out_nms:
         raise ValueError("out_mag only applies with out_nms (the magnitude is already "
@@ -218,11 +313,22 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geometry = [p, i, i, i, i, i, i, i, i, i, i, i, i, f, p]
-    # repro_edge_launch: 4 outputs + stream; repro_stream_launch: mask, 2
-    # caches, 2 outputs + stream. Both return a cudaError_t as int.
-    launch = lib.repro_edge_launch if name == "edge" else lib.repro_stream_launch
-    launch.argtypes = geometry + [p] * (5 if name == "edge" else 6)
+    # repro_edge_launch: acc_int, 4 outputs + stream; repro_pipelined_launch:
+    # acc_int, depth, 4 outputs + stream; repro_stream_launch: mask, 2
+    # caches, 2 outputs + stream. Each returns a cudaError_t as int.
+    entry, extra = {
+        "edge": ("repro_edge_launch", [i] + [p] * 5),
+        "edge_pipelined": ("repro_pipelined_launch", [i, i] + [p] * 5),
+        "edge_stream": ("repro_stream_launch", [p] * 6),
+    }[name]
+    launch = getattr(lib, entry)
+    launch.argtypes = geometry + extra
     launch.restype = i
+    if name == "edge_pipelined":
+        # pipelined_layout's footprint, held against pipelined_smem_bytes by
+        # chip_smoke.py and the gpu tests (not on every launch).
+        lib.repro_pipelined_smem_bytes.argtypes = [i] * 9
+        lib.repro_pipelined_smem_bytes.restype = ctypes.c_longlong
     for fn in ("repro_taps_len", "repro_max_size"):
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = [], i
     lib.repro_error_string.argtypes, lib.repro_error_string.restype = [i], ctypes.c_char_p
@@ -346,6 +452,21 @@ def _check_grid(n: int, bh: int, bw: int, gh: int, gw: int, radius: int, nms: bo
         raise ValueError(f"{n * gh * gw} tiles exceed the CUDA grid limit")
 
 
+def _pipelined_smem(x: torch.Tensor, bh: int, bw: int, spec: OperatorSpec, depth: int,
+                    rgb: bool, nms: bool, variant: str, directions: int, acc: str) -> int:
+    """K2's footprint for this call; raises when it exceeds ``SMEM_MAX``
+    (never a lower depth, never K1 in K2's place)."""
+    smem = pipelined_smem_bytes(bh, bw, spec.radius, depth, x.element_size(), 3 if rgb else 1,
+                                nms, variant, directions, acc)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"pipeline_depth={depth} with tile {bh}x{bw} needs {smem} B of shared memory "
+            f"(ring, strip, row-pass sink{', NMS buffers' if nms else ''}); a CTA may use "
+            f"at most {SMEM_MAX} B"
+        )
+    return smem
+
+
 def _geometry(x: torch.Tensor, rgb: bool, n: int, h: int, w: int, bh: int, bw: int,
               spec: OperatorSpec, variant: str, directions: int, padding: str,
               nms: bool) -> list:
@@ -373,8 +494,11 @@ def edge_cuda(
     out_nms: bool = False,
     out_mag: bool = False,
     with_max: bool = False,
+    precision: str = "f32",
+    pipeline_depth: int = 0,
 ):
-    """Launch K1 (``csrc/edge.cu``) on a contiguous CUDA tensor.
+    """Launch K1 (``csrc/edge.cu``) on a contiguous CUDA tensor, or with
+    ``pipeline_depth`` 2..8 K2 through :func:`edge_pipelined_cuda`.
 
     ``x``: ``(N, H, W)`` u8/f32 gray, or ``(N, H, W, 3)`` u8/f32 RGB when
     ``rgb``. ``variant``/``directions`` must be resolved against ``spec``.
@@ -389,16 +513,54 @@ def edge_cuda(
       * with ``with_max``: the ``(N, gh, gw)`` per-tile max of the
         un-thinned magnitude.
 
+    ``precision="int"`` runs the exact integer lane (u8 gray input only;
+    raises with the ladder's first failing gate otherwise); the outputs are
+    f32 and bit-identical to the f32 lane.
+
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
-    device refuses. ``edge_cuda.launches`` counts the launches.
+    device refuses. ``edge_cuda.launches`` counts K1's launches and
+    ``edge_cuda.int_launches`` those of them on the integer lane.
     """
+    _check_depth(pipeline_depth)
+    if pipeline_depth:
+        return edge_pipelined_cuda(
+            x, spec=spec, variant=variant, directions=directions, padding=padding,
+            block_h=block_h, block_w=block_w, rgb=rgb, out_components=out_components,
+            out_nms=out_nms, out_mag=out_mag, with_max=with_max, precision=precision,
+            pipeline_depth=pipeline_depth)
     _check_out_mag(out_nms, out_mag)
     _check_launch(x, "edge_cuda", spec, variant, directions, padding)
+    acc_int = _check_precision(x, spec, rgb, precision)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
     _check_grid(n, bh, bw, gh, gw, spec.radius, out_nms)
 
+    outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
+                          with_max)
+    if n > 0 and h > 0 and w > 0:
+        lib = _lib("edge")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.repro_edge_launch(
+                *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
+                           out_nms),
+                int(acc_int), *ptrs, stream,
+            )
+        _raise_on_error(lib, "edge", err)
+        edge_cuda.launches += 1
+        edge_cuda.int_launches += int(acc_int)
+    return outs
+
+
+edge_cuda.launches = 0
+edge_cuda.int_launches = 0
+
+
+def _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag, with_max):
+    """K1's and K2's outputs, fresh f32 tensors: ``(result, pointers)``, the
+    result in the reference's order (a bare tensor when only one) and the
+    four pointers the C entry points take (``None`` for an unused one)."""
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)
 
@@ -411,27 +573,76 @@ def edge_cuda(
         mag = empty(n, h, w)
     if with_max:
         bmax = empty(n, gh, gw)
-    if n > 0 and h > 0 and w > 0:
-        lib = _lib("edge")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.repro_edge_launch(
-                *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
-                           out_nms),
-                _ptr(primary), _ptr(comps), _ptr(mag), _ptr(bmax), stream,
-            )
-        _raise_on_error(lib, "edge", err)
-        edge_cuda.launches += 1
     if out_nms:
         outs = [primary] + [t for t in (comps, mag) if t is not None]
     else:
         outs = [comps if out_components else primary]
     if with_max:
         outs.append(bmax)
-    return outs[0] if len(outs) == 1 else tuple(outs)
+    return (outs[0] if len(outs) == 1 else tuple(outs),
+            [_ptr(primary), _ptr(comps), _ptr(mag), _ptr(bmax)])
 
 
-edge_cuda.launches = 0
+def edge_pipelined_cuda(
+    x: torch.Tensor,
+    *,
+    spec: OperatorSpec,
+    variant: str,
+    directions: int,
+    padding: str = "reflect",
+    block_h: int = 64,
+    block_w: "int | None" = None,
+    rgb: bool = False,
+    out_components: bool = False,
+    out_nms: bool = False,
+    out_mag: bool = False,
+    with_max: bool = False,
+    precision: str = "f32",
+    pipeline_depth: int = 2,
+):
+    """Launch K2 (``csrc/edge_pipelined.cu``), the DMA-ring kernel, with a
+    ring of ``pipeline_depth`` (2..8) input windows.
+
+    Arguments and outputs are :func:`edge_cuda`'s, bit for bit. One CTA per
+    (image, tile row) walks its tiles in order, ``pipeline_depth - 1``
+    window copies ahead of its compute. Raises ``ValueError`` naming the
+    bytes when the ring, the row-pass sink and the NMS buffers exceed
+    ``SMEM_MAX`` (:func:`pipelined_smem_bytes`): it never lowers the depth
+    and never launches K1 instead. Launches on PyTorch's current stream and
+    does not synchronise. ``edge_pipelined_cuda.launches`` counts the
+    launches and ``edge_pipelined_cuda.int_launches`` those on the integer
+    lane.
+    """
+    if not (isinstance(pipeline_depth, int) and pipeline_depth in PIPELINE_DEPTHS):
+        raise ValueError(f"K2 takes a ring depth of 2..8, got {pipeline_depth!r}")
+    _check_out_mag(out_nms, out_mag)
+    _check_launch(x, "edge_pipelined_cuda", spec, variant, directions, padding)
+    acc_int = _check_precision(x, spec, rgb, precision)
+    n, h, w = _dims(x, rgb)
+    bh, bw, gh, gw = _grid(h, w, block_h, block_w)
+    if n * gh >= 2**31:
+        raise ValueError(f"{n * gh} tile rows exceed the CUDA grid limit")
+    _pipelined_smem(x, bh, bw, spec, pipeline_depth, rgb, out_nms, variant, directions,
+                    precision)
+    outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
+                          with_max)
+    if n > 0 and h > 0 and w > 0:
+        lib = _lib("edge_pipelined")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.repro_pipelined_launch(
+                *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
+                           out_nms),
+                int(acc_int), pipeline_depth, *ptrs, stream,
+            )
+        _raise_on_error(lib, "edge_pipelined", err)
+        edge_pipelined_cuda.launches += 1
+        edge_pipelined_cuda.int_launches += int(acc_int)
+    return outs
+
+
+edge_pipelined_cuda.launches = 0
+edge_pipelined_cuda.int_launches = 0
 
 
 def edge_stream_cuda(

@@ -4,8 +4,11 @@ The part of ``repro.kernels.tiling`` that is arithmetic rather than Pallas
 window geometry: the CUDA kernel (``csrc/edge.cu``) applies the same index
 maps while it stages its halo window in shared memory, and the plain
 PyTorch version builds the boundary-extended image from them.
-``window_shape`` keeps the reference's clamped window extent (with the
-off-TPU alignment) because the streaming change test reaches that far.
+``window_shape`` and ``window_origin`` keep the reference's clamped
+window (with the off-TPU alignment): the streaming change test reaches that
+far, and K2 (``csrc/edge_pipelined.cu``) copies exactly that window into
+its ring. ``halo_amplification``/``window_amplification`` are the tuner's
+cost columns.
 """
 from __future__ import annotations
 
@@ -19,10 +22,13 @@ __all__ = [
     "window_radius",
     "ALIGN_INTERPRET",
     "window_shape",
+    "window_origin",
     "reflect_index",
     "boundary_index",
     "valid_mask",
     "luma",
+    "halo_amplification",
+    "window_amplification",
 ]
 
 PAD_MODES = ("reflect", "edge", "zero")
@@ -55,6 +61,17 @@ def window_shape(h: int, w: int, block_h: int, block_w: int, r: int, *,
     th = min(_round_up(block_h + 2 * r, align[0]), h)
     tw = min(_round_up(block_w + 2 * r, align[1]), w)
     return th, tw
+
+
+def window_origin(k: int, j: int, h: int, w: int, block_h: int, block_w: int, r: int,
+                  tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """Clamped ``(row0, col0)`` of tile ``(k, j)``'s ``tile_h x tile_w``
+    input window (:func:`window_shape`): the window starts ``r`` before the
+    tile and is shifted back inside the image at its edges. K2 copies its
+    ring windows from these origins (``csrc/edge_pipelined.cu``)."""
+    row0 = min(max(k * block_h - r, 0), h - tile_h)
+    col0 = min(max(j * block_w - r, 0), w - tile_w)
+    return row0, col0
 
 
 def reflect_index(g: torch.Tensor, n: int) -> torch.Tensor:
@@ -100,3 +117,22 @@ def luma(rgb: torch.Tensor) -> torch.Tensor:
     return (
         x[..., 0] * LUMA_WEIGHTS[0] + x[..., 1] * LUMA_WEIGHTS[1]
     ) + x[..., 2] * LUMA_WEIGHTS[2]
+
+
+# ---------------------------------------------------------------------------
+# Cost model (the tuner's sweep rows)
+# ---------------------------------------------------------------------------
+
+def halo_amplification(block_h: int, block_w: int, r: int) -> float:
+    """Fraction of extra input reads against a halo-free ideal (unclamped
+    window)."""
+    halo = 2 * r
+    return (1.0 + halo / block_h) * (1.0 + halo / block_w) - 1.0
+
+
+def window_amplification(h: int, w: int, block_h: int, block_w: int, r: int, *,
+                         align: Tuple[int, int] = ALIGN_INTERPRET) -> float:
+    """Like :func:`halo_amplification`, for the clamped window an ``h x w``
+    image gives."""
+    th, tw = window_shape(h, w, block_h, block_w, r, align=align)
+    return (th * tw) / float(min(block_h, h) * min(block_w, w)) - 1.0

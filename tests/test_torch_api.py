@@ -125,14 +125,16 @@ def test_backends_resolve_by_device():
         edge_detect(np.zeros((8, 8), np.uint8), backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         edge_detect(np.zeros((8, 8), np.uint8), backend="xla", device="cpu")
-    assert dispatch.resolve_precision("auto") == "f32"
+    from repro_torch.core.filters import get_operator
+
+    spec = get_operator("sobel5")
+    assert dispatch.resolve_precision("auto", "torch", spec=spec, rgb=False,
+                                      input_dtype=torch.uint8) == "f32"
 
 
 @pytest.mark.parametrize("override,item", (
     (dict(plan="canny5"), "item 5"),
     (dict(shard="2x1x1"), "item 10"),
-    (dict(pipeline_depth=2), "item 7"),
-    (dict(precision="int"), "item 4"),
 ), ids=lambda v: str(v))
 def test_unported_options_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,4 +1,4 @@
-"""K1 and K3 on the card: the CUDA kernels against their plain PyTorch versions.
+"""K1, K2 and K3 on the card: the CUDA kernels against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernel is built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they skip.
@@ -238,3 +238,166 @@ def test_stream_engine_raises_when_k3_keeps_failing(cuda_device, monkeypatch):
         eng.run()
     assert eng.health.backend == "cuda" and not eng.health.degraded
     assert eng.health.counts["degraded"] == 0
+
+
+K2_EXTRAS = (dict(with_max=True), dict(out_components=True, with_max=True),
+             dict(out_nms=True), dict(out_nms=True, out_components=True, out_mag=True,
+                                      with_max=True))
+
+
+def _same(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (2, 3), (37, 53), (70, 270)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb", "rgb_f32"))
+@pytest.mark.parametrize("depth", (2, 3, 8))
+def test_edge_pipelined_cuda_equals_plain(cuda_device, depth, kind, shape):
+    """K2 at ring depths 2, 3 and 8 (the 70x270 grid has gw < depth at
+    depth 8 with 64-wide tiles), with and without NMS, equals edge_plain
+    and K1 bit for bit, and counts its launches apart from K1's."""
+    x = _frames(kind, (2,) + shape, cuda_device)
+    for op in ("sobel5", "sobel3", "sobel7", "sep9"):
+        spec = get_operator(op)
+        for variant in spec.variants:
+            for d in spec.directions:
+                for padding in ("reflect", "zero"):
+                    for extra in K2_EXTRAS:
+                        kw = dict(spec=spec, variant=variant, directions=d, padding=padding,
+                                  block_h=16, block_w=64, rgb=kind.startswith("rgb"), **extra)
+                        k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
+                        a = ekern.edge_cuda(x, pipeline_depth=depth, **kw)
+                        assert ekern.edge_pipelined_cuda.launches == k2 + 1
+                        assert ekern.edge_cuda.launches == k1
+                        assert _same(a, ekern.edge_plain(x, **kw)), (op, variant, d, padding)
+                        assert _same(a, ekern.edge_cuda(x, **kw)), (op, variant, d, padding)
+
+
+@pytest.mark.parametrize("shape", ((1, 1), (2, 3), (37, 53), (237, 413)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("depth", (0, 2))
+def test_int_lane_equals_f32_lane(cuda_device, depth, shape):
+    """K1 (depth 0) and K2 on the integer lane equal the f32 lane for every
+    int-eligible operator, variant, direction count and padding."""
+    x = _frames("u8", (2,) + shape, cuda_device)
+    for op in ("prewitt3", "scharr3", "sobel3", "sobel5", "sobel7"):
+        spec = get_operator(op)
+        for variant in spec.variants:
+            for d in spec.directions:
+                for padding in ("reflect", "edge", "zero"):
+                    for extra in K2_EXTRAS:
+                        kw = dict(spec=spec, variant=variant, directions=d, padding=padding,
+                                  block_h=32, block_w=64, pipeline_depth=depth, **extra)
+                        counter = ekern.edge_pipelined_cuda if depth else ekern.edge_cuda
+                        before = counter.int_launches
+                        a = ekern.edge_cuda(x, precision="int", **kw)
+                        assert counter.int_launches == before + 1
+                        assert _same(a, ekern.edge_plain(x, **kw)), (op, variant, d, padding)
+
+
+def test_facade_auto_precision_runs_the_int_lane(cuda_device):
+    x = _frames("u8", (3, 45, 67), cuda_device)
+    before = ekern.edge_cuda.int_launches
+    res = edge_detect(x, EdgeConfig(with_max=True))
+    assert ekern.edge_cuda.int_launches == before + 1
+    ref = edge_detect(x, EdgeConfig(with_max=True, backend="torch"))
+    assert torch.equal(res.magnitude, ref.magnitude) and torch.equal(res.peak, ref.peak)
+    before = ekern.edge_cuda.int_launches
+    edge_detect(_frames("f32", (3, 45, 67), cuda_device))
+    edge_detect(x, EdgeConfig(precision="f32"))
+    assert ekern.edge_cuda.int_launches == before
+    before = ekern.edge_pipelined_cuda.int_launches
+    res = edge_detect(x, EdgeConfig(pipeline_depth=3, nms=True))
+    assert ekern.edge_pipelined_cuda.int_launches == before + 1
+    assert torch.equal(res.magnitude, edge_detect(x, EdgeConfig(nms=True, backend="torch")).magnitude)
+
+
+def test_depth_over_the_shared_memory_budget_raises(cuda_device):
+    spec = get_operator("sobel5")
+    x = torch.zeros((1, 256, 256), device=cuda_device)
+    k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
+    with pytest.raises(ValueError, match=r"pipeline_depth=3 with tile 64x256 needs 295712 B"):
+        ekern.edge_cuda(x, spec=spec, variant="v2", directions=4, block_h=64, block_w=256,
+                        pipeline_depth=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        edge_detect(x, EdgeConfig(block_h=64, block_w=256, pipeline_depth=8))
+    assert (ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches) == (k1, k2)
+
+
+def test_failing_k2_launch_raises_without_fallback(cuda_device, monkeypatch):
+    """A K2 launch the device refuses raises; nothing serves the call
+    through K1, a lower depth or the plain version instead."""
+    real = ekern._lib("edge_pipelined")
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def repro_pipelined_launch(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(ekern, "_lib", lambda name: Refusing() if name == "edge_pipelined"
+                        else real)
+    plain = ekern.edge_plain
+    monkeypatch.setattr(ekern, "edge_plain", lambda *a, **k: pytest.fail("fell back to plain"))
+    x = _frames("u8", (2, 45, 67), cuda_device)
+    k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
+    with pytest.raises(RuntimeError, match="edge_pipelined kernel launch failed"):
+        edge_detect(x, EdgeConfig(pipeline_depth=2))
+    with pytest.raises(RuntimeError, match="edge_pipelined kernel launch failed"):
+        ekern.edge_cuda(x, spec=get_operator("sobel5"), variant="v2", directions=4,
+                        pipeline_depth=4)
+    assert (ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches) == (k1, k2)
+    assert plain is not ekern.edge_plain
+
+
+def test_k2_footprint_matches_the_source(cuda_device):
+    """edge.pipelined_smem_bytes, which the wrapper and the tuner size K2
+    by, equals pipelined_layout in csrc/edge_pipelined.cu."""
+    lib = ekern._lib("edge_pipelined")
+    for bh, bw in ((1, 1), (8, 32), (32, 64), (64, 256), (128, 128)):
+        for radius in (1, 2, 3, 4):
+            for depth in ekern.PIPELINE_DEPTHS:
+                for in_bytes, channels in ((1, 1), (4, 1), (1, 3), (4, 3)):
+                    for nms in (False, True):
+                        for variant, code in ekern._VARIANT_CODES.items():
+                            for dirs in (2, 4):
+                                want = ekern.pipelined_smem_bytes(bh, bw, radius, depth,
+                                                                  in_bytes, channels, nms,
+                                                                  variant, dirs)
+                                got = lib.repro_pipelined_smem_bytes(
+                                    bh, bw, radius, depth, in_bytes, channels, int(nms), code,
+                                    dirs)
+                                assert got == want, (bh, bw, radius, depth, in_bytes,
+                                                     channels, nms, variant, dirs)
+
+
+def test_tuned_tile_too_big_for_nms_serves_every_call(cuda_device, tmp_path, monkeypatch):
+    """A cache entry that fits the magnitude lane only (128x256 needs
+    307,360 B with NMS) steers the magnitude lane and is skipped, with a
+    warning, by an NMS call and a stream step, which then run and equal
+    the torch lane."""
+    from repro_torch.api import edge_detect_stream
+    from repro_torch.kernels import tuning
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "c.json"))
+    cache = tuning.TuningCache()
+    cache.record(tuning.TuneKey("cuda", "float32", "sobel5", "v2", 256, 512), 128, 256, 1.0)
+    cache.save()
+    x = _frames("f32", (2, 256, 512), cuda_device)
+    res = edge_detect(x, EdgeConfig(with_max=True))
+    assert res.peak is not None
+    with pytest.warns(RuntimeWarning, match="skipping tuned tile 128x256"):
+        res = edge_detect(x, EdgeConfig(nms=True, hysteresis=True, with_max=True))
+    ref = edge_detect(x, EdgeConfig(nms=True, hysteresis=True, with_max=True, backend="torch"))
+    for field in ("magnitude", "edges", "peak"):
+        assert torch.equal(getattr(res, field), getattr(ref, field)), field
+    cfg = EdgeConfig(nms=True, hysteresis=True)
+    with pytest.warns(RuntimeWarning, match="skipping tuned tile 128x256"):
+        out, state = edge_detect_stream(x, cfg)
+    want, _ = edge_detect_stream(x, cfg.replace(backend="torch"))
+    assert state.block == ekern.default_block_shape(256, 512, 5)
+    assert torch.equal(out.edges, want.edges)

@@ -38,7 +38,7 @@ def test_importing_the_port_leaves_jax_out():
         "import sys; import repro_torch.api, repro_torch.launch.serve, "
         "repro_torch.kernels.build, repro_torch.configs.sobel_hd, repro_torch.core.nms, "
         "repro_torch.serve.streams, repro_torch.serve.guard, repro_torch.runtime, "
-        "repro_torch.data.synthetic; "
+        "repro_torch.data.synthetic, repro_torch.core.ladder, repro_torch.kernels.tuning; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

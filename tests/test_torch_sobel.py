@@ -80,7 +80,3 @@ def test_valid_padding_and_size_selector_match_reference():
         assert got.shape == ref.shape
         np.testing.assert_array_equal(got, ref)
 
-
-def test_int_precision_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TS.sobel(torch.zeros((4, 4), dtype=torch.uint8), precision="int")
