@@ -4,9 +4,9 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 
 1. Prints the card's name and power limit, the torch/CUDA versions, and
    builds every kernel under ``src/repro_torch/kernels/csrc`` (K1
-   ``edge.cu``, K2 ``edge_pipelined.cu``, K3 ``edge_stream.cu``: one
-   ``nvcc`` per source, all started together), printing each source's
-   compile seconds. Every phase prints its seconds.
+   ``edge.cu``, K2 ``edge_pipelined.cu``, K3 ``edge_stream.cu``, K4
+   ``flash_attention.cu``: one ``nvcc`` per source, all started together),
+   printing each source's compile seconds. Every phase prints its seconds.
 2. Holds K1 (``edge_cuda``) bit-equal (``torch.equal``) to its plain PyTorch
    version (``edge_plain``) on the card: magnitude, components and per-tile
    max, for every operator x variant x directions x padding at 1x1, 2x3,
@@ -81,9 +81,30 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    ``int_lane_bound``), with a library yardstick for K1 and K2 (cuDNN
    ``F.conv2d`` of the 4-direction bank, which covers the components only
    and is used nowhere in the port; no single PyTorch call computes the
-   NMS lane or K3), and prints one JSON line of them.
+   NMS lane or K3), and prints one JSON line of them. K4 joins it: CUDA-event
+   medians at (1, 32, 2048, 64) causal f32 and at the LM server's prefill
+   shapes (1, 32, S in 8/16/32/64, 64), beside its plain version, its bound
+   (``flash_bound``) and ``F.scaled_dot_product_attention(is_causal=True)``
+   as the yardstick (used nowhere in the port).
+6. Holds K4 (``flash_attention``) to ``flash_attention_plain`` on the card,
+   f32 and bf16, causal and not, on the reference test's four shapes,
+   ragged lengths 1-200 at head dims 64 and 128, the server's prefill shapes
+   and (1, 32, 2048, 64): f32 within 2e-5 (abs + rel), bf16 within one
+   ulp of the output plus 2e-5.
+7. This slice's main path: the LM server, ``repro_torch.launch.serve
+   --arch llama3.2-1b --requests 16 --slots 4 --max-new 16``, FULL width
+   and depth in f32, counts set to 0 just before and read just after: K4
+   must launch 16 layers x 16 prefills = 256 times and nothing else may
+   launch. The same requests on the same weights then run through the
+   plain lane on the card: the engine's padded prefills' logits must agree
+   within ``LOGIT_TOL``, and the greedy tokens must be equal except where
+   the plain lane's top-2 logit gap is below it (the count is printed).
+   One engine prefill round and one decode step run under the profiler.
+7b. ``Model.prefill`` at FULL width on prompts of 2,048 and 1,000 tokens:
+   16 K4 launches each, logits within ``LOGIT_TOL`` of the plain lane.
 
-The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
+Phases 6-7b run after 4d, then phase 5. The last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
 """
@@ -300,21 +321,26 @@ def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bo
                                     directions) <= SMEM_MAX]
 
 
+COUNTS = ("k1", "k1_int", "k2", "k2_int", "k3", "k4")
+
+
 def reset_counts():
     """Every kernel's launch counts to 0 (before a main-path run)."""
     from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
+    from repro_torch.kernels.flash_attention import flash_attention
 
-    for fn in (edge_cuda, edge_pipelined_cuda, edge_stream_cuda):
+    for fn in (edge_cuda, edge_pipelined_cuda, edge_stream_cuda, flash_attention):
         fn.launches = 0
     edge_cuda.int_launches = edge_pipelined_cuda.int_launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
+    from repro_torch.kernels.flash_attention import flash_attention
 
     return dict(k1=edge_cuda.launches, k1_int=edge_cuda.int_launches,
                 k2=edge_pipelined_cuda.launches, k2_int=edge_pipelined_cuda.int_launches,
-                k3=edge_stream_cuda.launches)
+                k3=edge_stream_cuda.launches, k4=flash_attention.launches)
 
 
 def tile_pixels(h: int, w: int, bh: int, bw: int) -> np.ndarray:
@@ -340,6 +366,36 @@ def stream_bound(mask: np.ndarray, h: int, w: int, bh: int, bw: int, in_bytes_px
     t_ops = ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             t_bytes * 1e3, t_ops * 1e3, changed_px / (changed_px + spliced_px))
+
+
+def device_profile(label: str, fn, top: int = 6, kernel: str = ""):
+    """Run ``fn`` once under torch.profiler and print its device time by
+    kernel and the device's idle share of the span (host clock, under the
+    profiler, which stretches the span); with ``kernel``, also the device
+    time and launches of the kernels whose name contains it. Returns
+    (busy_us, span_us, that kernel's us)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+    kernels_run = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_run.sort(key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels_run)
+    check(busy_us > 0, f"the profiler saw no device time in {label}")
+    print(f"profile of {label}: {len(kernels_run)} device kernels, busy {busy_us:.1f} us "
+          f"of its {span_us:.1f} us span (host clock, under the profiler): device idle "
+          f"{100 * (1 - busy_us / span_us):.1f}%")
+    for e in kernels_run[:top]:
+        print(f"  {e.self_device_time_total:9.1f} us  x{e.count}  {e.key[:90]}")
+    named = [e for e in kernels_run if kernel and kernel in e.key]
+    named_us = sum(e.self_device_time_total for e in named)
+    if kernel:
+        print(f"  {kernel}: {named_us:.1f} us in {sum(e.count for e in named)} launches, "
+              f"{100 * named_us / busy_us:.2f}% of the device time")
+    return busy_us, span_us, named_us
 
 
 def median_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -695,7 +751,7 @@ def phase_depth_facade(full_inputs, dev):
     t0 = time.perf_counter()
     full = get_config("sobel-hd")
     spec5 = get_operator("sobel5")
-    total = dict.fromkeys(("k1", "k1_int", "k2", "k2_int", "k3"), 0)
+    total = dict.fromkeys(COUNTS, 0)
     runs = []
     for kind, x in full_inputs.items():
         for depth in fitting_depths(full.sobel_block_h, full.sobel_block_w, spec5,
@@ -763,7 +819,7 @@ def phase_tuned_facade(full_inputs, dev):
             print(f"  {r['block_h']:4d}x{r['block_w']:<4d} depth {r['depth']}: {r['us']:9.1f} us "
                   f"(host clock, best of 3); smem {r['smem_bytes']} B, halo overhead "
                   f"{r['halo_overhead']:.3f}")
-    total = dict.fromkeys(("k1", "k1_int", "k2", "k2_int", "k3"), 0)
+    total = dict.fromkeys(COUNTS, 0)
     for pinned in (None, 2):
         cfg = full.edge_config(block_h=None, block_w=None, pipeline_depth=pinned,
                                with_max=True)
@@ -866,22 +922,7 @@ def phase_server(dev):
 
     # One more request of the server's config under the profiler: device
     # time by kernel, to show where a request's compute goes.
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        edge_detect(last, server_cfg)
-        torch.cuda.synchronize()
-        span_us = (time.perf_counter() - t0) * 1e6
-    kernels_run = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels_run.sort(key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels_run)
-    check(busy_us > 0, "the profiler saw no device time in the request")
-    print(f"profile of one request: {len(kernels_run)} device kernels, busy {busy_us:.1f} us "
-          f"of its {span_us:.1f} us span (host clock, under the profiler): device idle "
-          f"{100 * (1 - busy_us / span_us):.1f}%")
-    for e in kernels_run[:6]:
-        print(f"  {e.self_device_time_total:9.1f} us  x{e.count}  {e.key[:90]}")
+    device_profile("one request", lambda: edge_detect(last, server_cfg), top=6)
 
     edge_cuda.launches = 0
     edges = serve.main(["--arch", "sobel-hd", "--slots", "4", "--requests", "4", "--edges"])
@@ -1056,6 +1097,280 @@ def phase_linking(run, dev):
     print(f"  {hyst_ms:9.4f} ms  hysteresis ({hyst_ms / steps:.4f} ms a dilation step)")
     print(f"  {step_ms:9.4f} ms  whole edge_detect_stream step")
     return dict(steps=steps, hysteresis_ms=hyst_ms, step_ms=step_ms, weak=weak, strong=strong)
+
+
+# --- K4 (flash attention) and the LM server ---------------------------------
+
+# Phase 6's cases, (B, H, S, T, D), (block_q, block_kv): the reference test's
+# four shapes (tests/test_kernels.py), ragged lengths, the model's head
+# dims, the server's prefill shapes (llama3.2-1b: 32 heads of 64, buckets
+# 8-64) and a 2,048-token prompt. Each runs f32 and bf16, causal and not.
+K4_CASES = (
+    [((2, 3, 16, 16, 8), (4, 4)), ((1, 2, 32, 32, 16), (8, 16)), ((2, 2, 8, 24, 8), (8, 8)),
+     ((1, 1, 64, 64, 4), (16, 32))]
+    + [((1, 4, s, s, d), (s, s)) for s in (1, 7, 65, 129, 200) for d in (64, 128)]
+    + [((1, 32, s, s, 64), (s, s)) for s in (8, 16, 32, 64)]
+    + [((1, 32, 2048, 2048, 64), (128, 128))]
+)
+K4_TOL = 2e-5            # f32: tests/test_kernels.py's atol and rtol
+# Logits of the f32 model, K4 lane against the plain lane on the card: the
+# attention outputs differ by rounding (~1e-6), which 16 layers of f32
+# products carry to the logits far below this.
+LOGIT_TOL = 1e-3
+LM_ARGS = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4", "--max-new", "16"]
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``x`` (8 bits of mantissa)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def attention_inputs(shape, dtype, dev, seed):
+    b, h, s, t, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(n, generator=g, device=dev).to(dtype)
+                 for n in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+def phase_k4_vs_plain(dev):
+    """Phase 6: K4 against flash_attention_plain on the card. Returns the
+    worst f32 error at (1, 32, 2048, 64) causal."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    cases = bad = 0
+    worst_f32, worst_ulps, worst_bf16, main_err = 0.0, 0.0, 0.0, None
+    for i, (shape, (bq, bkv)) in enumerate(K4_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_inputs(shape, dtype, dev, seed=i)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+                want = flash_attention_plain(q, k, v, causal=causal)
+                diff = (got.float() - want.float()).abs()
+                cases += 1
+                if dtype == torch.float32:
+                    ok = bool((diff <= K4_TOL + K4_TOL * want.abs()).all())
+                    worst_f32 = max(worst_f32, float(diff.max()))
+                    if shape == (1, 32, 2048, 2048, 64) and causal:
+                        main_err = float(diff.max())
+                else:
+                    # Each side rounds an f32 result once: one bf16 ulp, plus
+                    # the f32 tolerance where the output's ulp is below it.
+                    ulps = diff / bf16_ulp(want)
+                    ok = bool((diff <= bf16_ulp(want) + K4_TOL).all())
+                    worst_ulps = max(worst_ulps, float(ulps.max()))
+                    worst_bf16 = max(worst_bf16, float(diff.max()))
+                if not (ok and bool(torch.isfinite(got).all())):
+                    bad += 1
+                    print(f"  MISMATCH K4 {shape} {dtype} causal={causal}: max abs err "
+                          f"{float(diff.max())}")
+    torch.cuda.synchronize()
+    print(f"K4 vs plain: {cases} cases, {bad} outside tolerance; worst f32 abs err "
+          f"{worst_f32:.3g} (tolerance {K4_TOL} abs + rel); worst bf16 abs err {worst_bf16:.3g}, "
+          f"{worst_ulps:.3g} ulp of the output (tolerance 1 ulp + {K4_TOL})")
+    check(bad == 0, f"K4 differs from flash_attention_plain in {bad} of {cases} cases")
+    return main_err
+
+
+def replay_prompts(vocab: int, n: int):
+    """The LM server's prompts: repro_torch.launch.serve.serve_lm's rng."""
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(n):
+        plen = int(rng.integers(2, 24))
+        prompts.append(rng.integers(0, vocab, plen).tolist())
+    return prompts
+
+
+def plain_logits_gap(model, params, prompt, outputs, step, dev):
+    """Teacher-forced greedy decode of one request on the plain lane (batch
+    1): the logits at ``step`` after feeding ``outputs[:step]``. Returns the
+    plain lane's top-2 gap there and how far ``outputs[step]`` lies below
+    its top logit."""
+    cache = model.init_cache(1, len(prompt) + step + 1, dtype=torch.float32, device=dev)
+    if len(prompt) > 1:
+        model.prefill(params, {"tokens": torch.tensor([prompt[:-1]], device=dev)}, cache)
+    feed = [prompt[-1]] + list(outputs[:step])
+    for j, tok in enumerate(feed):
+        logits, cache = model.decode_step(params, cache, torch.tensor([[tok]], device=dev),
+                                          len(prompt) - 1 + j)
+    top2 = torch.topk(logits[0, 0], 2).values
+    return float(top2[0] - top2[1]), float(top2[0] - logits[0, 0, outputs[step]])
+
+
+def phase_lm_server(dev):
+    """Phase 7, this slice's main path: the LM server at FULL llama3.2-1b
+    width and depth, f32, through repro_torch.launch.serve; counts set to 0
+    just before and read just after. Then the same requests on the same
+    weights through the plain lane on the card: the engine's padded
+    prefills' logits within LOGIT_TOL, and the greedy tokens equal except
+    where the plain lane's top-2 gap is below LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import LM_BUCKETS
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.engine import _bucket
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    stats = serve.main(LM_ARGS)
+    counts = read_counts()
+    cfg = get_config("llama3.2-1b").replace(dtype="float32")
+    n_req, n_new = 16, 16
+    check(counts["k4"] == cfg.num_layers * n_req and stats["k4_launches"] == counts["k4"],
+          f"the LM server launched K4 {counts['k4']} times, not {cfg.num_layers} x {n_req}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"the LM server launched {counts}")
+    done = sorted(stats["requests"], key=lambda r: r.uid)
+    check(len(done) == n_req and all(len(r.output) == n_new for r in done),
+          "the LM server did not serve every request to --max-new")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    print(f"LM server {cfg.name}: {stats['param_count']:,} params; {stats['tok_s']:.1f} tok/s "
+          f"({stats['tokens']} tokens in {stats['seconds']:.3f} s); prefill p50 "
+          f"{stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K4 launches {counts['k4']}")
+
+    params = stats["params"]
+    prompts = replay_prompts(cfg.vocab_size, n_req)
+    check([r.prompt for r in done] == prompts, "the server's prompts are not the replay's")
+    # The engine's padded prefill of every prompt, both lanes.
+    worst = 0.0
+    for prompt in prompts:
+        ctx = prompt[:-1]
+        b = _bucket(len(ctx), LM_BUCKETS)
+        toks = torch.zeros((1, b), dtype=torch.int32, device=dev)
+        toks[0, :len(ctx)] = torch.tensor(ctx)
+        pos = torch.arange(b, dtype=torch.int32, device=dev)[None]
+        batch = {"tokens": toks, "positions": pos,
+                 "cache_positions": torch.where(pos < len(ctx), pos, b)}
+        lane = {}
+        for backend in ("auto", "torch"):
+            cache = Model(cfg).init_cache(1, b + 1, dtype=torch.float32, device=dev)
+            lane[backend], _ = Model(cfg, backend=backend).prefill(params, batch, cache)
+        check(bool(torch.isfinite(lane["auto"]).all()), "non-finite prefill logits")
+        worst = max(worst, float((lane["auto"] - lane["torch"]).abs().max()))
+    check(worst <= LOGIT_TOL, f"prefill logits differ by {worst} > {LOGIT_TOL}")
+
+    eng = Engine(cfg, params, max_batch=4, max_len=256, prompt_buckets=LM_BUCKETS,
+                 backend="torch")
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
+    before = read_counts()["k4"]
+    plain = {r.uid: r.output for r in eng.run()}
+    check(read_counts()["k4"] == before, "the plain replay launched K4")
+    plain_model = Model(cfg, backend="torch")
+    ties = 0
+    for r in done:
+        want = plain[r.uid]
+        if r.output == want:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(r.output, want)) if a != b)
+        gap, below = plain_logits_gap(plain_model, params, r.prompt, r.output, step, dev)
+        check(gap < LOGIT_TOL and below < LOGIT_TOL,
+              f"request {r.uid} step {step}: token {r.output[step]} (plain {want[step]}) with "
+              f"the plain lane's top-2 gap {gap} and the token {below} below its top")
+        ties += 1
+    print(f"  plain-lane replay on the card: prefill logits within {worst:.3g} (tolerance "
+          f"{LOGIT_TOL}); tokens equal in {n_req - ties} of {n_req} requests, {ties} near "
+          f"ties (top-2 gap < {LOGIT_TOL})")
+
+    # Where a prefill and a decode step go: four prompts admitted into a
+    # fresh engine (four prefills), then one decode step of its four slots.
+    eng = Engine(cfg, params, max_batch=4, max_len=256, prompt_buckets=LM_BUCKETS)
+    for uid, prompt in enumerate(prompts[:4]):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
+    device_profile("four engine prefills (K4 lane)", eng._admit, top=8, kernel="flash_kernel")
+    eng._decode_once()
+    device_profile("one engine decode step, 4 slots", eng._decode_once, top=8,
+                   kernel="flash_kernel")
+    return dict(stats, k4=counts["k4"], logit_err=worst, near_ties=ties)
+
+
+def phase_long_prefill(dev, params):
+    """Phase 7b: Model.prefill at FULL llama3.2-1b width with one prompt of
+    2,048 tokens and one of 1,000, K4 lane against the plain lane."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("llama3.2-1b").replace(dtype="float32")
+    rng = np.random.default_rng(7)
+    launches = 0
+    for n in (2048, 1000):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+        lane = {}
+        for backend in ("auto", "torch"):
+            cache = Model(cfg).init_cache(1, n, dtype=torch.float32, device=dev)
+            reset_counts()
+            lane[backend], cache = Model(cfg, backend=backend).prefill(params, {"tokens": tokens},
+                                                                       cache)
+            k4 = read_counts()["k4"]
+            check(k4 == (cfg.num_layers if backend == "auto" else 0),
+                  f"prefill of {n} tokens ({backend}) launched K4 {k4} times")
+            launches += k4
+        err = float((lane["auto"] - lane["torch"]).abs().max())
+        check(bool(torch.isfinite(lane["auto"]).all()), f"non-finite logits at {n} tokens")
+        check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
+        print(f"long prefill {n} tokens: K4 lane within {err:.3g} of the plain lane "
+              f"(tolerance {LOGIT_TOL}); K4 launches {cfg.num_layers}")
+    return launches
+
+
+def flash_bound(shape, causal: bool, elt: int):
+    """K4's least time: the (query, key) pairs the mask keeps, each 2D FMAs
+    and 4 other f32 operations at 33.5 T instructions/s (the 67 TFLOP/s
+    peak counts an FMA as two), against q, k, v read once and the output
+    written once at 3.35 TB/s."""
+    b, h, s, t, d = shape
+    pairs = b * h * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
+    t_ops = pairs * (2 * d + 4) / F32_OPS_PER_S
+    t_bytes = b * h * (2 * s * d + 2 * t * d) * elt / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            t_bytes * 1e3, t_ops * 1e3, pairs)
+
+
+def phase_k4_timing(dev, lm, long_launches, main_err):
+    """Phase 5 (K4): CUDA-event medians of K4, its plain version and
+    F.scaled_dot_product_attention (the yardstick; the port never calls
+    it), causal f32, at (1, 32, 2048, 64) and the server's prefill shapes."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for s in (2048, 8, 16, 32, 64):
+        shape = (1, 32, s, s, 64)
+        q, k, v = attention_inputs(shape, torch.float32, dev, seed=s)
+        got = flash_attention(q, k, v, block_q=s, block_kv=s)
+        want = flash_attention_plain(q, k, v)
+        b_ms, b_by, t_bytes, t_ops, pairs = flash_bound(shape, True, 4)
+        row = dict(ms=median_ms(lambda: flash_attention(q, k, v, block_q=s, block_kv=s)),
+                   plain_ms=median_ms(lambda: flash_attention_plain(q, k, v)),
+                   library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                               is_causal=True)),
+                   bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops, pairs=pairs,
+                   max_abs_err=float((got - want).abs().max()), shape=list(shape))
+        rows[f"1x32x{s}x64"] = row
+        print(f"K4 at (1, 32, {s}, 64) causal f32: {row['ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
+              f"{pairs} pairs x {2 * 64 + 4} ops {t_ops:.4f} ms); "
+              f"scaled_dot_product_attention {row['library_ms']:.4f} ms")
+    main = rows["1x32x2048x64"]
+    return {
+        "name": "K4 flash_attention (online-softmax attention)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:40",
+        "launches": lm["k4"],
+        "max_abs_err": main_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shapes": rows,
+        "launches_long_prefill": long_launches,
+        "server": {k: lm[k] for k in ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens",
+                                      "prefills", "decode_steps", "param_count", "logit_err",
+                                      "near_ties")},
+    }
 
 
 def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches,
@@ -1303,8 +1618,12 @@ def main() -> None:
     runs = timed("4b stream server", phase_stream_server, dev)
     mask = timed("4c stream step", phase_step_parts, runs["motion"], dev)
     timed("4d linking", phase_linking, runs["motion"], dev)
+    k4_err = timed("6 K4 vs plain", phase_k4_vs_plain, dev)
+    lm = timed("7 LM server", phase_lm_server, dev)
+    long_launches = timed("7b long prefill", phase_long_prefill, dev, lm.pop("params"))
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
+    kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Architecture configs of the port; this slice carries the image pipeline's."""
-from repro_torch.configs.base import ModelConfig, get_config, register
+"""Architecture configs of the port: the image pipeline's and the dense LMs'."""
+from repro_torch.configs.base import ModelConfig, get_config, list_archs, register
 
-__all__ = ["ModelConfig", "get_config", "register"]
+__all__ = ["ModelConfig", "get_config", "list_archs", "register"]

@@ -1,21 +1,46 @@
-"""Config schema and registry: the image-pipeline fields of ``repro.configs.base``.
+"""Config schema and registry: the fields of ``repro.configs.base`` that the
+port runs, the image pipeline's and the dense LM's, with the reference's
+names and defaults.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests.
+form and a ``smoke`` reduction for CPU tests. The MoE, SSM, hybrid,
+encoder-decoder and frontend fields, and ``ShapeConfig``, are not ported
+yet (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
 
-__all__ = ["ModelConfig", "register", "get_config"]
+__all__ = ["ModelConfig", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # image (the LM families are not ported yet)
+    family: str                      # dense | image (the other LM families are not ported yet)
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # --- attention ---
+    attn_type: str = "gqa"           # gqa (mla is not ported yet)
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    qk_norm: bool = False
+    attn_logit_softcap: float = 0.0
+
+    # --- norm / mlp ---
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm | layernorm_np
+    mlp_type: str = "swiglu"         # swiglu | gelu
+    norm_eps: float = 1e-5
+
+    # --- image pipeline (sobel-hd: the paper's own workload) ---
     image_h: int = 0
     image_w: int = 0
     sobel_operator: str = "sobel5"   # repro_torch.core.filters registry name ("" = from sobel_size)
@@ -42,14 +67,54 @@ class ModelConfig:
         )
         return cfg.replace(**overrides) if overrides else cfg
 
+    # --- runtime ---
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat_policy: str = "minimal"    # training only; the configs set it
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
 _REGISTRY: Dict[str, tuple] = {}
 
+ARCH_IDS = (
+    "glm4-9b",
+    "olmo-1b",
+    "llama3.2-1b",
+    "sobel-hd",                      # the paper's own workload, as an arch
+)
+
 _MODULES = {
+    "glm4-9b": "glm4_9b",
+    "olmo-1b": "olmo_1b",
+    "llama3.2-1b": "llama3_2_1b",
     "sobel-hd": "sobel_hd",
+}
+
+
+# What the port does not run yet -> its ROADMAP item, and the reference's
+# archs that need it.
+UNPORTED = {
+    "ssm": "queue 1 item 13: falcon-mamba-7b serving with kernel K5",
+    "moe": "queue 1 item 13: MoE (models/moe.py)",
+    "mla": "queue 1 item 13: MLA (minicpm3-4b)",
+    "hybrid": "queue 1 item 13: the hybrid's mamba2 and shared attention",
+    "encdec": "queue 1 item 13: encoder-decoder and VLM frontends",
+    "vlm": "queue 1 item 13: encoder-decoder and VLM frontends",
+}
+_UNPORTED_ARCHS = {
+    "falcon-mamba-7b": "ssm",
+    "qwen3-moe-30b-a3b": "moe",
+    "phi3.5-moe-42b-a6.6b": "moe",
+    "minicpm3-4b": "mla",
+    "zamba2-2.7b": "hybrid",
+    "whisper-large-v3": "encdec",
+    "pixtral-12b": "vlm",
 }
 
 
@@ -60,8 +125,15 @@ def register(arch_id: str, full: ModelConfig, smoke: ModelConfig) -> None:
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _REGISTRY:
         mod = _MODULES.get(arch_id)
+        if arch_id in _UNPORTED_ARCHS:
+            raise NotImplementedError(f"arch {arch_id!r} is not ported yet: ROADMAP "
+                                      f"{UNPORTED[_UNPORTED_ARCHS[arch_id]]}")
         if mod is None:
             raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
         importlib.import_module(f"repro_torch.configs.{mod}")
     full, smoke_cfg = _REGISTRY[arch_id]
     return smoke_cfg if smoke else full
+
+
+def list_archs() -> Tuple[str, ...]:
+    return ARCH_IDS

@@ -1,4 +1,16 @@
-"""Frame-serving launcher: ``python -m repro_torch.launch.serve --arch sobel-hd``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
+
+LM mode (``--arch llama3.2-1b`` and the other dense configs): the port of
+``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
+device, in f32 (the reference's server forces ``dtype="float32"``); the
+continuous-batching :class:`~repro_torch.serve.Engine` with ``--slots``
+slots, ``--max-len`` positions and prompt buckets 8/16/32/64 serves
+``--requests`` prompts of the reference's (``default_rng(0)``, lengths 2-23,
+uniform token ids), ``--max-new`` tokens each, greedy. Prefill attention
+runs kernel K4 on the card; TF32 products are switched off. Prints tokens
+per second over the whole run, the prefill and decode-step p50 (host
+clock, each ended by a device synchronise) and K4's launches. The first
+prefill pays the kernel's build when it is not built yet.
 
 Image mode: one request is one batch of ``--slots`` synthetic frames
 (``data.synthetic.image_batch``) through :func:`repro_torch.api.edge_detect`
@@ -33,6 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+
+LM_BUCKETS = (8, 16, 32, 64)   # the reference server's prompt buckets
 
 
 def _percentile(xs, q):
@@ -200,12 +214,63 @@ def serve_streams(cfg, args) -> dict:
     }
 
 
+def serve_lm(cfg, args) -> dict:
+    """Serve ``args.requests`` prompts through the LM engine; returns the
+    numbers it printed, the finished requests and the weights."""
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+
+    device = resolve_device(args.device)
+    # Full-f32 products: a TF32 product would move the logits by ~1e-3.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(cfg)
+    params = model.init(0, device=device)
+    n_params = model.param_count()
+    print(f"serving {cfg.name}: {n_params:,} params, {args.slots} slots, device={device}")
+
+    engine = Engine(cfg, params, max_batch=args.slots, max_len=args.max_len,
+                    prompt_buckets=LM_BUCKETS, device=device)
+    rng = np.random.default_rng(0)
+    for uid in range(args.requests):
+        plen = int(rng.integers(2, 24))
+        engine.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, plen).tolist(),
+                              max_new_tokens=args.max_new))
+    k4_before = flash_attention.launches
+    t0 = time.perf_counter()
+    done = engine.run()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.output) for r in done)
+    stats = {
+        "requests": done,
+        "tokens": toks,
+        "seconds": dt,
+        "tok_s": toks / dt if dt > 0 else 0.0,
+        "prefills": len(engine.prefill_ms),
+        "decode_steps": len(engine.decode_ms),
+        "prefill_p50_ms": _percentile(engine.prefill_ms, 50) if engine.prefill_ms else 0.0,
+        "decode_p50_ms": _percentile(engine.decode_ms, 50) if engine.decode_ms else 0.0,
+        "k4_launches": flash_attention.launches - k4_before,
+        "param_count": n_params,
+        "params": params,
+    }
+    print(f"{len(done)} requests, {toks} tokens, {dt:.2f}s -> {stats['tok_s']:.1f} tok/s; "
+          f"prefill p50={stats['prefill_p50_ms']:.2f}ms ({stats['prefills']} prefills); "
+          f"decode step p50={stats['decode_p50_ms']:.2f}ms ({stats['decode_steps']} steps); "
+          f"K4 launches {stats['k4_launches']}")
+    return stats
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=4, help="frames per request")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="frames per request (image), engine slots (LM)")
+    ap.add_argument("--max-new", type=int, default=16, help="tokens per request (LM)")
+    ap.add_argument("--max-len", type=int, default=256, help="cache positions per slot (LM)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--edges", action="store_true",
                     help="serve binary edge maps (fused NMS + hysteresis) instead of "
@@ -227,10 +292,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "for tests and checks)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
+    try:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
     if cfg.family != "image":
-        raise SystemExit(f"arch {cfg.name!r} is family {cfg.family!r}; the port "
-                         "serves image archs only")
+        for flag, on in (("--edges", args.edges), ("--streams", args.streams)):
+            if on:
+                raise SystemExit(f"{flag} applies to image (detector) serving; arch "
+                                 f"{cfg.name!r} is family {cfg.family!r}")
+        return serve_lm(cfg.replace(dtype="float32"), args)
     if args.streams > 0:
         return serve_streams(cfg, args)
     return serve_image(cfg, args)

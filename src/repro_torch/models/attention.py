@@ -1,0 +1,327 @@
+"""Attention: GQA (dense and memory-chunked), with kernel K4 on the prefill.
+
+The port of ``repro.models.attention``. Shapes: activations (B, S, d_model);
+q/k/v (B, S, heads, head_dim) with GQA grouping H = KV * G. Decode uses a
+KV cache ``{"k": (B, L, KV, D), "v": (B, L, KV, D)}``, which
+:func:`update_cache` writes in place (the reference's is functional): a
+served model keeps one cache and never needs the old one.
+
+This port runs on one device, so the reference's tensor-parallel head
+layouts reduce to its single-device branch (KV heads kept, G query heads
+per KV head). MLA (``minicpm3-4b``) and cross-attention (``whisper``) are
+not ported yet (ROADMAP queue 1 item 13).
+
+Lanes (``backend``, as the edge path's): on a CUDA tensor the prefill and
+forward attention (S query positions over the same S keys) run K4,
+``kernels/csrc/flash_attention.cu``, at every length; the decode read path
+(S == 1 over the whole slotted cache) is plain PyTorch, as the reference
+leaves it to XLA. K4 masks by index, so on the card the causal prefill
+raises unless ``positions`` is ``arange(S)`` in every row, which is what
+``transformer._prepare_inputs`` and the engine give; it also raises for an
+``attn_logit_softcap`` (K4 has none, and no ported config sets one). The
+plain lane (``backend="torch"``, and every CPU tensor) runs
+:func:`dot_attention` and follows the reference's switch to the chunked
+online softmax above 4,096 positions.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import UNPORTED, ModelConfig
+from repro_torch.kernels.dispatch import resolve_backend, resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import Spec, apply_rope
+
+__all__ = [
+    "attention_params",
+    "apply_attention",
+    "init_attn_cache",
+    "dot_attention",
+    "update_cache",
+]
+
+_NEG_INF = -1e30
+_MLA = ("multi-head latent attention (attn_type='mla') is not ported yet: "
+        f"ROADMAP {UNPORTED['mla']}")
+
+
+def update_cache(cache_arr: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
+    """Write ``new`` (B, S, ...) into the length axis (1) of ``cache_arr`` in
+    place; returns ``cache_arr``.
+
+    index shapes, as the reference's: scalar -> contiguous at
+    [index, index+S) (prefill; a negative start counts from the end, and
+    the start is clamped so the block fits), a single token only where
+    0 <= index < L; (B,) -> one slot per sequence (continuous-batching
+    decode); (B, S) -> arbitrary per-token destinations (padded prefill; pad
+    tokens aimed at a trash slot). Vector indices count negatives from the
+    end and drop what still falls outside [0, L). Duplicate destinations
+    (pad tokens sharing the trash slot) leave one of their values, unspecified
+    which.
+    """
+    new = new.to(cache_arr.dtype)
+    length = cache_arr.shape[1]
+    index = torch.as_tensor(index)
+    if index.ndim == 0:
+        i, s = int(index), new.shape[1]
+        if s == 1:
+            if 0 <= i < length:
+                cache_arr[:, i] = new[:, 0]
+            return cache_arr
+        i = i + length if i < 0 else i
+        start = min(max(i, 0), length - s)
+        cache_arr[:, start:start + s] = new
+        return cache_arr
+    index = index.to(device=cache_arr.device, dtype=torch.long)
+    index = torch.where(index < 0, index + length, index)
+    keep = (index >= 0) & (index < length)
+    b = cache_arr.shape[0]
+    rows = torch.arange(b, device=cache_arr.device)
+    if index.ndim == 1:
+        # A dropped slot writes its old value back (no host sync for the mask).
+        idx = index.clamp(0, length - 1)
+        sel = keep.reshape((b,) + (1,) * (new.ndim - 2))
+        cache_arr[rows, idx] = torch.where(sel, new[:, 0], cache_arr[rows, idx])
+        return cache_arr
+    rows = rows[:, None].expand_as(index)
+    cache_arr[rows[keep], index[keep]] = new[keep]
+    return cache_arr
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def attention_params(cfg: ModelConfig) -> Dict[str, Spec]:
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(_MLA)
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": Spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": Spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": Spec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = Spec((hd,), (None,), "ones")
+        p["k_norm"] = Spec((hd,), (None,), "ones")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def _rms(x, scale, eps):
+    y = x.float()
+    y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _mask_block(pos_q, pos_k, causal: bool):
+    if not causal:
+        return None
+    return pos_q[:, :, None] >= pos_k[:, None, :]          # (B, S, C)
+
+
+def dot_attention(
+    q: torch.Tensor,              # (B, S, KV, G, D)
+    k: torch.Tensor,              # (B, T, KV, D)
+    v: torch.Tensor,              # (B, T, KV, Dv)
+    *,
+    pos_q: Optional[torch.Tensor] = None,    # (B, S)
+    pos_k: Optional[torch.Tensor] = None,    # (B, T)
+    causal: bool = True,
+    impl: str = "dense",
+    chunk: int = 1024,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Grouped-query attention core, plain PyTorch. Returns (B, S, KV, G, Dv).
+
+    The mask is derived from positions (``pos_q >= pos_k`` when causal);
+    the chunked path builds it per KV chunk inside the online softmax.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    q = (q * scale).to(q.dtype)
+    b, s_len = q.shape[0], q.shape[1]
+    t = k.shape[1]
+    if causal and (pos_q is None or pos_k is None):
+        raise ValueError("causal attention needs pos_q and pos_k")
+
+    if impl == "dense" or t <= chunk:
+        s = torch.einsum("bskgd,btkd->bkgst", q, k).float()
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _mask_block(pos_q, pos_k, causal)
+        if mask is not None:
+            s = torch.where(mask[:, None, None], s, _NEG_INF)
+        w = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bkgst,btkd->bskgd", w, v)
+
+    # Chunked online softmax: a loop over KV chunks with running
+    # (max, denom, acc), so the (S x T) score matrix is never materialized.
+    if t % chunk:
+        raise ValueError(f"chunked attention needs T % chunk == 0, got T={t}, chunk={chunk}")
+    if pos_k is None:
+        pos_k = torch.arange(t, dtype=torch.int32, device=k.device)[None].expand(b, t)
+    kv_h, g = q.shape[2], q.shape[3]
+    m_run = torch.full((b, kv_h, g, s_len), _NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((b, kv_h, g, s_len), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv_h, g, s_len, v.shape[-1]), dtype=torch.float32, device=q.device)
+    for c0 in range(0, t, chunk):
+        k_j, v_j, pk_j = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], pos_k[:, c0:c0 + chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", q, k_j).float()
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask_j = _mask_block(pos_q, pk_j, causal)
+        if mask_j is not None:
+            s = torch.where(mask_j[:, None, None], s, _NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(q.dtype), v_j).float()
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,S,KV,G,Dv)
+
+
+def _k4_attention(q5: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> torch.Tensor:
+    """``dot_attention`` over ``pos_q = pos_k = arange(S)`` through K4: fold
+    (KV, G) into H, repeat each KV head for its G query heads, and call the
+    kernel with ``block_q = S`` and ``block_kv = T``, which its shape rule
+    accepts at any length. Returns (B, S, KV, G, D)."""
+    b, s, kv, g, d = q5.shape
+    qh = q5.permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, d)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    out = flash_attention(qh, kh, vh, causal=causal, block_q=s, block_kv=kh.shape[2],
+                          backend="cuda")
+    return out.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
+
+
+def _check_k4_call(cfg: ModelConfig, positions: torch.Tensor, causal: bool) -> None:
+    """What K4 cannot take on the card raises; nothing falls back."""
+    if cfg.attn_logit_softcap:
+        raise ValueError(f"attn_logit_softcap={cfg.attn_logit_softcap}: kernel K4 has no "
+                         "softcap; run backend='torch' for such a config")
+    if causal:
+        b, s = positions.shape
+        index = torch.arange(s, device=positions.device, dtype=positions.dtype)
+        if not torch.equal(positions, index.expand(b, s)):
+            raise ValueError("kernel K4 masks by index: the causal prefill on the card needs "
+                             "positions = arange(S) in every row; run backend='torch' for "
+                             "other positions")
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def _gqa_qkv(params, cfg: ModelConfig, x, positions):
+    dtype = x.dtype
+    b, s, d = x.shape
+
+    def proj(w):   # "bsd,dhk->bshk"
+        return (x @ w.to(dtype).reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
+
+    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    if cfg.qk_norm:
+        q = _rms(q, params["q_norm"], cfg.norm_eps)
+        k = _rms(k, params["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _head_layout(cfg: ModelConfig, q):
+    """The reference's single-device layout: (B, S, H, D) -> (B, S, KV, G, D)."""
+    b, s = q.shape[0], q.shape[1]
+    kv_h = cfg.num_kv_heads
+    return q.reshape(b, s, kv_h, cfg.num_heads // kv_h, q.shape[-1])
+
+
+def _gqa_out(params, out):
+    # out: (B, S, KV, G, D) -> (B, S, H * D) -> (B, S, d_model)
+    b, s, kv, g, d = out.shape
+    wo = params["wo"].to(out.dtype)
+    return out.reshape(b, s, kv * g * d) @ wo.reshape(kv * g * d, -1)
+
+
+def apply_attention(
+    params: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    cache: Optional[Dict] = None,
+    cache_index=None,
+    attn_chunk: int = 1024,
+    backend: str = "auto",
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Self-attention (GQA).
+
+    With ``cache``: S == 1 is a decode step reading the cache; S > 1 is a
+    prefill, which attends over the freshly computed local k/v (never the
+    padded cache) while the cache is written through (in place).
+    ``backend``: ``auto`` (K4 for a CUDA tensor, plain for the CPU),
+    ``cuda`` or ``torch``.
+    """
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(_MLA)
+    lane = resolve_backend(backend, x.device)
+    kv_h, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    q, k, v = _gqa_qkv(params, cfg, x, positions)
+    b, s = x.shape[0], x.shape[1]
+
+    new_cache = None
+    if cache is not None:
+        new_cache = {
+            "k": update_cache(cache["k"], k, cache_index),
+            "v": update_cache(cache["v"], v, cache_index),
+        }
+
+    if cache is not None and s == 1:
+        # decode read path (plain PyTorch on both lanes)
+        k_full, v_full = new_cache["k"], new_cache["v"]
+        t = k_full.shape[1]
+        q5 = q.reshape(b, 1, kv_h, g, cfg.head_dim)
+        pos_k = torch.arange(t, dtype=torch.int32, device=x.device)[None].expand(b, t)
+        out = dot_attention(q5, k_full, v_full, pos_q=positions, pos_k=pos_k, causal=True,
+                            impl="dense")
+        return _gqa_out(params, out), new_cache
+
+    q5 = _head_layout(cfg, q)
+    if lane == "cuda":
+        _check_k4_call(cfg, positions, causal)
+        out = _k4_attention(q5, k, v, causal)
+    else:
+        impl = "chunked" if s > 4096 else "dense"
+        out = dot_attention(
+            q5, k, v,
+            pos_q=positions, pos_k=positions, causal=causal,
+            impl=impl, chunk=attn_chunk, softcap=cfg.attn_logit_softcap,
+        )
+    return _gqa_out(params, out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                    device=None) -> Dict:
+    """Zero k/v caches on ``device`` (``None`` = the CUDA device)."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(_MLA)
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}

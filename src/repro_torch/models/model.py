@@ -1,0 +1,96 @@
+"""Public model API: init / forward / cache / prefill / decode for the dense
+family, and :func:`carry_params`, which takes the reference's weights.
+
+The port of ``repro.models.model.Model`` without the training half
+(``loss_fn``, ``cross_entropy``, ``cast_params``: ROADMAP queue 1 item 13).
+Parameters are a nested dict of tensors under the reference's names, with
+the stacked leading layer axis, so the reference's tree carries across name
+for name.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import Spec, init_tree, map_specs
+
+__all__ = ["Model", "carry_params"]
+
+
+class Model:
+    """Thin functional wrapper binding a ModelConfig to the layer stack.
+
+    ``backend`` picks the attention lane of every call: ``auto`` (kernel K4
+    for CUDA tensors, the plain version for CPU ones), ``cuda`` or
+    ``torch`` (the plain version on any device).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, backend: str = "auto"):
+        T.check_family(cfg)
+        self.cfg = cfg
+        self.backend = backend
+
+    # -- parameters ---------------------------------------------------------
+    def param_specs(self):
+        return T.model_param_specs(self.cfg)
+
+    def init(self, seed: int = 0, *, dtype=torch.float32, device=None):
+        """Random weights drawn on ``device`` (``None`` = the CUDA device)
+        from ``seed``; the same in every process."""
+        return init_tree(self.param_specs(), seed, dtype=dtype, device=resolve_device(device))
+
+    def param_count(self) -> int:
+        total = []
+        map_specs(lambda _p, s: total.append(math.prod(s.shape)), self.param_specs())
+        return int(sum(total))
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params, batch: Dict):
+        return T.forward(params, self.cfg, batch, backend=self.backend)
+
+    # -- serving --------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        return T.init_cache(self.cfg, batch, max_len, dtype, device)
+
+    def prefill(self, params, batch: Dict, cache: Dict):
+        return T.prefill(params, self.cfg, batch, cache, backend=self.backend)
+
+    def decode_step(self, params, cache: Dict, tokens: torch.Tensor, index):
+        return T.decode_step(params, self.cfg, cache, tokens, index, backend=self.backend)
+
+
+def carry_params(tree: Any, cfg: ModelConfig, device=None) -> Dict:
+    """The reference's parameter tree, as numpy arrays (``jax.tree.map(
+    np.asarray, params)``), as the port's: the same names, shapes and stacked
+    layer axis, on ``device`` (``None`` = the CUDA device). Raises when a
+    name or a shape differs from the port's specs."""
+    dev = resolve_device(device)
+
+    def leaf(path: str, spec: Spec) -> torch.Tensor:
+        node = tree
+        for key in path.split("/"):
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"the carried tree has no parameter {path!r}")
+            node = node[key]
+        arr = np.asarray(node)
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"{path}: carried shape {arr.shape} != spec {tuple(spec.shape)}")
+        return torch.tensor(arr, device=dev)   # a copy: the source may be read-only
+
+    out = map_specs(leaf, Model(cfg).param_specs())
+    extra = _paths(tree) - _paths(out)
+    if extra:
+        raise KeyError(f"the carried tree has parameters the port does not: {sorted(extra)}")
+    return out
+
+
+def _paths(tree: Any, prefix: str = "") -> set:
+    if not isinstance(tree, dict):
+        return {prefix}
+    return set().union(*(_paths(v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()))

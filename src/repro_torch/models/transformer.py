@@ -1,0 +1,195 @@
+"""Transformer assembly for the dense family: embed, a loop over the stacked
+layers, final norm, unembed.
+
+The port of ``repro.models.transformer`` for ``dense`` (pre-norm
+[attention, MLP] blocks, RoPE, causal). The reference's ``lax.scan`` over
+the stacked parameters is a Python loop over the leading layer axis here;
+remat is a training matter and is not ported. The other families (moe,
+ssm, hybrid, encdec, vlm) raise, naming their ROADMAP item.
+
+Every function takes ``backend`` (``auto`` | ``cuda`` | ``torch``) and hands
+it to ``attention.apply_attention``: on a CUDA tensor ``auto`` runs the
+prefill and forward attention through kernel K4.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import UNPORTED, ModelConfig
+from repro_torch.models.attention import apply_attention, attention_params, init_attn_cache
+from repro_torch.models.layers import (
+    Spec,
+    apply_mlp,
+    apply_norm,
+    mlp_params,
+    norm_params,
+    stack_specs,
+    torch_dtype,
+)
+
+__all__ = [
+    "model_param_specs",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_cache",
+    "embed_tokens",
+    "unembed",
+    "check_family",
+]
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet, naming its ROADMAP item."""
+    if cfg.family == "dense":
+        return
+    if cfg.family in UNPORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP {UNPORTED[cfg.family]}")
+    raise ValueError(f"{cfg.name!r} is family {cfg.family!r}, not a language model")
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    table = params["embed"]["embedding"].to(dtype)
+    return table[tokens.long()]
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["embed"]["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer specs
+# ---------------------------------------------------------------------------
+
+def _attn_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": norm_params(cfg),
+        "attn": attention_params(cfg),
+        "ln2": norm_params(cfg),
+        "ffn": mlp_params(cfg),
+    }
+
+
+def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    check_family(cfg)
+    return {
+        "embed": {
+            "embedding": Spec((cfg.vocab_size, cfg.d_model), ("table_vocab", "embed_td"), "normal"),
+            "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
+        },
+        "layers": stack_specs(_attn_layer_specs(cfg), cfg.num_layers),
+        "final_norm": norm_params(cfg),
+    }
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a tree of tensors stacked on the leading axis (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _apply_attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, cache=None,
+                      index=None, backend="auto"):
+    h, new_cache = apply_attention(
+        lp["attn"], cfg, apply_norm(lp["ln1"], cfg, x), positions,
+        causal=causal, cache=cache, cache_index=index, backend=backend,
+    )
+    x = x + h
+    x = x + apply_mlp(lp["ffn"], cfg, apply_norm(lp["ln2"], cfg, x))
+    return x, new_cache
+
+
+def _scan_decoder(params, cfg: ModelConfig, x, positions, backend="auto"):
+    """The main layer stack without a cache (the reference's ``lax.scan``)."""
+    for i in range(cfg.num_layers):
+        x, _ = _apply_attn_block(_layer(params["layers"], i), cfg, x, positions, causal=True,
+                                 backend=backend)
+    return x
+
+
+def _prepare_inputs(params, cfg: ModelConfig, batch: Dict, dtype):
+    """tokens -> (x, positions); positions default to arange(S) in every row."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens, dtype)
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    return x, positions
+
+
+def forward(params, cfg: ModelConfig, batch: Dict, *,
+            backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Full (prefill-style) forward. Returns (logits, aux_losses); a dense
+    model has no auxiliary losses."""
+    check_family(cfg)
+    x, positions = _prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
+    x = _scan_decoder(params, cfg, x, positions, backend)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return unembed(params, cfg, x), {}
+
+
+# ---------------------------------------------------------------------------
+# KV-cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> Dict:
+    """``{"layers": {"k", "v"}}`` zeros with a leading layer axis, on
+    ``device`` (``None`` = the CUDA device)."""
+    check_family(cfg)
+    one = init_attn_cache(cfg, batch, max_len, dtype, device)
+    return {"layers": {name: torch.zeros((cfg.num_layers,) + a.shape, dtype=a.dtype,
+                                         device=a.device)
+                       for name, a in one.items()}}
+
+
+def _cached_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, backend):
+    for i in range(cfg.num_layers):
+        x, _ = _apply_attn_block(_layer(params["layers"], i), cfg, x, positions, causal=True,
+                                 cache=_layer(cache["layers"], i), index=index,
+                                 backend=backend)
+    return x
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict, *,
+            backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Process a prompt, filling the cache (in place) from position 0, or at
+    ``batch["cache_positions"]`` per token. Returns (last-position logits,
+    cache)."""
+    check_family(cfg)
+    x, positions = _prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
+    # Engine path: per-token cache destinations (pad tokens -> trash slot).
+    index = batch.get("cache_positions", 0)
+    x = _cached_stack(params, cfg, x, positions, cache, index, backend)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return unembed(params, cfg, x[:, -1:, :]), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, index, *,
+                backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """One token for every sequence. tokens: (B, 1); index: a scalar
+    position or (B,) per-slot positions. Writes the cache in place."""
+    check_family(cfg)
+    x = embed_tokens(params, cfg, tokens, torch_dtype(cfg.dtype))
+    b = tokens.shape[0]
+    index = torch.as_tensor(index, device=x.device)
+    if index.ndim == 0:
+        positions = torch.full((b, 1), int(index), dtype=torch.int32, device=x.device)
+    else:                      # per-slot positions (continuous batching)
+        positions = index.to(torch.int32)[:, None]
+    x = _cached_stack(params, cfg, x, positions, cache, index, backend)
+    x = apply_norm(params["final_norm"], cfg, x)
+    return unembed(params, cfg, x), cache

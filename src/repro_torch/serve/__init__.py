@@ -1,4 +1,6 @@
-"""Serving: the streaming engine and its degradation ladder."""
+"""Serving: the LM engine (continuous batching), the streaming engine and
+its degradation ladder."""
+from repro_torch.serve.engine import Engine, Request  # noqa: F401
 from repro_torch.serve.guard import (  # noqa: F401
     GuardPolicy,
     Health,

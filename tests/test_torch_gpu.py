@@ -1,4 +1,5 @@
-"""K1, K2 and K3 on the card: the CUDA kernels against their plain PyTorch versions.
+"""K1-K4 on the card: the CUDA kernels against their plain PyTorch versions,
+and the LM engine's K4 lane against its plain lane.
 
 These tests need a CUDA device and ``nvcc`` (the kernel is built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they skip.
@@ -401,3 +402,100 @@ def test_tuned_tile_too_big_for_nms_serves_every_call(cuda_device, tmp_path, mon
     want, _ = edge_detect_stream(x, cfg.replace(backend="torch"))
     assert state.block == ekern.default_block_shape(256, 512, 5)
     assert torch.equal(out.edges, want.edges)
+
+
+# ---------------------------------------------------------------------------
+# K4 (flash attention) and the LM path
+# ---------------------------------------------------------------------------
+
+def _qkv(shape, dtype, device, seed=12):
+    b, h, s, t, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(n, generator=g).to(dtype=dtype, device=device)
+                 for n in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 16, 16, 8), (2, 2, 8, 24, 8), (1, 4, 65, 65, 64),
+                                   (1, 2, 129, 129, 128), (1, 32, 200, 200, 64),
+                                   (2, 2, 7, 7, 4)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_cuda_equals_plain(cuda_device, shape, dtype, causal):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _qkv(shape, dtype, cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=shape[2], block_kv=shape[3])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:   # both round an f32 result once: one bf16 ulp of the output, plus
+        # the f32 tolerance where the output's ulp is below it (near 0)
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert bool(((got.float() - w).abs() <= ulp + 2e-5).all())
+
+
+def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _qkv((1, 2, 8, 8, 8), torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    big = torch.zeros(1, 1, 8, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="must divide"):
+        flash_attention(q, k, v, block_q=3)
+
+
+def test_lm_engine_k4_lane_equals_plain_lane(cuda_device):
+    """The smoke llama through the Engine on the card, K4 lane and plain
+    lane, on the same weights: the same tokens, K4 launched once per layer
+    per prefill, and prefill logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(0)
+    prompts = [[5, 9, 2, 7], [11, 3], list(range(1, 13)), [42], [13, 14, 15], list(range(30))]
+    outs, launches = {}, {}
+    for backend in ("auto", "torch"):
+        eng = Engine(cfg, params, max_batch=3, max_len=64, prompt_buckets=(8, 16, 32),
+                     backend=backend)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        before = flash_attention.launches
+        outs[backend] = {r.uid: r.output for r in eng.run()}
+        launches[backend] = flash_attention.launches - before
+    assert launches == {"auto": cfg.num_layers * 5, "torch": 0}   # [42] has no context
+    assert outs["auto"] == outs["torch"]
+    tokens = torch.tensor([list(range(1, 30))], device=cuda_device)
+    logits = {b: Model(cfg, backend=b).prefill(
+        params, {"tokens": tokens}, Model(cfg).init_cache(1, 32, dtype=torch.float32))[0]
+        for b in ("auto", "torch")}
+    torch.testing.assert_close(logits["auto"], logits["torch"], rtol=1e-4, atol=1e-4)
+
+
+def test_lm_prefill_on_card_refuses_index_mismatch(cuda_device):
+    """K4 masks by index: a causal prefill whose positions are not
+    arange(S) raises on the card instead of taking the plain lane."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    model = Model(cfg)
+    params = model.init(0)
+    tokens = torch.zeros(1, 6, dtype=torch.int32, device=cuda_device)
+    positions = torch.arange(6, device=cuda_device, dtype=torch.int32)[None] + 2
+    with pytest.raises(ValueError, match="arange"):
+        model.forward(params, {"tokens": tokens, "positions": positions})
+    with pytest.raises(ValueError, match="softcap"):
+        Model(cfg.replace(attn_logit_softcap=30.0)).forward(params, {"tokens": tokens})

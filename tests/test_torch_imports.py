@@ -38,7 +38,11 @@ def test_importing_the_port_leaves_jax_out():
         "import sys; import repro_torch.api, repro_torch.launch.serve, "
         "repro_torch.kernels.build, repro_torch.configs.sobel_hd, repro_torch.core.nms, "
         "repro_torch.serve.streams, repro_torch.serve.guard, repro_torch.runtime, "
-        "repro_torch.data.synthetic, repro_torch.core.ladder, repro_torch.kernels.tuning; "
+        "repro_torch.data.synthetic, repro_torch.core.ladder, repro_torch.kernels.tuning, "
+        "repro_torch.kernels.flash_attention, repro_torch.models, repro_torch.models.layers, "
+        "repro_torch.models.attention, repro_torch.models.transformer, "
+        "repro_torch.serve.engine, repro_torch.configs.llama3_2_1b, "
+        "repro_torch.configs.olmo_1b, repro_torch.configs.glm4_9b; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -1,0 +1,76 @@
+"""The port's continuous-batching ``Engine`` gives the reference ``Engine``'s
+tokens on the same weights (carried by ``carry_params``), in the three
+cases of ``tests/test_engine.py``: continuous batching, EOS, and more
+requests than slots."""
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.models import Model as RefModel
+from repro.serve import Engine as RefEngine
+from repro.serve import Request as RefRequest
+from repro_torch.configs import get_config
+from repro_torch.models import carry_params
+from repro_torch.serve import Engine, Request
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rcfg = ref_get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    rparams = RefModel(rcfg).init(jax.random.key(0))
+    return cfg, carry_params(jax.tree.map(np.asarray, rparams), cfg, device="cpu"), rcfg, rparams
+
+
+def _serve(engine_cls, request_cls, cfg, params, reqs, **kw):
+    eng = engine_cls(cfg, params, **kw)
+    for uid, prompt, n_new, eos in reqs:
+        eng.submit(request_cls(uid=uid, prompt=prompt, max_new_tokens=n_new, eos_id=eos))
+    done = eng.run()
+    return {r.uid: r.output for r in done}, [r.uid for r in done]
+
+
+def _both(setup, reqs, **kw):
+    cfg, params, rcfg, rparams = setup
+    got, order = _serve(Engine, Request, cfg, params, reqs, device="cpu", **kw)
+    want, ref_order = _serve(RefEngine, RefRequest, rcfg, rparams, reqs, **kw)
+    assert order == ref_order    # the same finishing order
+    assert got == want
+    return got
+
+
+def test_continuous_batching_matches_reference(setup):
+    prompts = [[5, 9, 2, 7], [11, 3], list(range(1, 13)), [42], [13, 14, 15]]
+    got = _both(setup, [(i, p, 5, None) for i, p in enumerate(prompts)],
+                max_batch=3, max_len=256, prompt_buckets=(8, 16, 32))
+    assert sorted(got) == list(range(len(prompts))) and all(len(o) == 5 for o in got.values())
+
+
+def test_eos_stops_early_as_reference(setup):
+    cfg, params = setup[:2]
+    free, _ = _serve(Engine, Request, cfg, params, [(0, [5, 9, 2, 7], 8, None)], device="cpu",
+                     max_batch=2, max_len=128, prompt_buckets=(8,))
+    eos = free[0][2]
+    got = _both(setup, [(0, [5, 9, 2, 7], 8, eos)], max_batch=2, max_len=128,
+                prompt_buckets=(8,))
+    assert got[0] == free[0][:free[0].index(eos) + 1]
+
+
+def test_more_requests_than_slots_match_reference(setup):
+    got = _both(setup, [(i, [i + 1, i + 2], 3, None) for i in range(6)],
+                max_batch=2, max_len=128, prompt_buckets=(8,))
+    assert sorted(got) == list(range(6))
+
+
+def test_max_len_stop_and_timings(setup):
+    """A slot stops at position max_len - 1 (the trash slot is never
+    attended); prefill and decode steps are timed."""
+    cfg, params = setup[:2]
+    eng = Engine(cfg, params, max_batch=2, max_len=16, prompt_buckets=(8, 16), device="cpu")
+    eng.submit(Request(uid=0, prompt=list(range(1, 10)), max_new_tokens=50))
+    done = eng.run()
+    assert len(done[0].output) == 16 - 1 - 8
+    assert len(eng.prefill_ms) == 1 and len(eng.decode_ms) == len(done[0].output)
+    _both(setup, [(0, list(range(1, 10)), 50, None)], max_batch=2, max_len=16,
+          prompt_buckets=(8, 16))

@@ -135,3 +135,36 @@ def test_serve_cli_streams_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "stream 1: 3 frames" in proc.stdout and "frames/s aggregate" in proc.stdout
     assert "unaccounted=0" in proc.stdout and "backend=torch" in proc.stdout
+
+
+def test_lm_server_on_cpu():
+    """``--arch llama3.2-1b --smoke --device cpu``: the reference's prompts
+    through the port's engine, every request served to ``--max-new``."""
+    stats = serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                        "--requests", "6", "--slots", "3", "--max-new", "4"])
+    assert len(stats["requests"]) == 6 and stats["tokens"] == 6 * 4
+    assert all(len(r.output) == 4 and r.done for r in stats["requests"])
+    rng = np.random.default_rng(0)     # the reference server's prompts
+    prompts = []
+    for _ in range(6):
+        plen = int(rng.integers(2, 24))
+        prompts.append(rng.integers(0, 256, plen).tolist())
+    assert sorted(r.prompt for r in stats["requests"]) == sorted(prompts)
+    assert stats["prefills"] == 6 and stats["decode_steps"] >= 8
+    assert stats["prefill_p50_ms"] > 0 and stats["decode_p50_ms"] > 0 and stats["tok_s"] > 0
+    assert stats["k4_launches"] == 0          # the CPU runs the plain lane
+    assert stats["param_count"] == 102_720
+
+
+def test_lm_server_cli_and_unported_archs():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b", "--smoke",
+         "--device", "cpu", "--requests", "2", "--max-new", "2"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "tok/s; prefill p50=" in proc.stdout and "K4 launches 0" in proc.stdout
+    for argv, msg in ((["--arch", "falcon-mamba-7b"], "K5"),
+                      (["--arch", "llama3.2-1b", "--smoke", "--streams", "2"], "--streams")):
+        with pytest.raises(SystemExit, match=msg):
+            serve.main(argv + ["--device", "cpu"])
