@@ -5,7 +5,8 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 1. Prints the card's name and power limit, the torch/CUDA versions, and
    builds every kernel under ``src/repro_torch/kernels/csrc`` (K1
    ``edge.cu``, K2 ``edge_pipelined.cu``, K3 ``edge_stream.cu``, K4
-   ``flash_attention.cu``: one ``nvcc`` per source, all started together),
+   ``flash_attention.cu``, K5 ``selective_scan.cu``: one ``nvcc`` per
+   source, all started together),
    printing each source's compile seconds. Every phase prints its seconds.
 2. Holds K1 (``edge_cuda``) bit-equal (``torch.equal``) to its plain PyTorch
    version (``edge_plain``) on the card: magnitude, components and per-tile
@@ -85,7 +86,12 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    medians at (1, 32, 2048, 64) causal f32 and at the LM server's prefill
    shapes (1, 32, S in 8/16/32/64, 64), beside its plain version, its bound
    (``flash_bound``) and ``F.scaled_dot_product_attention(is_causal=True)``
-   as the yardstick (used nowhere in the port).
+   as the yardstick (used nowhere in the port). K5 joins it: CUDA-event
+   medians at (1, 2048, 8192, 16) and at the ssm server's prefill shapes
+   (1, L in 8/16/32/64, 8192, 16), f32, beside its plain version and its
+   bound (``scan_bound``: bytes, f32 operations and the SFU's exponentials,
+   each term printed); no PyTorch call computes a selective scan, so it
+   has no yardstick.
 6. Holds K4 (``flash_attention``) to ``flash_attention_plain`` on the card,
    f32 and bf16, causal and not, on the reference test's four shapes,
    ragged lengths 1-200 at head dims 64 and 128, the server's prefill shapes
@@ -102,14 +108,39 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    One engine prefill round and one decode step run under the profiler.
 7b. ``Model.prefill`` at FULL width on prompts of 2,048 and 1,000 tokens:
    16 K4 launches each, logits within ``LOGIT_TOL`` of the plain lane.
+   The llama weights are freed after it.
+8. Holds K5 (``selective_scan``) to ``selective_scan_plain`` on the card,
+   both outputs (y and the final state), f32 and bf16: the reference
+   test's shapes and blocks, ragged d_inner (24, 200) x N (1, 4, 16) x L
+   (1, 7, 2048), the ssm server's prefill shapes (1, L, 8192, 16) for L =
+   8/16/32/64, and (1, 2048, 8192, 16). f32 within 3e-5 (abs + rel, the
+   reference test's); bf16 y within one ulp plus 3e-5, its f32 state
+   within 3e-5.
+9. The ssm slice's main path: first the port's server with ``--arch
+   falcon-mamba-7b`` must refuse the reference server's random prompt
+   lengths in the reference's words. Then ``repro_torch.serve.Engine`` on
+   FULL falcon-mamba-7b in f32 (7,272,665,088 parameters drawn on the card
+   from seed 0), 4 slots, 16 requests of 16 new tokens, contexts of bucket
+   length (8/16/32/64, ``default_rng(0)``) plus one last token, with the
+   counts set to 0 just before and read just after: K5 must launch 64
+   layers x 16 prefills = 1,024 times and K1-K4 never. A replay on the
+   plain lane on the same weights: prefill logits within ``LOGIT_TOL``,
+   tokens equal except where the plain lane's top-2 gap is below it (the
+   count is printed). One prefill round and one decode step run under the
+   profiler, with K5's share of the device time.
+9b. ``Model.prefill`` at FULL falcon-mamba-7b on 2,048 and 1,000 tokens
+   (``_pick_chunk(1000, 16)`` = 10): 64 K5 launches each, logits within
+   ``LOGIT_TOL`` and the cache's ``h`` and ``conv`` within ``STATE_TOL``
+   of the plain lane, with both lanes' seconds.
 
-Phases 6-7b run after 4d, then phase 5. The last line is
+Phases 6-9b run after 4d, then phase 5. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
@@ -321,15 +352,17 @@ def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bo
                                     directions) <= SMEM_MAX]
 
 
-COUNTS = ("k1", "k1_int", "k2", "k2_int", "k3", "k4")
+COUNTS = ("k1", "k1_int", "k2", "k2_int", "k3", "k4", "k5")
 
 
 def reset_counts():
     """Every kernel's launch counts to 0 (before a main-path run)."""
     from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
 
-    for fn in (edge_cuda, edge_pipelined_cuda, edge_stream_cuda, flash_attention):
+    for fn in (edge_cuda, edge_pipelined_cuda, edge_stream_cuda, flash_attention,
+               selective_scan):
         fn.launches = 0
     edge_cuda.int_launches = edge_pipelined_cuda.int_launches = 0
 
@@ -337,10 +370,12 @@ def reset_counts():
 def read_counts() -> dict:
     from repro_torch.kernels.edge import edge_cuda, edge_pipelined_cuda, edge_stream_cuda
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
 
     return dict(k1=edge_cuda.launches, k1_int=edge_cuda.int_launches,
                 k2=edge_pipelined_cuda.launches, k2_int=edge_pipelined_cuda.int_launches,
-                k3=edge_stream_cuda.launches, k4=flash_attention.launches)
+                k3=edge_stream_cuda.launches, k4=flash_attention.launches,
+                k5=selective_scan.launches)
 
 
 def tile_pixels(h: int, w: int, bh: int, bw: int) -> np.ndarray:
@@ -1373,6 +1408,316 @@ def phase_k4_timing(dev, lm, long_launches, main_err):
     }
 
 
+# --- K5 (selective scan) and the ssm server -----------------------------------
+
+# Phase 8's cases, (B, L, d_inner, N), (chunk, block_d): the reference test's
+# shape and blocks (tests/test_kernels.py), ragged d_inner x N x L, the ssm
+# server's prefill shapes (falcon-mamba-7b: d_inner 8192, N 16, buckets
+# 8-64) and a 2,048-token prompt at the model's chunk (_pick_chunk(2048, 16)).
+# Each runs f32 and bf16.
+K5_CASES = (
+    [((2, 32, 16, 4), blocks) for blocks in ((8, 8), (16, 4), (32, 16))]
+    + [((2, l, di, n), (l, di)) for di in (24, 200) for n in (1, 4, 16) for l in (1, 7, 2048)]
+    + [((1, l, 8192, 16), (l, 8192)) for l in (8, 16, 32, 64)]
+    + [((1, 2048, 8192, 16), (16, 8192))]
+)
+K5_TOL = 3e-5            # f32: tests/test_kernels.py's atol and rtol
+# The cache's final state and conv tail, K5 lane against the plain lane at
+# FULL falcon-mamba-7b, abs + rel: rounding differences of the scan's y
+# (~1e-7) carried through up to 63 earlier layers of f32 products.
+STATE_TOL = 1e-3
+SSM_ARCH = "falcon-mamba-7b"
+SSM_BUCKETS = (8, 16, 32, 64)
+SSM_REQUESTS, SSM_SLOTS, SSM_NEW = 16, 4, 16
+SSM_PARAMS = 7_272_665_088       # the reference's Model.param_count() at FULL
+SFU_PER_S = 16 * 132 * 1.98e9    # exp: 16 special-function results a clock per SM, 132 SMs
+
+
+def scan_inputs(shape, dtype, dev, seed):
+    """The reference test's distributions: x, B, C ~ N(0, 1), dt = |N(0, 0.1)|,
+    A = -|N(1, 0.3)| (f32)."""
+    bsz, l, di, n = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(bsz, l, di, generator=g, device=dev)
+    dt = (torch.randn(bsz, l, di, generator=g, device=dev) * 0.1).abs()
+    bm = torch.randn(bsz, l, n, generator=g, device=dev)
+    cm = torch.randn(bsz, l, n, generator=g, device=dev)
+    a = -(1 + 0.3 * torch.randn(di, n, generator=g, device=dev)).abs()
+    return [t.to(dtype) for t in (x, dt, bm, cm)] + [a]
+
+
+def within(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    return bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+
+
+def phase_k5_vs_plain(dev):
+    """Phase 8: K5 against selective_scan_plain on the card, y and the final
+    state. Returns the worst f32 error of y at (1, 2048, 8192, 16)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    cases = bad = 0
+    worst_f32, worst_h, worst_ulps, worst_bf16, main_err = 0.0, 0.0, 0.0, 0.0, None
+    for i, (shape, (chunk, block_d)) in enumerate(K5_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(shape, dtype, dev, seed=i)
+            y, h = selective_scan(*args, chunk=chunk, block_d=block_d)
+            wy, wh = selective_scan_plain(*args)
+            dy = (y.float() - wy.float()).abs()
+            worst_h = max(worst_h, float((h - wh).abs().max()))
+            ok = within(h, wh, K5_TOL) and y.dtype == dtype and h.shape == wh.shape
+            cases += 1
+            if dtype == torch.float32:
+                ok = ok and within(y, wy, K5_TOL)
+                worst_f32 = max(worst_f32, float(dy.max()))
+                if shape == (1, 2048, 8192, 16):
+                    main_err = float(dy.max())
+            else:
+                # Each side rounds an f32 y once: one bf16 ulp, plus the f32
+                # tolerance where the output's ulp is below it.
+                ulp = bf16_ulp(wy)
+                ok = ok and bool((dy <= ulp + K5_TOL).all())
+                worst_ulps = max(worst_ulps, float((dy / ulp).max()))
+                worst_bf16 = max(worst_bf16, float(dy.max()))
+            if not (ok and bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())):
+                bad += 1
+                print(f"  MISMATCH K5 {shape} {dtype} blocks ({chunk}, {block_d}): max abs err "
+                      f"y {float(dy.max())}, h {float((h - wh).abs().max())}")
+    torch.cuda.synchronize()
+    print(f"K5 vs plain: {cases} cases, {bad} outside tolerance; worst f32 abs err of y "
+          f"{worst_f32:.3g} (tolerance {K5_TOL} abs + rel); of the final state {worst_h:.3g}; "
+          f"worst bf16 abs err {worst_bf16:.3g}, {worst_ulps:.3g} ulp of the output "
+          f"(tolerance 1 ulp + {K5_TOL})")
+    check(bad == 0, f"K5 differs from selective_scan_plain in {bad} of {cases} cases")
+    return main_err
+
+
+def ssm_prompts(vocab: int, n: int):
+    """Phase 9's prompts: a context of a bucket's length (drawn by
+    default_rng(0)), tokens uniform in the vocab, plus one last token."""
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(n):
+        ctx = int(rng.choice(SSM_BUCKETS))
+        prompts.append(rng.integers(0, vocab, ctx + 1).tolist())
+    return prompts
+
+
+def phase_ssm_server(dev):
+    """Phase 9, the ssm slice's main path: the port's server refuses the
+    reference server's prompts for falcon-mamba-7b, as the reference's does;
+    then the Engine serves FULL falcon-mamba-7b (f32) on bucket-length
+    prompts, counts set to 0 just before and read just after, and a replay
+    on the plain lane on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refusal = None
+    try:
+        serve.main(["--arch", SSM_ARCH, "--requests", str(SSM_REQUESTS), "--slots",
+                    str(SSM_SLOTS), "--max-new", str(SSM_NEW)])
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and refusal.startswith("ssm engine needs bucket-length prompts; "
+                                                     "got "),
+          f"the port's server did not refuse the reference's prompts for {SSM_ARCH}: {refusal}")
+    print(f"ssm server refuses the reference server's prompts: {refusal}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(SSM_ARCH).replace(dtype="float32")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"{cfg.name} FULL: {n_params:,} params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+          f"allocated")
+    check(n_params == SSM_PARAMS, f"{cfg.name} has {n_params:,} params, not {SSM_PARAMS:,}")
+    prompts = ssm_prompts(cfg.vocab_size, SSM_REQUESTS)
+    eng = Engine(cfg, params, max_batch=SSM_SLOTS, max_len=256, prompt_buckets=SSM_BUCKETS)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SSM_NEW))
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["k5"] == cfg.num_layers * SSM_REQUESTS,
+          f"the ssm engine launched K5 {counts['k5']} times, not {cfg.num_layers} x "
+          f"{SSM_REQUESTS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k5"), f"the ssm engine launched {counts}")
+    done = sorted(done, key=lambda r: r.uid)
+    check(len(done) == SSM_REQUESTS and all(len(r.output) == SSM_NEW for r in done),
+          "the ssm engine did not serve every request to its max_new_tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    check([r.prompt for r in done] == prompts, "the engine's prompts are not the replay's")
+    toks = sum(len(r.output) for r in done)
+    stats = dict(tokens=toks, seconds=wall, tok_s=toks / wall, prefills=len(eng.prefill_ms),
+                 decode_steps=len(eng.decode_ms),
+                 prefill_p50_ms=statistics.median(eng.prefill_ms),
+                 decode_p50_ms=statistics.median(eng.decode_ms), param_count=n_params)
+    print(f"ssm engine {cfg.name}: {toks / wall:.1f} tok/s ({toks} tokens in {wall:.3f} s); "
+          f"prefill p50 {stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}, contexts of "
+          f"{sorted(set(len(p) - 1 for p in prompts))} tokens); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K5 launches "
+          f"{counts['k5']}")
+
+    # Every prompt's prefill on both lanes.
+    worst = 0.0
+    for prompt in prompts:
+        tokens = torch.tensor([prompt[:-1]], dtype=torch.int32, device=dev)
+        lane = {}
+        for backend in ("auto", "torch"):
+            cache = model.init_cache(1, 0, dtype=torch.float32, device=dev)
+            lane[backend], _ = Model(cfg, backend=backend).prefill(params, {"tokens": tokens},
+                                                                   cache)
+        check(bool(torch.isfinite(lane["auto"]).all()), "non-finite prefill logits")
+        worst = max(worst, float((lane["auto"] - lane["torch"]).abs().max()))
+    check(worst <= LOGIT_TOL, f"ssm prefill logits differ by {worst} > {LOGIT_TOL}")
+
+    eng = Engine(cfg, params, max_batch=SSM_SLOTS, max_len=256, prompt_buckets=SSM_BUCKETS,
+                 backend="torch")
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SSM_NEW))
+    before = read_counts()["k5"]
+    plain = {r.uid: r.output for r in eng.run()}
+    check(read_counts()["k5"] == before, "the plain replay launched K5")
+    plain_model = Model(cfg, backend="torch")
+    ties = 0
+    for r in done:
+        want = plain[r.uid]
+        if r.output == want:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(r.output, want)) if a != b)
+        gap, below = plain_logits_gap(plain_model, params, r.prompt, r.output, step, dev)
+        check(gap < LOGIT_TOL and below < LOGIT_TOL,
+              f"request {r.uid} step {step}: token {r.output[step]} (plain {want[step]}) with "
+              f"the plain lane's top-2 gap {gap} and the token {below} below its top")
+        ties += 1
+    print(f"  plain-lane replay on the card: prefill logits within {worst:.3g} (tolerance "
+          f"{LOGIT_TOL}); tokens equal in {SSM_REQUESTS - ties} of {SSM_REQUESTS} requests, "
+          f"{ties} near ties (top-2 gap < {LOGIT_TOL})")
+
+    # Where a prefill and a decode step go: four prompts admitted into a
+    # fresh engine (four prefills), then one decode step of its four slots.
+    eng = Engine(cfg, params, max_batch=SSM_SLOTS, max_len=256, prompt_buckets=SSM_BUCKETS)
+    for uid, prompt in enumerate(prompts[:SSM_SLOTS]):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=SSM_NEW))
+    _, _, k5_us = device_profile("four ssm engine prefills (K5 lane)", eng._admit, top=8,
+                                 kernel="selective_scan_kernel")
+    eng._decode_once()
+    device_profile("one ssm engine decode step, 4 slots", eng._decode_once, top=8)
+    return dict(stats, k5=counts["k5"], logit_err=worst, near_ties=ties, k5_profile_us=k5_us,
+                params=params)
+
+
+def phase_ssm_long_prefill(dev, params):
+    """Phase 9b: Model.prefill at FULL falcon-mamba-7b on one prompt of
+    2,048 tokens and one of 1,000, K5 lane against the plain lane: logits,
+    and the cache's state and conv tail."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.ssm import _pick_chunk
+
+    cfg = get_config(SSM_ARCH).replace(dtype="float32")
+    rng = np.random.default_rng(7)
+    launches = 0
+    for n in (2048, 1000):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+        lane, caches, secs = {}, {}, {}
+        for backend in ("auto", "torch"):
+            cache = Model(cfg).init_cache(1, 0, dtype=torch.float32, device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            lane[backend], caches[backend] = Model(cfg, backend=backend).prefill(
+                params, {"tokens": tokens}, cache)
+            torch.cuda.synchronize()
+            secs[backend] = time.perf_counter() - t0
+            k5 = read_counts()["k5"]
+            check(k5 == (cfg.num_layers if backend == "auto" else 0),
+                  f"prefill of {n} tokens ({backend}) launched K5 {k5} times")
+            launches += k5
+        err = float((lane["auto"] - lane["torch"]).abs().max())
+        check(bool(torch.isfinite(lane["auto"]).all()), f"non-finite logits at {n} tokens")
+        check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
+        state_err = {}
+        for name in ("h", "conv"):
+            got, want = caches["auto"]["layers"][name], caches["torch"]["layers"][name]
+            state_err[name] = float((got - want).abs().max())
+            check(within(got, want, STATE_TOL),
+                  f"prefill of {n} tokens: cache {name} differs by {state_err[name]} (tolerance "
+                  f"{STATE_TOL} abs + rel)")
+        print(f"ssm long prefill {n} tokens (chunk {_pick_chunk(n, cfg.ssm_chunk)}), all "
+              f"{cfg.num_layers} layers: K5 lane within {err:.3g} of the plain lane (tolerance "
+              f"{LOGIT_TOL}); cache h within {state_err['h']:.3g}, conv within "
+              f"{state_err['conv']:.3g} (tolerance {STATE_TOL} abs + rel); K5 launches "
+              f"{cfg.num_layers}; K5 lane {secs['auto']:.2f} s, plain lane {secs['torch']:.2f} s")
+    return launches
+
+
+def scan_bound(shape, elt: int):
+    """K5's least time: x, dt and y (``elt`` bytes), B and C (``elt``), A
+    and the final state (f32) moved once at 3.35 TB/s; about 6 f32
+    operations a (t, d, n) (dt*A, h*da, dt*x, *B, +, h*C) at 33.5 T/s; one
+    exp a (t, d, n) on the SFUs at 16 a clock per SM (4.18 T/s)."""
+    bsz, l, di, n = shape
+    elems = bsz * l * di * n
+    t_bytes = ((3 * bsz * l * di + 2 * bsz * l * n) * elt + (di * n + bsz * di * n) * 4
+               ) / HBM_BYTES_PER_S
+    t_ops = 6 * elems / F32_OPS_PER_S
+    t_sfu = elems / SFU_PER_S
+    worst = max(t_bytes, t_ops, t_sfu)
+    return (worst * 1e3, "bytes" if worst == t_bytes else "operations", t_bytes * 1e3,
+            t_ops * 1e3, t_sfu * 1e3)
+
+
+def phase_k5_timing(dev, ssm, long_launches, main_err):
+    """Phase 5 (K5): CUDA-event medians of K5 and its plain version, f32, at
+    (1, 2048, 8192, 16) and the ssm server's prefill shapes. No PyTorch
+    call computes a selective scan: no library yardstick."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    rows = {}
+    for l in (2048, 8, 16, 32, 64):
+        shape = (1, l, 8192, 16)
+        args = scan_inputs(shape, torch.float32, dev, seed=l)
+        y, _ = selective_scan(*args, chunk=l, block_d=8192)
+        wy, _ = selective_scan_plain(*args)
+        b_ms, b_by, t_bytes, t_ops, t_sfu = scan_bound(shape, 4)
+        row = dict(ms=median_ms(lambda: selective_scan(*args, chunk=l, block_d=8192)),
+                   plain_ms=median_ms(lambda: selective_scan_plain(*args)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes,
+                   ops_ms=t_ops, sfu_ms=t_sfu, max_abs_err=float((y - wy).abs().max()),
+                   shape=list(shape))
+        rows[f"1x{l}x8192x16"] = row
+        print(f"K5 at (1, {l}, 8192, 16) f32: {row['ms']:.4f} ms; plain {row['plain_ms']:.4f} "
+              f"ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, f32 ops "
+              f"{t_ops:.4f} ms, SFU exp {t_sfu:.4f} ms); no library call")
+    main = rows["1x2048x8192x16"]
+    return {
+        "name": "K5 selective_scan (Mamba-1 forward scan)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:39",
+        "launches": ssm["k5"],
+        "max_abs_err": main_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shapes": rows,
+        "launches_long_prefill": long_launches,
+        "server": {k: ssm[k] for k in ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens",
+                                       "prefills", "decode_steps", "param_count", "logit_err",
+                                       "near_ties", "k5_profile_us")},
+    }
+
+
 def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches,
                  full_inputs, main_counts, tuned):
     """Phase 5: K1, K1 out_nms, K2 (each fitting depth), the integer lane
@@ -1621,9 +1966,20 @@ def main() -> None:
     k4_err = timed("6 K4 vs plain", phase_k4_vs_plain, dev)
     lm = timed("7 LM server", phase_lm_server, dev)
     long_launches = timed("7b long prefill", phase_long_prefill, dev, lm.pop("params"))
+    gc.collect()                 # the llama weights go before falcon-mamba's 29 GB
+    torch.cuda.empty_cache()
+    t_ssm = time.perf_counter()
+    k5_err = timed("8 K5 vs plain", phase_k5_vs_plain, dev)
+    ssm = timed("9 ssm server", phase_ssm_server, dev)
+    ssm_long_launches = timed("9b ssm long prefill", phase_ssm_long_prefill, dev,
+                              ssm.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[phases 8-9b: {time.perf_counter() - t_ssm:.1f}s]")
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
+    kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

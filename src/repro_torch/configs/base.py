@@ -1,9 +1,9 @@
 """Config schema and registry: the fields of ``repro.configs.base`` that the
-port runs, the image pipeline's and the dense LM's, with the reference's
-names and defaults.
+port runs, the image pipeline's, the dense LM's and the SSM's, with the
+reference's names and defaults.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests. The MoE, SSM, hybrid,
+form and a ``smoke`` reduction for CPU tests. The MoE, hybrid,
 encoder-decoder and frontend fields, and ``ShapeConfig``, are not ported
 yet (ROADMAP queue 1 item 13).
 """
@@ -19,7 +19,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_archs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | image (the other LM families are not ported yet)
+    family: str                      # dense | ssm | image (the other LM families are not ported yet)
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -29,7 +29,7 @@ class ModelConfig:
     vocab_size: int = 0
 
     # --- attention ---
-    attn_type: str = "gqa"           # gqa (mla is not ported yet)
+    attn_type: str = "gqa"           # gqa | none (mla is not ported yet)
     rope_theta: float = 10_000.0
     use_rope: bool = True
     qk_norm: bool = False
@@ -39,6 +39,16 @@ class ModelConfig:
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm | layernorm_np
     mlp_type: str = "swiglu"         # swiglu | gelu
     norm_eps: float = 1e-5
+
+    # --- SSM (Mamba-1; mamba2 is not ported yet) ---
+    ssm_type: str = "none"           # none | mamba1
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64           # mamba2
+    ssm_dt_rank: int = 0             # mamba1 (0 -> ceil(d_model/16))
+    ssm_chunk: int = 128             # scan chunk length (a shape gate of kernel K5)
+    ssm_scan_dtype: str = "float32"  # the reference's assoc-scan element dtype; the port scans in f32
 
     # --- image pipeline (sobel-hd: the paper's own workload) ---
     image_h: int = 0
@@ -71,10 +81,17 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     remat_policy: str = "minimal"    # training only; the configs set it
+    sub_quadratic: bool = False      # True for SSM/hybrid: long_500k runnable
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.ssm_type == "mamba1" and self.ssm_dt_rank == 0:
+            object.__setattr__(self, "ssm_dt_rank", -(-self.d_model // 16))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -83,6 +100,7 @@ class ModelConfig:
 _REGISTRY: Dict[str, tuple] = {}
 
 ARCH_IDS = (
+    "falcon-mamba-7b",
     "glm4-9b",
     "olmo-1b",
     "llama3.2-1b",
@@ -90,6 +108,7 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "glm4-9b": "glm4_9b",
     "olmo-1b": "olmo_1b",
     "llama3.2-1b": "llama3_2_1b",
@@ -100,7 +119,6 @@ _MODULES = {
 # What the port does not run yet -> its ROADMAP item, and the reference's
 # archs that need it.
 UNPORTED = {
-    "ssm": "queue 1 item 13: falcon-mamba-7b serving with kernel K5",
     "moe": "queue 1 item 13: MoE (models/moe.py)",
     "mla": "queue 1 item 13: MLA (minicpm3-4b)",
     "hybrid": "queue 1 item 13: the hybrid's mamba2 and shared attention",
@@ -108,7 +126,6 @@ UNPORTED = {
     "vlm": "queue 1 item 13: encoder-decoder and VLM frontends",
 }
 _UNPORTED_ARCHS = {
-    "falcon-mamba-7b": "ssm",
     "qwen3-moe-30b-a3b": "moe",
     "phi3.5-moe-42b-a6.6b": "moe",
     "minicpm3-4b": "mla",

@@ -1,0 +1,161 @@
+"""K5, the Mamba-1 selective scan: its CUDA wrapper and its plain PyTorch version.
+
+:func:`selective_scan` launches ``csrc/selective_scan.cu``, the Hopper port
+of ``repro/kernels/selective_scan.py::_kernel``: over x, dt ``(B, L,
+d_inner)``, B, C ``(B, L, N)`` and A ``(d_inner, N)``, from h = 0,
+
+    h <- exp(dt * A) * h + (dt * x) * B,    y_t = sum_n C_t * h
+
+in f32, y in x's dtype. It returns ``(y, h_last)``: the reference returns y
+only and keeps the final state in its VMEM scratch, but the port's prefill
+needs that state for the decode cache (``models/ssm.py``), so the kernel
+writes it, ``(B, d_inner, N)`` in f32.
+
+It keeps the reference's signature and its shape rule: ``chunk`` is clipped
+to L and must divide it, and so ``block_d`` and d_inner; a call the
+reference refuses (an ``AssertionError`` there) raises ``ValueError`` here.
+They only gate the call: each CUDA block loops over all of L itself and
+masks its ragged channel range, so ``chunk=L, block_d=d_inner`` serves any
+shape.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes
+:func:`selective_scan_plain`. ``backend="torch"`` names the plain version
+on any device (the counterpart of the reference's ``interpret=True``), for
+checking the kernel on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.dispatch import resolve_backend
+
+__all__ = ["selective_scan", "selective_scan_plain", "NMAX"]
+
+NMAX = 32                # largest state size N csrc/selective_scan.cu instantiates
+PLAIN_CHUNK = 256        # time steps whose decay and input terms the plain version holds at once
+_DTYPES = (torch.float32, torch.bfloat16)   # what the kernel takes
+_GRID_Y = 65535          # CUDA's limit on grid y (batch)
+
+
+def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+                         c_mat: torch.Tensor, a: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K5 computes, in PyTorch on any device: the sequential
+    recurrence over L, vectorized over (B, d_inner, N), every input cast
+    to f32, ``h * exp(dt * A) + (dt * x) * B`` rounded as two operations,
+    ``y_t = sum_n C_t * h``. Returns ``(y in x's dtype, h_last (B,
+    d_inner, N) f32)``."""
+    bsz, l, di = x.shape
+    n = b_mat.shape[-1]
+    af = a.float()
+    h = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, l, PLAIN_CHUNK):
+        sl = slice(t0, min(t0 + PLAIN_CHUNK, l))
+        dtc = dt[:, sl].float()
+        da = torch.exp(dtc[..., None] * af)                                 # (B, q, di, N)
+        bx = (dtc * x[:, sl].float())[..., None] * b_mat[:, sl, None, :].float()
+        hs = torch.empty_like(da)
+        for s in range(da.shape[1]):
+            h = h * da[:, s] + bx[:, s]
+            hs[:, s] = h
+        ys.append((hs * c_mat[:, sl, None, :].float()).sum(-1))
+    return torch.cat(ys, 1).to(x.dtype), h
+
+
+def _check(x, dt, b_mat, c_mat, a, chunk: int, block_d: int):
+    if x.ndim != 3 or dt.shape != x.shape:
+        raise ValueError(f"selective_scan takes (B, L, d_inner) x and dt; got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}")
+    bsz, l, di = x.shape
+    if b_mat.ndim != 3 or tuple(b_mat.shape[:2]) != (bsz, l) or c_mat.shape != b_mat.shape:
+        raise ValueError(f"B and C must be (B, L, N) = ({bsz}, {l}, N); got "
+                         f"{tuple(b_mat.shape)}, {tuple(c_mat.shape)}")
+    n = b_mat.shape[-1]
+    if tuple(a.shape) != (di, n):
+        raise ValueError(f"A must be (d_inner, N) = ({di}, {n}); got {tuple(a.shape)}")
+    if not all(t.is_floating_point() for t in (x, dt, b_mat, c_mat, a)):
+        raise TypeError("selective_scan takes floating-point x, dt, B, C and A")
+    if min(bsz, l, di, n) == 0:
+        raise ValueError(f"empty scan: x {tuple(x.shape)}, B {tuple(b_mat.shape)}")
+    chunk, block_d = min(chunk, l), min(block_d, di)
+    if chunk <= 0 or block_d <= 0 or l % chunk or di % block_d:
+        raise ValueError(f"chunk={chunk} must divide L={l} and block_d={block_d} must divide "
+                         f"d_inner={di}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The loaded library of ``csrc/selective_scan.cu``, its entry point typed."""
+    from repro_torch.kernels import build
+
+    lib = build.load("selective_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_selective_scan_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.repro_selective_scan_launch.restype = i
+    lib.repro_selective_scan_max_state.argtypes = []
+    lib.repro_selective_scan_max_state.restype = i
+    lib.repro_error_string.argtypes, lib.repro_error_string.restype = [i], ctypes.c_char_p
+    if lib.repro_selective_scan_max_state() != NMAX:
+        raise RuntimeError("csrc/selective_scan.cu and kernels/selective_scan.py disagree on NMAX")
+    return lib
+
+
+def _launch(x, dt, b_mat, c_mat, a) -> Tuple[torch.Tensor, torch.Tensor]:
+    bsz, l, di = x.shape
+    n = b_mat.shape[-1]
+    if any(t.device != x.device for t in (dt, b_mat, c_mat, a)):
+        raise ValueError("selective_scan takes x, dt, B, C and A on one device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b_mat, c_mat)):
+        raise TypeError(f"the K5 kernel takes x, dt, B, C all float32 or all bfloat16, got "
+                        f"{x.dtype}, {dt.dtype}, {b_mat.dtype}, {c_mat.dtype}")
+    if n > NMAX:
+        raise ValueError(f"state size N={n} exceeds the {NMAX} the K5 kernel instantiates")
+    if bsz > _GRID_Y:
+        raise ValueError(f"B={bsz} exceeds the CUDA grid limit {_GRID_Y}")
+    x, dt, b_mat, c_mat = (t.contiguous() for t in (x, dt, b_mat, c_mat))
+    a32 = a.to(torch.float32).contiguous()    # the kernel reads A in f32, as the reference casts it
+    y = torch.empty_like(x)
+    h_last = torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_selective_scan_launch(
+            x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), a32.data_ptr(),
+            y.data_ptr(), h_last.data_ptr(), bsz, l, di, n, int(x.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        text = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"selective_scan kernel launch failed: {text} (cudaError {err})")
+    selective_scan.launches += 1
+    return y, h_last
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor, *, chunk: int = 256,
+                   block_d: int = 512, backend: str = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 forward scan over x, dt ``(B, L, d_inner)`` (post-conv
+    input and softplus'd steps), B, C ``(B, L, N)`` and A ``(d_inner, N)``:
+    K5 on a CUDA tensor, :func:`selective_scan_plain` on a CPU one. Returns
+    ``(y (B, L, d_inner) in x's dtype, h_last (B, d_inner, N) f32)``.
+
+    ``backend``: ``auto`` (by x's device), ``cuda`` (the kernel; raises for
+    a CPU tensor) or ``torch`` (the plain version on any device). The
+    kernel takes x, dt, B, C all f32 or all bf16 and N up to :data:`NMAX`
+    (A of any float type, read in f32); it launches on PyTorch's current
+    stream and does not synchronise. Raises for a call the reference
+    refuses, an input the kernel does not take, or a launch the device
+    refuses. ``selective_scan.launches`` counts the kernel's launches.
+    """
+    _check(x, dt, b_mat, c_mat, a, chunk, block_d)
+    if resolve_backend(backend, x.device) == "torch":
+        return selective_scan_plain(x, dt, b_mat, c_mat, a)
+    return _launch(x, dt, b_mat, c_mat, a)
+
+
+selective_scan.launches = 0

@@ -1,16 +1,20 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-LM mode (``--arch llama3.2-1b`` and the other dense configs): the port of
-``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
+LM mode (``--arch llama3.2-1b``, the other dense configs and
+``falcon-mamba-7b``): the port of ``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
 device, in f32 (the reference's server forces ``dtype="float32"``); the
 continuous-batching :class:`~repro_torch.serve.Engine` with ``--slots``
 slots, ``--max-len`` positions and prompt buckets 8/16/32/64 serves
 ``--requests`` prompts of the reference's (``default_rng(0)``, lengths 2-23,
 uniform token ids), ``--max-new`` tokens each, greedy. Prefill attention
-runs kernel K4 on the card; TF32 products are switched off. Prints tokens
-per second over the whole run, the prefill and decode-step p50 (host
-clock, each ended by a device synchronise) and K4's launches. The first
-prefill pays the kernel's build when it is not built yet.
+runs kernel K4 on the card, an ssm model's prefill scan kernel K5; TF32
+products are switched off. Prints tokens per second over the whole run,
+the prefill and decode-step p50 (host clock, each ended by a device
+synchronise) and K4's and K5's launches. The first prefill pays the
+kernel's build when it is not built yet. An ssm model refuses those
+prompts as the reference's server does: its engine takes only contexts of
+a bucket's exact length, and the first prompt that is not raises
+``ValueError`` with the reference's message.
 
 Image mode: one request is one batch of ``--slots`` synthetic frames
 (``data.synthetic.image_batch``) through :func:`repro_torch.api.edge_detect`
@@ -219,6 +223,7 @@ def serve_lm(cfg, args) -> dict:
     numbers it printed, the finished requests and the weights."""
     from repro_torch.kernels.dispatch import resolve_device
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.models import Model
     from repro_torch.serve import Engine, Request
 
@@ -237,7 +242,7 @@ def serve_lm(cfg, args) -> dict:
         plen = int(rng.integers(2, 24))
         engine.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, plen).tolist(),
                               max_new_tokens=args.max_new))
-    k4_before = flash_attention.launches
+    k4_before, k5_before = flash_attention.launches, selective_scan.launches
     t0 = time.perf_counter()
     done = engine.run()
     dt = time.perf_counter() - t0
@@ -252,13 +257,14 @@ def serve_lm(cfg, args) -> dict:
         "prefill_p50_ms": _percentile(engine.prefill_ms, 50) if engine.prefill_ms else 0.0,
         "decode_p50_ms": _percentile(engine.decode_ms, 50) if engine.decode_ms else 0.0,
         "k4_launches": flash_attention.launches - k4_before,
+        "k5_launches": selective_scan.launches - k5_before,
         "param_count": n_params,
         "params": params,
     }
     print(f"{len(done)} requests, {toks} tokens, {dt:.2f}s -> {stats['tok_s']:.1f} tok/s; "
           f"prefill p50={stats['prefill_p50_ms']:.2f}ms ({stats['prefills']} prefills); "
           f"decode step p50={stats['decode_p50_ms']:.2f}ms ({stats['decode_steps']} steps); "
-          f"K4 launches {stats['k4_launches']}")
+          f"K4 launches {stats['k4_launches']}, K5 launches {stats['k5_launches']}")
     return stats
 
 

@@ -46,7 +46,7 @@ __all__ = [
 class Spec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"        # fan_in | normal | zeros | ones
+    init: str = "fan_in"        # fan_in | normal | zeros | ones | mamba1_alog | dt_bias
     scale: float = 1.0
 
 
@@ -73,13 +73,25 @@ def _init_leaf(spec: Spec, gen: torch.Generator, dtype, device) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init == "mamba1_alog":
+        # A = -exp(A_log); A_log[d, n] = log(1..N)
+        n = shape[-1]
+        row = torch.log(torch.arange(1, n + 1, dtype=dtype, device=device))
+        return row.expand(shape).contiguous()
+    if spec.init == "dt_bias":
+        # softplus(dt_bias) ~ uniform in [1e-3, 1e-1] (mamba init)
+        u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))
     if spec.init == "normal":
         std = spec.scale * 0.02
     elif spec.init == "fan_in":
         std = spec.scale / math.sqrt(max(1, shape[0]))
     else:
         raise ValueError(f"unknown init {spec.init!r}")
-    return torch.randn(shape, generator=gen, dtype=dtype, device=device) * std
+    # Scaled in place: a full-size leaf (falcon-mamba-7b's stacked in_proj is
+    # 17.2 GB in f32) is drawn once, with no second copy for the product.
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device).mul_(std)
 
 
 def init_tree(specs: Any, seed: int = 0, *, dtype=torch.float32,

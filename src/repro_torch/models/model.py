@@ -1,5 +1,6 @@
 """Public model API: init / forward / cache / prefill / decode for the dense
-family, and :func:`carry_params`, which takes the reference's weights.
+and ssm families, and :func:`carry_params`, which takes the reference's
+weights.
 
 The port of ``repro.models.model.Model`` without the training half
 (``loss_fn``, ``cross_entropy``, ``cast_params``: ROADMAP queue 1 item 13).
@@ -26,9 +27,10 @@ __all__ = ["Model", "carry_params"]
 class Model:
     """Thin functional wrapper binding a ModelConfig to the layer stack.
 
-    ``backend`` picks the attention lane of every call: ``auto`` (kernel K4
-    for CUDA tensors, the plain version for CPU ones), ``cuda`` or
-    ``torch`` (the plain version on any device).
+    ``backend`` picks the kernel lane of every call: ``auto`` (kernel K4
+    for a dense model's attention and K5 for an ssm model's scan on CUDA
+    tensors, their plain versions on CPU ones), ``cuda`` or ``torch`` (the
+    plain versions on any device).
     """
 
     def __init__(self, cfg: ModelConfig, *, backend: str = "auto"):

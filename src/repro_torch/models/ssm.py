@@ -1,0 +1,157 @@
+"""State-space models: Mamba-1, with kernel K5 for the prefill's scan.
+
+The port of the Mamba-1 half of ``repro.models.ssm`` (Mamba-2 waits for the
+hybrid family, ROADMAP queue 1 item 13). The reference computes the
+prefill's scan with an outer ``lax.scan`` over chunks carrying the
+``(B, d_inner, N)`` state and a parallel associative scan inside each
+chunk; the port runs the same recurrence through
+:func:`repro_torch.kernels.selective_scan.selective_scan`: K5 on a CUDA
+tensor (one launch a layer), its plain sequential version on a CPU one or
+with ``backend="torch"``. K5 also returns the final state, which the
+decode cache needs (the reference takes it from its scan's carry).
+
+Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
+``h`` (f32) and the depthwise conv's tail.
+
+The reference's ``ssm_scan_dtype="bfloat16"`` (bf16 associative-scan
+elements, a TPU memory-traffic option) has no counterpart: the port's scan
+keeps its elements in f32, and a config that asks for bf16 raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.layers import Spec
+
+__all__ = [
+    "mamba1_params",
+    "apply_mamba1",
+    "mamba1_decode",
+    "init_mamba1_cache",
+]
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over time. x: (B, L, C), w: (C, K), b: (C,).
+
+    If ``tail`` (B, K-1, C) is given (decode), it is prepended instead of
+    zero-padding. Returns the output and the new tail, the last K-1 rows
+    of the (padded) input.
+    """
+    k = w.shape[1]
+    if tail is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    out = None
+    l = x.shape[1]
+    for t in range(k):
+        term = xp[:, t:t + l, :] * w[:, t]
+        out = term if out is None else out + term
+    out = out + b
+    new_tail = xp[:, -(k - 1):, :] if k > 1 else None
+    return out, new_tail
+
+
+def _pick_chunk(l: int, target: int) -> int:
+    """Largest divisor of ``l`` that is <= target (falls back to 1)."""
+    q = min(target, l)
+    while l % q != 0:
+        q -= 1
+    return max(q, 1)
+
+
+def mamba1_params(cfg: ModelConfig) -> Dict[str, Spec]:
+    d, di, n, r, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
+    return {
+        "in_proj": Spec((d, 2 * di), ("embed", "ssm_inner")),
+        "conv_w": Spec((di, k), ("ssm_inner", None), "normal"),
+        "conv_b": Spec((di,), ("ssm_inner",), "zeros"),
+        "x_proj": Spec((di, r + 2 * n), ("ssm_inner", None)),
+        "dt_w": Spec((r, di), (None, "ssm_inner")),
+        "dt_b": Spec((di,), ("ssm_inner",), "dt_bias"),
+        "a_log": Spec((di, n), ("ssm_inner", None), "mamba1_alog"),
+        "d_skip": Spec((di,), ("ssm_inner",), "ones"),
+        "out_proj": Spec((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _mamba1_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
+    """(xc, z, dt, A, B, C, new conv tail, the conv's raw input) of one
+    Mamba-1 block on x (B, L, d_model); dt, A, B and C in f32."""
+    dtype = x.dtype
+    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    xz = x @ params["in_proj"].to(dtype)
+    xin, z = xz[..., :di], xz[..., di:]
+    xin_raw = xin
+    xc, new_tail = _causal_conv(xin, params["conv_w"].to(dtype), params["conv_b"].to(dtype),
+                                conv_tail)
+    xc = F.silu(xc)
+    proj = xc @ params["x_proj"].to(dtype)
+    dt_raw, b_mat, c_mat = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    dt = F.softplus(dt_raw @ params["dt_w"].to(dtype) + params["dt_b"].to(dtype)).float()
+    a = -torch.exp(params["a_log"].float())                 # (di, n)
+    return xc, z, dt, a, b_mat.float(), c_mat.float(), new_tail, xin_raw
+
+
+def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False,
+                 *, backend: str = "auto"):
+    """Prefill forward. x: (B, L, d_model). With ``return_cache``, also the
+    decode cache ``{"h": K5's final state, "conv": the last K-1 rows of the
+    conv's zero-padded input}`` (the reference's ``xin_raw[:, -(K-1):]``
+    wherever L >= K-1).
+
+    ``backend``: ``auto`` (K5 for a CUDA tensor, the plain scan for a CPU
+    one), ``cuda`` or ``torch`` (the plain scan on any device). K5's
+    ``chunk`` is the reference's scan chunk (``_pick_chunk(L,
+    ssm_chunk)``) and its ``block_d`` is d_inner: both divide, and both
+    only gate the kernel.
+    """
+    if cfg.ssm_scan_dtype != "float32":
+        raise NotImplementedError(
+            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port scans in f32 elements only")
+    l = x.shape[1]
+    dtype = x.dtype
+    xc, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba1_inputs(params, cfg, x)
+    xf = xc.float()
+    y, h_last = selective_scan(xf, dt, b_mat, c_mat, a, chunk=_pick_chunk(l, cfg.ssm_chunk),
+                               block_d=cfg.d_inner, backend=backend)
+    y = y + params["d_skip"].float() * xf
+    y = y.to(dtype) * F.silu(z)
+    out = y @ params["out_proj"].to(dtype)
+    if return_cache:
+        return out, {"h": h_last, "conv": new_tail}
+    return out
+
+
+def init_mamba1_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None) -> Dict:
+    """Zero state and conv tail for ``batch`` sequences, on ``device``
+    (``None`` = the CUDA device)."""
+    dev = resolve_device(device)
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=dev),
+    }
+
+
+def mamba1_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict):
+    """One token. x: (B, 1, d_model). One step of the recurrence, with the
+    plain scan's arithmetic; returns (out, new cache) and leaves ``cache``
+    as it was."""
+    dtype = x.dtype
+    xc, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba1_inputs(params, cfg, x, cache["conv"])
+    da = torch.exp(dt[:, 0, :, None] * a)                    # (B, di, n)
+    bx = (dt[:, 0] * xc[:, 0].float())[..., None] * b_mat[:, 0, None, :]
+    h = cache["h"] * da + bx
+    y = (h * c_mat[:, 0, None, :]).sum(-1)
+    y = y + params["d_skip"].float() * xc[:, 0].float()
+    y = y.to(dtype)[:, None, :] * F.silu(z)
+    out = y @ params["out_proj"].to(dtype)
+    return out, {"h": h, "conv": new_tail}

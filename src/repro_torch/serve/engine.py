@@ -1,6 +1,7 @@
 """Batched serving engine: continuous batching over a slotted KV cache.
 
-The port of ``repro.serve.engine`` (dense family), detail for detail:
+The port of ``repro.serve.engine`` (dense and ssm families), detail for
+detail:
   * ``max_batch`` slots share one batched cache of ``max_len + 1`` positions —
     the extra position is a *trash slot*: padded prompt tokens write their
     k/v there, so bucket-padded prefill never pollutes attention (the causal
@@ -15,8 +16,17 @@ The port of ``repro.serve.engine`` (dense family), detail for detail:
     finished slots are refilled from the queue without stalling the others
     (continuous batching).
 
-On the card the prefill's attention runs kernel K4 and the decode step is
-plain PyTorch (``models/attention.py``). ``device=None`` means the CUDA
+SSM families keep running state rather than positional caches, so padded
+prefill is unsound there: as the reference's, the engine takes an ssm
+prompt's context only at a bucket's exact length and raises
+``ValueError`` otherwise (the reference server's own random prompt lengths
+are refused so). A one-token prompt has no context and no prefill, so its
+slot keeps the state its last occupant and the idle decode steps left
+there, as the reference's does.
+
+On the card the prefill's attention runs kernel K4 (dense) and its scan
+kernel K5 (ssm); the decode step is plain PyTorch
+(``models/attention.py``, ``models/ssm.py``). ``device=None`` means the CUDA
 device; ``backend="torch"`` runs the plain lane on any device. Host-clock
 times of every prefill and decode step, each ended by a device synchronise,
 are kept in ``prefill_ms`` and ``decode_ms``.
@@ -82,6 +92,7 @@ class Engine:
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self._pending_token: Dict[int, int] = {}
+        self._needs_prefill_pad = cfg.family in ("dense", "moe", "vlm", "encdec")
         self.prefill_ms: List[float] = []
         self.decode_ms: List[float] = []
 
@@ -124,16 +135,24 @@ class Engine:
         if ctx:
             t0 = time.perf_counter()
             n = len(ctx)
-            b = _bucket(n, self.buckets)
-            toks = np.zeros((1, b), np.int32)
-            toks[0, :n] = ctx
-            pos = np.arange(b, dtype=np.int32)
-            cache_pos = np.where(pos < n, pos, self.trash)[None]
-            batch = {
-                "tokens": self._tensor(toks),
-                "positions": self._tensor(pos[None]),
-                "cache_positions": self._tensor(cache_pos),
-            }
+            if self._needs_prefill_pad:
+                b = _bucket(n, self.buckets)
+                toks = np.zeros((1, b), np.int32)
+                toks[0, :n] = ctx
+                pos = np.arange(b, dtype=np.int32)
+                cache_pos = np.where(pos < n, pos, self.trash)[None]
+                batch = {
+                    "tokens": self._tensor(toks),
+                    "positions": self._tensor(pos[None]),
+                    "cache_positions": self._tensor(cache_pos),
+                }
+            else:
+                if n not in self.buckets:
+                    raise ValueError(
+                        f"{self.cfg.family} engine needs bucket-length prompts; "
+                        f"got {n}, buckets={self.buckets}"
+                    )
+                batch = {"tokens": self._tensor(np.asarray(ctx, np.int32)[None])}
             small = {"layers": {name: torch.zeros((big.shape[0], 1) + big.shape[2:],
                                                   dtype=big.dtype, device=big.device)
                                 for name, big in self.cache["layers"].items()}}

@@ -1,5 +1,5 @@
-"""K1-K4 on the card: the CUDA kernels against their plain PyTorch versions,
-and the LM engine's K4 lane against its plain lane.
+"""K1-K5 on the card: the CUDA kernels against their plain PyTorch versions,
+and the LM engine's K4 and K5 lanes against its plain lane.
 
 These tests need a CUDA device and ``nvcc`` (the kernel is built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they skip.
@@ -499,3 +499,100 @@ def test_lm_prefill_on_card_refuses_index_mismatch(cuda_device):
         model.forward(params, {"tokens": tokens, "positions": positions})
     with pytest.raises(ValueError, match="softcap"):
         Model(cfg.replace(attn_logit_softcap=30.0)).forward(params, {"tokens": tokens})
+
+
+# ---------------------------------------------------------------------------
+# K5 (selective scan) and the ssm path
+# ---------------------------------------------------------------------------
+
+K5_TOL = 3e-5     # f32: tests/test_kernels.py::test_selective_scan_kernel
+
+
+def _scan_inputs(shape, dtype, device, seed=13):
+    """The reference test's distributions: x, B, C ~ N(0, 1), dt = |N(0, 0.1)|,
+    A = -|N(1, 0.3)|."""
+    bsz, l, di, n = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(bsz, l, di, generator=g)
+    dt = (torch.randn(bsz, l, di, generator=g) * 0.1).abs()
+    bm, cm = torch.randn(bsz, l, n, generator=g), torch.randn(bsz, l, n, generator=g)
+    a = -(1 + 0.3 * torch.randn(di, n, generator=g)).abs()
+    return [t.to(dtype=dtype, device=device) for t in (x, dt, bm, cm)] + [a.to(device)]
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 16, 4), (2, 7, 24, 1), (1, 1, 200, 4),
+                                   (2, 7, 200, 16), (1, 300, 24, 16), (3, 5, 5, 3),
+                                   (1, 33, 40, 32), (1, 64, 8192, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_cuda_equals_plain(cuda_device, shape, dtype):
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    args = _scan_inputs(shape, dtype, cuda_device)
+    before = selective_scan.launches
+    y, h = selective_scan(*args, chunk=shape[1], block_d=shape[2])
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32 and h.shape == (shape[0],) + shape[2:]
+    wy, wh = selective_scan_plain(*args)
+    torch.testing.assert_close(h, wh, rtol=K5_TOL, atol=K5_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, rtol=K5_TOL, atol=K5_TOL)
+    else:   # both round an f32 result once: one bf16 ulp, plus the f32 tolerance
+        w = wy.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert bool(((y.float() - w).abs() <= ulp + K5_TOL).all())
+
+
+def test_selective_scan_cuda_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    x, dt, bm, cm, a = _scan_inputs((1, 8, 16, 4), torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        selective_scan(x.half(), dt.half(), bm.half(), cm.half(), a)
+    with pytest.raises(TypeError):
+        selective_scan(x, dt.bfloat16(), bm, cm, a)
+    big = _scan_inputs((1, 8, 16, 33), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        selective_scan(*big)
+    with pytest.raises(ValueError, match="must divide"):
+        selective_scan(x, dt, bm, cm, a, chunk=3)
+    with pytest.raises(ValueError, match="one device"):
+        selective_scan(x, dt, bm, cm, a.cpu())
+
+
+def test_ssm_engine_k5_lane_equals_plain_lane(cuda_device):
+    """The smoke falcon-mamba through the Engine on the card, K5 lane and
+    plain lane, on the same weights and bucket-length prompts: the same
+    tokens, K5 launched once per layer per prefill, and prefill logits and
+    caches within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("falcon-mamba-7b", smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n + 1).tolist() for n in (8, 16, 0, 32, 8, 16)]
+    outs, launches = {}, {}
+    for backend in ("auto", "torch"):
+        eng = Engine(cfg, params, max_batch=3, max_len=64, prompt_buckets=(8, 16, 32),
+                     backend=backend)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        before = selective_scan.launches
+        outs[backend] = {r.uid: r.output for r in eng.run()}
+        launches[backend] = selective_scan.launches - before
+    assert launches == {"auto": cfg.num_layers * 5, "torch": 0}   # one prompt has no context
+    assert outs["auto"] == outs["torch"]
+    tokens = torch.tensor([list(range(1, 30))], device=cuda_device)
+    got = {}
+    for b in ("auto", "torch"):
+        cache = Model(cfg).init_cache(1, 32, dtype=torch.float32)
+        got[b] = Model(cfg, backend=b).prefill(params, {"tokens": tokens}, cache)
+    torch.testing.assert_close(got["auto"][0], got["torch"][0], rtol=1e-4, atol=1e-4)
+    for name in ("h", "conv"):
+        torch.testing.assert_close(got["auto"][1]["layers"][name],
+                                   got["torch"][1]["layers"][name], rtol=1e-4, atol=1e-4)

@@ -42,7 +42,9 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.kernels.flash_attention, repro_torch.models, repro_torch.models.layers, "
         "repro_torch.models.attention, repro_torch.models.transformer, "
         "repro_torch.serve.engine, repro_torch.configs.llama3_2_1b, "
-        "repro_torch.configs.olmo_1b, repro_torch.configs.glm4_9b; "
+        "repro_torch.configs.olmo_1b, repro_torch.configs.glm4_9b, "
+        "repro_torch.kernels.selective_scan, repro_torch.models.ssm, "
+        "repro_torch.configs.falcon_mamba_7b; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

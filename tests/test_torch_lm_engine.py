@@ -1,7 +1,9 @@
 """The port's continuous-batching ``Engine`` gives the reference ``Engine``'s
 tokens on the same weights (carried by ``carry_params``), in the three
 cases of ``tests/test_engine.py``: continuous batching, EOS, and more
-requests than slots."""
+requests than slots; and, for falcon-mamba-7b's smoke config, on
+bucket-length prompts, with one-token prompts that keep a used slot's
+state and the reference's refusal of other lengths."""
 import jax
 import numpy as np
 import pytest
@@ -74,3 +76,56 @@ def test_max_len_stop_and_timings(setup):
     assert len(eng.prefill_ms) == 1 and len(eng.decode_ms) == len(done[0].output)
     _both(setup, [(0, list(range(1, 10)), 50, None)], max_batch=2, max_len=16,
           prompt_buckets=(8, 16))
+
+
+# ---------------------------------------------------------------------------
+# The ssm family: falcon-mamba-7b smoke, bucket-length prompts only
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def setup_ssm():
+    rcfg = ref_get_config("falcon-mamba-7b", smoke=True).replace(dtype="float32")
+    cfg = get_config("falcon-mamba-7b", smoke=True).replace(dtype="float32")
+    rparams = RefModel(rcfg).init(jax.random.key(0))
+    return cfg, carry_params(jax.tree.map(np.asarray, rparams), cfg, device="cpu"), rcfg, rparams
+
+
+def test_ssm_engine_matches_reference_with_more_requests_than_slots(setup_ssm):
+    """Contexts of exactly a bucket's length (the engine's contract for an
+    ssm model), six requests through two slots. Requests 3 and 4 have
+    one-token prompts, so no context: they are not prefilled and keep
+    their slots' old state (the previous occupant's, advanced by the idle
+    decode steps), in both packages alike."""
+    rng = np.random.default_rng(0)
+    lens = [8, 4, 8, 0, 0, 4]
+    prompts = [rng.integers(0, 256, n + 1).tolist() for n in lens]
+    got = _both(setup_ssm, [(i, p, 4 + i % 3, None) for i, p in enumerate(prompts)],
+                max_batch=2, max_len=64, prompt_buckets=(4, 8))
+    assert sorted(got) == list(range(6))
+    assert all(len(got[i]) == 4 + i % 3 for i in got)
+
+
+def test_ssm_engine_one_token_prompt_keeps_the_slots_state(setup_ssm):
+    """A one-token prompt in a used slot decodes from that slot's stale
+    state: its tokens differ from the same prompt in a fresh engine, and
+    equal the reference's in the same position."""
+    cfg, params = setup_ssm[:2]
+    reqs = [(0, list(range(1, 10)), 3, None), (1, [7], 5, None)]
+    got = _both(setup_ssm, reqs, max_batch=1, max_len=64, prompt_buckets=(8,))
+    fresh, _ = _serve(Engine, Request, cfg, params, [(1, [7], 5, None)], device="cpu",
+                      max_batch=1, max_len=64, prompt_buckets=(8,))
+    assert got[1] != fresh[1]
+
+
+def test_ssm_engine_refuses_non_bucket_prompts_as_reference(setup_ssm):
+    cfg, params, rcfg, rparams = setup_ssm
+    msgs = []
+    for engine_cls, request_cls, c, p, kw in ((Engine, Request, cfg, params, {"device": "cpu"}),
+                                             (RefEngine, RefRequest, rcfg, rparams, {})):
+        eng = engine_cls(c, p, max_batch=2, max_len=64, prompt_buckets=(8, 16, 32, 64), **kw)
+        eng.submit(request_cls(uid=0, prompt=list(range(1, 21)), max_new_tokens=2))
+        with pytest.raises(ValueError, match="needs bucket-length prompts") as err:
+            eng.run()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] == ("ssm engine needs bucket-length prompts; got 19, "
+                                  "buckets=(8, 16, 32, 64)")

@@ -1,9 +1,9 @@
-"""The port's dense model against ``repro.models.Model`` with the same
-weights (carried by ``carry_params``) at the smoke configs of every dense
-arch: forward logits, and prefill + token-by-token decode logits, at the
-reference's own tolerances (``tests/test_decode_consistency.py``: 3e-4 for
-prefill, 5e-4 for decode) or tighter; the configs and parameter counts
-equal the reference's."""
+"""The port's dense and ssm models against ``repro.models.Model`` with the
+same weights (carried by ``carry_params``) at the smoke configs of every
+dense arch and of falcon-mamba-7b: forward logits, and prefill +
+token-by-token decode logits, at the reference's own tolerances
+(``tests/test_decode_consistency.py``: 3e-4 for prefill, 5e-4 for decode)
+or tighter; the configs and parameter counts equal the reference's."""
 import dataclasses
 
 import jax
@@ -18,6 +18,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.models import Model, carry_params
 
 DENSE = ("llama3.2-1b", "olmo-1b", "glm4-9b")
+SSM = "falcon-mamba-7b"
 TOL_FORWARD = 1e-4     # f32, sums in another order over a 2-layer smoke model
 TOL_PREFILL = 3e-4     # tests/test_decode_consistency.py
 TOL_DECODE = 5e-4
@@ -38,7 +39,7 @@ def _tokens(cfg, shape, seed=2):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + (SSM,))
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_and_param_count_match_reference(arch, smoke):
     cfg, rcfg = get_config(arch, smoke=smoke), ref_get_config(arch, smoke=smoke)
@@ -119,8 +120,8 @@ def test_prefill_decode_matches_own_forward(carried):
 
 
 def test_unported_families_and_devices_raise():
-    with pytest.raises(NotImplementedError, match="K5"):
-        get_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        get_config("qwen3-moe-30b-a3b")
     cfg = get_config("llama3.2-1b", smoke=True)
     with pytest.raises(NotImplementedError, match="MoE"):
         Model(cfg.replace(family="moe"))
@@ -141,3 +142,76 @@ def test_init_is_deterministic_and_shaped():
                               RefModel(ref_get_config("llama3.2-1b", smoke=True)).abstract_params())
     assert jax.tree.map(lambda t: tuple(t.shape), a) == ref_shapes
     assert all(torch.equal(x, y) for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+
+
+# ---------------------------------------------------------------------------
+# The ssm family: falcon-mamba-7b
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def carried_ssm():
+    rcfg = ref_get_config(SSM, smoke=True).replace(dtype="float32")
+    cfg = get_config(SSM, smoke=True).replace(dtype="float32")
+    rmodel = RefModel(rcfg)
+    rparams = rmodel.init(jax.random.key(1))
+    params = carry_params(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    return cfg, Model(cfg), params, rcfg, rmodel, rparams
+
+
+def test_ssm_full_param_count():
+    cfg = get_config(SSM)
+    assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank) == (
+        64, 4096, 8192, 16, 256)
+    assert Model(cfg).param_count() == 7_272_665_088 == RefModel(ref_get_config(SSM)).param_count()
+
+
+def test_ssm_carry_and_forward_match_reference(carried_ssm):
+    cfg, model, params, _rcfg, rmodel, rparams = carried_ssm
+    assert params["layers"]["mamba"]["in_proj"].shape == (cfg.num_layers, cfg.d_model,
+                                                          2 * cfg.d_inner)
+    tokens = _tokens(cfg, (2, 12))
+    want, _ = rmodel.forward(rparams, {"tokens": jnp.asarray(tokens)})
+    got, aux = model.forward(params, {"tokens": torch.from_numpy(tokens)})
+    assert aux == {}
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL_FORWARD, atol=TOL_FORWARD)
+
+
+@pytest.mark.parametrize("plen", [3, 8])
+def test_ssm_prefill_and_decode_match_reference(carried_ssm, plen):
+    cfg, model, params, _rcfg, rmodel, rparams = carried_ssm
+    tot = 12
+    tokens = _tokens(cfg, (2, tot), seed=3)
+    rcache = rmodel.init_cache(2, 32, dtype=jnp.float32)
+    cache = model.init_cache(2, 32, dtype=torch.float32, device="cpu")
+    rl, rcache = rmodel.prefill(rparams, {"tokens": jnp.asarray(tokens[:, :plen])}, rcache)
+    lp, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[:, :plen])}, cache)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(rl), rtol=TOL_PREFILL, atol=TOL_PREFILL)
+    for i in range(plen, tot):
+        step = tokens[:, i:i + 1]
+        rd, rcache = rmodel.decode_step(rparams, rcache, jnp.asarray(step), jnp.int32(i))
+        ld, cache = model.decode_step(params, cache, torch.from_numpy(step), i)
+        np.testing.assert_allclose(ld.numpy(), np.asarray(rd), rtol=TOL_DECODE, atol=TOL_DECODE)
+    for n in ("h", "conv"):
+        np.testing.assert_allclose(cache["layers"][n].numpy(), np.asarray(rcache["layers"][n]),
+                                   rtol=TOL_DECODE, atol=TOL_DECODE)
+
+
+def test_ssm_prefill_decode_matches_own_forward(carried_ssm):
+    """The ssm serving path reproduces the full forward; the decode step
+    ignores its index (an ssm model keeps no positions)."""
+    cfg, model, params = carried_ssm[:3]
+    tot, plen = 12, 8
+    tokens = torch.from_numpy(_tokens(cfg, (2, tot), seed=4))
+    full, _ = model.forward(params, {"tokens": tokens})
+    cache = model.init_cache(2, 32, dtype=torch.float32, device="cpu")
+    other = model.init_cache(2, 32, dtype=torch.float32, device="cpu")
+    lp, cache = model.prefill(params, {"tokens": tokens[:, :plen]}, cache)
+    model.prefill(params, {"tokens": tokens[:, :plen]}, other)
+    np.testing.assert_allclose(lp[:, 0].numpy(), full[:, plen - 1].numpy(),
+                               rtol=TOL_PREFILL, atol=TOL_PREFILL)
+    for i in range(plen, tot):
+        ld, cache = model.decode_step(params, cache, tokens[:, i:i + 1], i)
+        lo, other = model.decode_step(params, other, tokens[:, i:i + 1], torch.tensor([0, 99]))
+        np.testing.assert_allclose(ld[:, 0].numpy(), full[:, i].numpy(),
+                                   rtol=TOL_DECODE, atol=TOL_DECODE)
+        assert torch.equal(lo, ld)

@@ -164,7 +164,26 @@ def test_lm_server_cli_and_unported_archs():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "tok/s; prefill p50=" in proc.stdout and "K4 launches 0" in proc.stdout
-    for argv, msg in ((["--arch", "falcon-mamba-7b"], "K5"),
+    for argv, msg in ((["--arch", "qwen3-moe-30b-a3b"], "MoE"),
                       (["--arch", "llama3.2-1b", "--smoke", "--streams", "2"], "--streams")):
         with pytest.raises(SystemExit, match=msg):
             serve.main(argv + ["--device", "cpu"])
+
+
+def test_ssm_server_refuses_the_reference_servers_prompts():
+    """``--arch falcon-mamba-7b --smoke --device cpu``: the ssm engine takes
+    contexts of a bucket's exact length only, so the reference server's
+    random prompt lengths are refused, in the reference's words, by the
+    port's server as by the reference's."""
+    import argparse
+
+    from repro.launch.serve import serve_lm as ref_serve_lm
+
+    with pytest.raises(ValueError, match="needs bucket-length prompts") as err:
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu"])
+    args = argparse.Namespace(requests=16, slots=4, max_new=16, max_len=256)
+    with pytest.raises(ValueError) as ref_err:
+        ref_serve_lm(ref_get_config("falcon-mamba-7b", smoke=True).replace(dtype="float32"),
+                     args)
+    assert str(err.value) == str(ref_err.value) == (
+        "ssm engine needs bucket-length prompts; got 19, buckets=(8, 16, 32, 64)")
