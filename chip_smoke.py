@@ -14,7 +14,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    37x53 and 237x413 on gray u8, fractional gray f32, RGB u8 and
    fractional RGB f32, and for the default config at 2048x2048 f32 gray and
    1080x1920 RGB u8. The operators are the five built-ins and a 9x9
-   separable one, the largest size the kernel takes.
+   separable one, the largest size the kernel takes. Where the wrapper
+   picks K1's compile-time instance (the default sobel5, v2, 2 or 4
+   directions) the run-time-taps instance (``instance="runtime"``) is held
+   to the same outputs too; so in phases 2b, 2c and 2e.
 2b. Holds K1's NMS outputs (``out_nms``: thin map, centre components,
    un-thinned magnitude, per-tile max) bit-equal to ``edge_plain`` for
    sizes 3/5/7/9, 2 and 4 directions, every padding, gray u8/f32 and RGB
@@ -74,8 +77,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    (``WEAK_LOW``/``WEAK_HIGH``): must equal the torch lane and take as many
    dilation steps; prints the steps and the linking loop's time.
 5. Times K1, K1 with ``out_nms``, K2 at every depth that fits at
-   4x2048x2048 f32 and u8, the integer lane of K1 and K2 at 4x2048x2048 u8,
-   and K3 (at 0%, the motion run's share and 100% of tiles changed) with
+   4x2048x2048 f32 and u8, the integer lane of K1 and K2 at 4x2048x2048 u8
+   (K1's beside its f32 lane on the same frames, timed again after it),
+   and K3 (at 0%, the motion run's share and 100% of tiles changed), K1
+   and K3 on both instances, with
    CUDA events, beside their plain versions and their bounds on the card
    (the NMS lane's operations counted on the pixels each mask needs,
    ``nms_lane_ops``; the integer lane's ladder at the card's INT32 rate,
@@ -84,9 +89,12 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    and is used nowhere in the port; no single PyTorch call computes the
    NMS lane or K3), and prints one JSON line of them. K4 joins it: CUDA-event
    medians at (1, 32, 2048, 64) causal f32 and at the LM server's prefill
-   shapes (1, 32, S in 8/16/32/64, 64), beside its plain version, its bound
-   (``flash_bound``) and ``F.scaled_dot_product_attention(is_causal=True)``
-   as the yardstick (used nowhere in the port). K5 joins it: CUDA-event
+   shapes (1, 32, S in 8/16/32/64, 64), in turns with
+   ``F.scaled_dot_product_attention(is_causal=True)`` (the yardstick, used
+   nowhere in the port; library, kernel, kernel, library), beside its plain
+   version and its bound (``flash_bound``: the 3xTF32 products at the
+   dense TF32 rate, the SFU's exponentials and the bytes, each printed, and
+   the SIMT bound of the kernel it replaced). K5 joins it: CUDA-event
    medians at (1, 2048, 8192, 16) and at the ssm server's prefill shapes
    (1, L in 8/16/32/64, 8192, 16), f32, beside its plain version and its
    bound (``scan_bound``: bytes, f32 operations and the SFU's exponentials,
@@ -159,6 +167,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 33.5e12      # 67 TFLOP/s f32 counts an FMA as 2; --fmad=false runs 1 op per instruction
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet)
 SIZES = ((1, 1), (2, 3), (37, 53), (237, 413))
 NMS_SIZES = ((1, 1), (2, 3), (37, 53), (70, 270))
 KINDS = ("u8", "f32", "rgb", "rgb_f32")
@@ -483,14 +492,16 @@ def phase_kernel_vs_plain(rng, dev):
                                           rgb=kind.startswith("rgb"),
                                           out_components=out_components,
                                           with_max=True)
-                                a, am = edge_cuda(x, **kw)
                                 b, bm = edge_plain(x, **kw)
-                                cases += 1
-                                if not (torch.equal(a, b) and torch.equal(am, bm)):
-                                    mismatches += 1
-                                    print(f"  MISMATCH {shape} {op} {variant} {d} {padding} "
-                                          f"{kind} comps={out_components}: "
-                                          f"{int((a != b).sum())} px, {int((am != bm).sum())} maxima")
+                                for inst in instances(spec, variant, d):
+                                    a, am = edge_cuda(x, instance=inst, **kw)
+                                    cases += 1
+                                    if not (torch.equal(a, b) and torch.equal(am, bm)):
+                                        mismatches += 1
+                                        print(f"  MISMATCH {shape} {op} {variant} {d} {padding} "
+                                              f"{kind} comps={out_components} {inst}: "
+                                              f"{int((a != b).sum())} px, "
+                                              f"{int((am != bm).sum())} maxima")
     spec5 = get_operator("sobel5")
     full = {}
     for label, kind, shape in (("2048x2048 f32", "f32", (4, 2048, 2048)),
@@ -501,14 +512,15 @@ def phase_kernel_vs_plain(rng, dev):
                 kw = dict(spec=spec5, variant="v2", directions=4, padding="reflect",
                           block_h=block[0], block_w=block[1], rgb=kind == "rgb",
                           out_components=out_components, with_max=True)
-                a, am = edge_cuda(x, **kw)
                 b, bm = edge_plain(x, **kw)
-                cases += 1
-                err = float((a - b).abs().max())
-                if not (torch.equal(a, b) and torch.equal(am, bm)):
-                    mismatches += 1
-                    print(f"  MISMATCH {label} block={block} comps={out_components}: "
-                          f"{int((a != b).sum())} px, max abs err {err}")
+                for inst in ("auto", "runtime"):
+                    a, am = edge_cuda(x, instance=inst, **kw)
+                    cases += 1
+                    err = float((a - b).abs().max())
+                    if not (torch.equal(a, b) and torch.equal(am, bm)):
+                        mismatches += 1
+                        print(f"  MISMATCH {label} block={block} comps={out_components} {inst}: "
+                              f"{int((a != b).sum())} px, max abs err {err}")
                 if block == (64, 256) and not out_components:
                     full[label] = (x, kw, err)
         del a, am, b, bm
@@ -517,6 +529,15 @@ def phase_kernel_vs_plain(rng, dev):
           f"({time.perf_counter() - t0:.1f}s)")
     check(mismatches == 0, f"K1 differs from edge_plain in {mismatches} of {cases} cases")
     return full
+
+
+def instances(spec, variant: str, directions: int):
+    """K1's instances to hold against the plain version for this operator:
+    the compile-time one where the wrapper picks it, and the run-time-taps
+    one always."""
+    from repro_torch.kernels.edge import const_taps_instance
+
+    return ("auto", "runtime") if const_taps_instance(spec, variant, directions) else ("auto",)
 
 
 def _same(a, b) -> bool:
@@ -546,11 +567,13 @@ def phase_nms_vs_plain(rng, dev):
                                 kw = dict(spec=spec, variant=variant, directions=d,
                                           padding=padding, block_h=block[0], block_w=block[1],
                                           rgb=kind.startswith("rgb"), out_nms=True, **extra)
-                                cases += 1
-                                if not _same(edge_cuda(x, **kw), edge_plain(x, **kw)):
-                                    mismatches += 1
-                                    print(f"  MISMATCH nms {shape} {op} {d} {padding} {kind} "
-                                          f"block={block} {sorted(extra)}")
+                                want = edge_plain(x, **kw)
+                                for inst in instances(spec, variant, d):
+                                    cases += 1
+                                    if not _same(edge_cuda(x, instance=inst, **kw), want):
+                                        mismatches += 1
+                                        print(f"  MISMATCH nms {shape} {op} {d} {padding} {kind} "
+                                              f"block={block} {sorted(extra)} {inst}")
     torch.cuda.synchronize()
     print(f"K1 out_nms vs plain: {cases} cases, {mismatches} mismatches "
           f"({time.perf_counter() - t0:.1f}s)")
@@ -581,17 +604,19 @@ def phase_stream_vs_plain(rng, dev):
             kw = dict(spec=spec, variant="v2", directions=4, block_h=block[0],
                       block_w=block[1], rgb=kind == "rgb", out_nms=out_nms)
             for name, mask in masks.items():
-                a = edge_stream_cuda(x, prev, prev_max, mask, **kw)
                 b = edge_stream_plain(x, prev, prev_max, mask, **kw)
-                cases += 1
-                ok = _same(a, b)
-                if name == "1":
-                    ok = ok and _same(a, edge_cuda(x, with_max=True, **kw))
-                if name == "0":
-                    ok = ok and torch.equal(a[0], prev) and torch.equal(a[1], prev_max)
-                if not ok:
-                    mismatches += 1
-                    print(f"  MISMATCH K3 {kind} {shape} block={block} nms={out_nms} mask={name}")
+                for inst in ("auto", "runtime"):
+                    a = edge_stream_cuda(x, prev, prev_max, mask, instance=inst, **kw)
+                    cases += 1
+                    ok = _same(a, b)
+                    if name == "1":
+                        ok = ok and _same(a, edge_cuda(x, with_max=True, instance=inst, **kw))
+                    if name == "0":
+                        ok = ok and torch.equal(a[0], prev) and torch.equal(a[1], prev_max)
+                    if not ok:
+                        mismatches += 1
+                        print(f"  MISMATCH K3 {kind} {shape} block={block} nms={out_nms} "
+                              f"mask={name} {inst}")
     torch.cuda.synchronize()
     print(f"K3 vs plain: {cases} cases, {mismatches} mismatches "
           f"({time.perf_counter() - t0:.1f}s)")
@@ -715,26 +740,31 @@ def phase_int_lane(rng, dev, full):
                             kw = dict(spec=spec, variant=variant, directions=d, padding=padding,
                                       block_h=32, block_w=64, **extra)
                             want = edge_plain(x, **kw)
-                            for depth in (0,) + K2_DEPTHS:
-                                got = edge_cuda(x, precision="int", pipeline_depth=depth, **kw)
+                            runs = [(0, inst) for inst in instances(spec, variant, d)]
+                            for depth, inst in runs + [(k, "auto") for k in K2_DEPTHS]:
+                                got = edge_cuda(x, precision="int", pipeline_depth=depth,
+                                                instance=inst, **kw)
                                 cases += 1
                                 if not _same(got, want):
                                     mismatches += 1
                                     print(f"  MISMATCH int {shape} {op} {variant} {d} {padding} "
-                                          f"depth={depth} {sorted(extra)}")
+                                          f"depth={depth} {inst} {sorted(extra)}")
     spec5 = get_operator("sobel5")
     x = full["u8"]
     kw = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256, with_max=True)
     want = edge_plain(x, **kw)
     k1_int, k2_int = edge_cuda.int_launches, edge_pipelined_cuda.int_launches
+    k1_const = edge_cuda.const_launches
     depths = [0] + fitting_depths(64, 256, spec5, 1, 1, False, "v2", 4)
-    for depth in depths:
+    for depth, inst in [(0, "runtime")] + [(d, "auto") for d in depths]:
         cases += 1
-        if not _same(edge_cuda(x, precision="int", pipeline_depth=depth, **kw), want):
+        if not _same(edge_cuda(x, precision="int", pipeline_depth=depth, instance=inst, **kw),
+                     want):
             mismatches += 1
-            print(f"  MISMATCH int 4x2048x2048 depth={depth}")
-    check(edge_cuda.int_launches == k1_int + 1
-          and edge_pipelined_cuda.int_launches == k2_int + len(depths) - 1,
+            print(f"  MISMATCH int 4x2048x2048 depth={depth} {inst}")
+    check(edge_cuda.int_launches == k1_int + 2
+          and edge_pipelined_cuda.int_launches == k2_int + len(depths) - 1
+          and edge_cuda.const_launches == k1_const + 1,
           "the integer lane's launches were not counted as such")
     torch.cuda.synchronize()
     print(f"int lane (K1, K2) vs f32 plain lane: {cases} cases, {mismatches} mismatches "
@@ -1349,17 +1379,22 @@ def phase_long_prefill(dev, params):
     return launches
 
 
-def flash_bound(shape, causal: bool, elt: int):
-    """K4's least time: the (query, key) pairs the mask keeps, each 2D FMAs
-    and 4 other f32 operations at 33.5 T instructions/s (the 67 TFLOP/s
-    peak counts an FMA as two), against q, k, v read once and the output
-    written once at 3.35 TB/s."""
+def flash_bound(shape, causal: bool, elt: int) -> dict:
+    """K4's least time, in ms, the largest of three terms over the (query,
+    key) pairs the mask keeps: the tensor cores' products, 4D flops a pair
+    (q.k and p*v) three times over in the 3xTF32 split at the dense TF32
+    rate; one exp a pair on the SFUs; q, k, v read once and the output
+    written once at 3.35 TB/s. ``simt_ms`` is the bound of the SIMT kernel K4
+    was before (2D FMAs and 4 other f32 operations a pair at 33.5 T
+    instructions/s), printed beside it."""
     b, h, s, t, d = shape
     pairs = b * h * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
-    t_ops = pairs * (2 * d + 4) / F32_OPS_PER_S
-    t_bytes = b * h * (2 * s * d + 2 * t * d) * elt / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            t_bytes * 1e3, t_ops * 1e3, pairs)
+    terms = {"tensor_ms": 3 * 4 * d * pairs / TF32_FLOPS_PER_S * 1e3,
+             "exp_ms": pairs / SFU_PER_S * 1e3,
+             "bytes_ms": b * h * (2 * s * d + 2 * t * d) * elt / HBM_BYTES_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return dict(terms, bound_ms=terms[top], bound_by="bytes" if top == "bytes_ms" else "operations",
+                simt_ms=pairs * (2 * d + 4) / F32_OPS_PER_S * 1e3, pairs=pairs)
 
 
 def phase_k4_timing(dev, lm, long_launches, main_err):
@@ -1375,18 +1410,23 @@ def phase_k4_timing(dev, lm, long_launches, main_err):
         q, k, v = attention_inputs(shape, torch.float32, dev, seed=s)
         got = flash_attention(q, k, v, block_q=s, block_kv=s)
         want = flash_attention_plain(q, k, v)
-        b_ms, b_by, t_bytes, t_ops, pairs = flash_bound(shape, True, 4)
-        row = dict(ms=median_ms(lambda: flash_attention(q, k, v, block_q=s, block_kv=s)),
+        fb = flash_bound(shape, True, 4)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        kern = lambda: flash_attention(q, k, v, block_q=s, block_kv=s)  # noqa: E731
+        # In turns (library, kernel, kernel, library), each a median of 20.
+        lib1, ms1, ms2, lib2 = median_ms(sdpa), median_ms(kern), median_ms(kern), median_ms(sdpa)
+        row = dict(ms=statistics.median([ms1, ms2]), ms_runs=[ms1, ms2],
                    plain_ms=median_ms(lambda: flash_attention_plain(q, k, v)),
-                   library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                               is_causal=True)),
-                   bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops, pairs=pairs,
-                   max_abs_err=float((got - want).abs().max()), shape=list(shape))
+                   library_ms=statistics.median([lib1, lib2]), library_ms_runs=[lib1, lib2],
+                   max_abs_err=float((got - want).abs().max()), shape=list(shape), **fb)
         rows[f"1x32x{s}x64"] = row
-        print(f"K4 at (1, 32, {s}, 64) causal f32: {row['ms']:.4f} ms; plain "
-              f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
-              f"{pairs} pairs x {2 * 64 + 4} ops {t_ops:.4f} ms); "
-              f"scaled_dot_product_attention {row['library_ms']:.4f} ms")
+        verdict = "faster" if row["ms"] < row["library_ms"] else "slower"
+        print(f"K4 at (1, 32, {s}, 64) causal f32: {ms1:.4f} / {ms2:.4f} ms; "
+              f"scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} ms (K4 {verdict}, "
+              f"{row['ms'] / row['library_ms']:.3f}x); plain {row['plain_ms']:.4f} ms; bound "
+              f"{fb['bound_ms']:.4f} ms by {fb['bound_by']} ({fb['pairs']} pairs: 3xTF32 tensor "
+              f"{fb['tensor_ms']:.4f} ms, SFU exp {fb['exp_ms']:.4f} ms, bytes "
+              f"{fb['bytes_ms']:.4f} ms; the old SIMT bound {fb['simt_ms']:.4f} ms)")
     main = rows["1x32x2048x64"]
     return {
         "name": "K4 flash_attention (online-softmax attention)",
@@ -1743,18 +1783,21 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         n_px = x.shape[0] * x.shape[1] * x.shape[2]
         gh, gw = -(-x.shape[1] // kw["block_h"]), -(-x.shape[2] // kw["block_w"])
         ms = median_ms(lambda: edge_cuda(x, **kw))
+        ms_runtime = median_ms(lambda: edge_cuda(x, instance="runtime", **kw))
         ms_default = median_ms(lambda: edge_cuda(x, **dict(kw, block_h=32, block_w=128)))
         plain_ms = median_ms(lambda: edge_plain(x, **kw), reps=5, warm=1)
         library_ms = median_ms(lambda: conv_components(x, rgb))
         ops = kernel_ops_per_pixel(spec5, "v2", 4, rgb)
         in_bytes = 3 if rgb else x.element_size()
         b_ms, b_by, t_bytes, t_ops = bound(n_px, in_bytes, n_px * 4 + x.shape[0] * gh * gw * 4, ops)
-        timings[label] = dict(ms=ms, ms_block_32x128=ms_default, plain_ms=plain_ms,
+        timings[label] = dict(ms=ms, ms_runtime=ms_runtime, ms_block_32x128=ms_default,
+                              plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
                               ops_per_px=ops, library_ms=library_ms, max_abs_err=err,
                               shape=list(x.shape))
-        print(f"K1 at {label} {tuple(x.shape)} block 64x256: {ms:.4f} ms (32x128: "
-              f"{ms_default:.4f} ms); plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
+        print(f"K1 at {label} {tuple(x.shape)} block 64x256: {ms:.4f} ms compile-time taps, "
+              f"{ms_runtime:.4f} ms run-time taps (32x128: {ms_default:.4f} ms); plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
               f"(bytes {t_bytes:.4f} ms, {ops} ops/px {t_ops:.4f} ms); "
               f"cuDNN conv2d of the 4-direction bank (components only) {library_ms:.4f} ms")
 
@@ -1777,6 +1820,7 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         plain_ms = median_ms(lambda: edge_plain(x, **kw), reps=5, warm=1)
         library_ms = median_ms(lambda: conv_components(x, False))
         k1_ms = median_ms(lambda: edge_cuda(x, **kw))
+        k1_runtime_ms = median_ms(lambda: edge_cuda(x, instance="runtime", **kw))
         for depth in fitting_depths(64, 256, spec5, x.element_size(), 1, False, "v2", 4):
             got = edge_cuda(x, pipeline_depth=depth, **kw)
             check(_same(got, want), f"K2 {kind} depth {depth} differs at the timing shape")
@@ -1817,6 +1861,15 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
                        ops_ms=it_ops, int_ops_per_px=int_px, int32_ops_per_s=int_rate,
                        library_ms=library_ms, max_abs_err=float((got[0] - want[0]).abs().max()),
                        shape=[n, h, w])
+            if depth == 0:
+                row.update(ms_runtime=median_ms(lambda: edge_cuda(x, precision="int",
+                                                                  instance="runtime", **kw)),
+                           f32_lane_ms_runtime=k1_runtime_ms,
+                           f32_lane_ms_again=median_ms(lambda: edge_cuda(x, **kw)))
+                print(f"K1 at 4x{h}x{w} u8: integer lane {row['ms']:.4f} ms, f32 lane "
+                      f"{row['f32_lane_ms']:.4f} / {row['f32_lane_ms_again']:.4f} ms (compile-time "
+                      f"taps; integer/f32 {row['ms'] / row['f32_lane_ms_again']:.3f}); run-time "
+                      f"taps: integer {row['ms_runtime']:.4f} ms, f32 {k1_runtime_ms:.4f} ms")
             int_rows[f"{'K1' if depth == 0 else 'K2'} depth {depth}"] = row
             print(f"int lane {'K1' if depth == 0 else 'K2'} depth {depth} at 4x{h}x{w} u8: "
                   f"{row['ms']:.4f} ms (f32 lane {row['f32_lane_ms']:.4f} ms); bound "
@@ -1841,11 +1894,14 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
     nms_err = float((a - b).abs().max())
     b_ms, b_by, t_bytes, t_ops = bound(n_px, 1, n_px * 4 + n * gh * gw * 4, nms_ops)
     k1_nms = dict(ms=median_ms(lambda: edge_cuda(x, with_max=True, **kw)),
+                  ms_runtime=median_ms(lambda: edge_cuda(x, with_max=True, instance="runtime",
+                                                         **kw)),
                   plain_ms=median_ms(lambda: edge_plain(x, with_max=True, **kw), reps=5, warm=1),
                   bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
                   ops_per_px=nms_ops, max_abs_err=nms_err, shape=[n, h, w], library_ms=None,
                   launches_edges_server=edges_launches)
-    print(f"K1 out_nms at 4x{h}x{w} u8 block {bh}x{bw}: {k1_nms['ms']:.4f} ms; plain "
+    print(f"K1 out_nms at 4x{h}x{w} u8 block {bh}x{bw}: {k1_nms['ms']:.4f} ms compile-time "
+          f"taps, {k1_nms['ms_runtime']:.4f} ms run-time taps; plain "
           f"{k1_nms['plain_ms']:.3f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
           f"{nms_ops:.1f} ops/px {t_ops:.4f} ms); library: none")
 
@@ -1864,13 +1920,16 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         b_ms, b_by, t_bytes, t_ops, share = stream_bound(
             m, h, w, bh, bw, 1, nms_lane_ops(spec5, "v2", 4, False, m, h, w, bh, bw))
         row = dict(ms=median_ms(lambda: edge_stream_cuda(x_next, prev, prev_max, mask, **kw)),
+                   ms_runtime=median_ms(lambda: edge_stream_cuda(x_next, prev, prev_max, mask,
+                                                                 instance="runtime", **kw)),
                    plain_ms=median_ms(lambda: edge_stream_plain(x_next, prev, prev_max, mask, **kw),
                                       reps=5, warm=1),
                    bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
                    changed_share=share, max_abs_err=err, library_ms=None)
         k3[share_label] = row
         print(f"K3 at 4x{h}x{w} u8 block {bh}x{bw}, {100 * share:.2f}% of pixels in changed "
-              f"tiles ({share_label}): {row['ms']:.4f} ms; plain {row['plain_ms']:.3f} ms; bound "
+              f"tiles ({share_label}): {row['ms']:.4f} ms (run-time taps {row['ms_runtime']:.4f} "
+              f"ms); plain {row['plain_ms']:.3f} ms; bound "
               f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms); "
               "library: none")
 

@@ -16,12 +16,34 @@
 // suppression add compares; a 4x2048x2048 u8 frame moves 5 B/px, so the
 // NMS lane is bound by operations.
 //
-// Design (simple and right first): one CTA per (image, tile row, tile col)
-// runs edge_tile() (edge_tile.cuh) and stores the CTA's max of the
-// un-thinned magnitude over its in-image pixels per tile, reduced with warp
-// shuffles (max is order-free, so exact). The integer lane (acc_int) is the
-// same kernel with an int32 window, int32 taps and ladder (u8 gray input
-// only).
+// What held the first version back (tools/profile_k1.py, SASS and timed
+// scratch variants on an H100 80GB HBM3 at 700 W): every pixel recomputed
+// about 20 row passes with the taps read and tested for 0 and +-1 at run
+// time; of its 10,640 static instructions some 1,200 were the adds and
+// multiplies, the rest tap tests (FSETP/FSEL/ISETP), branches and address
+// arithmetic. Staging alone (an integer division and a modulo per element,
+// one load in flight per thread) took a quarter of its 1.24 ms. The integer
+// lane paid the same tap tests as ISETP/SEL/IMAD on the half-rate integer
+// pipe, hence 24-38% slower than the f32 lane.
+//
+// Now about 0.20 ms at 4x2048x2048 f32 on the 64x256 tile (5x the bound,
+// same card); the integer lane 0.33-0.42 ms on u8 frames, bound by the
+// half-rate integer pipe (edge_tile.cuh says more).
+//
+// Design: one CTA per (image, tile row, tile col), tile_threads() threads
+// (one per column of the tile; with NMS a warp per 30 columns), runs
+// edge_tile() (edge_tile.cuh): the window staged once with cheap boundary
+// handling, then each thread walks its column with the row passes shared
+// through register rings (the paper's §4.3.3). The default operator (sobel5
+// at SobelParams(), v2, 2 or 4 directions) runs a compile-time instance
+// whose taps are constants (const_taps = 1, chosen by kernels/edge.py from
+// the packed taps); everything else runs the run-time-taps instance. The
+// CTA's max of the un-thinned magnitude over its in-image pixels is stored
+// per tile, reduced with warp shuffles (max is order-free, so exact). The
+// integer lane (acc_int) is the same kernel with an int32 window, taps and
+// ladder (u8 gray input only). Several CTAs share an SM (70.7 KB of window
+// at 64x256), so one tile's staging overlaps another's walk; an in-CTA
+// prefetch of the next tile is not done.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // --fmad=false keeps every product and sum separately rounded (the
@@ -31,17 +53,18 @@
 
 #include "edge_tile.cuh"
 
-template <int K, typename T, typename A>
-__global__ void __launch_bounds__(THREADS)
+template <int K, typename T, typename A, typename P>
+__global__ void __launch_bounds__(MAX_THREADS)
 edge_kernel(const T* __restrict__ x, const Geom g, float* __restrict__ out_primary,
             float* __restrict__ out_comps, float* __restrict__ out_mag,
             float* __restrict__ out_bmax, const __grid_constant__ TapsT<A> taps) {
   extern __shared__ float smem[];
-  __shared__ float warp_max[THREADS / 32];
+  __shared__ float warp_max[MAX_THREADS / 32];
   long long img;
   int tr, tc;
   tile_of(g, &img, &tr, &tc);
-  const float tmax = edge_tile<K, T, A>(taps, g, x, img, tr, tc, smem, out_primary, out_comps,
+  const P tp = P::make(taps, g);
+  const float tmax = edge_tile<K, T, A>(tp, g, x, img, tr, tc, smem, out_primary, out_comps,
                                         out_mag, out_bmax != nullptr);
   if (out_bmax != nullptr) {
     const float m = block_max(tmax, warp_max);
@@ -49,17 +72,35 @@ edge_kernel(const T* __restrict__ x, const Geom g, float* __restrict__ out_prima
   }
 }
 
-template <int K, typename T, typename A>
+template <int K, typename T, typename A, typename P>
 static cudaError_t launch(const void* x, int n, const Geom& g, float* primary, float* comps,
                           float* mag, float* bmax, const TapsT<A>& taps, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(g.bh, g.bw, K / 2, g.nms);
-  cudaError_t e = cudaFuncSetAttribute(edge_kernel<K, T, A>,
+  cudaError_t e = cudaFuncSetAttribute(edge_kernel<K, T, A, P>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)n * g.gh * g.gw;
-  edge_kernel<K, T, A><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  edge_kernel<K, T, A, P><<<(unsigned)blocks, tile_threads(g.bw, g.nms), smem, stream>>>(
       (const T*)x, g, primary, comps, mag, bmax, taps);
   return cudaGetLastError();
+}
+
+// One accumulator type: the compile-time instance (sobel5, v2, 2 or 4
+// directions) or the run-time-taps instance of the operator's size.
+template <typename T, typename A>
+static cudaError_t launch_lane(const void* x, int n, const Geom& g, int size, int const_taps,
+                               float* primary, float* comps, float* mag, float* bmax,
+                               const TapsT<A>& taps, cudaStream_t s) {
+  if (const_taps) {
+    if (size != 5 || g.variant != V_V2) return cudaErrorInvalidValue;
+    if (g.dirs == 4)
+      return launch<5, T, A, Sobel5Default<4>>(x, n, g, primary, comps, mag, bmax, taps, s);
+    if (g.dirs == 2)
+      return launch<5, T, A, Sobel5Default<2>>(x, n, g, primary, comps, mag, bmax, taps, s);
+    return cudaErrorInvalidValue;
+  }
+  REPRO_SWITCH_SIZE(size, (launch<KS, T, A, RtTaps<A>>(x, n, g, primary, comps, mag, bmax, taps,
+                                                       s)))
 }
 
 // Launches K1 on `stream`. x is (n, h, w) or (n, h, w, 3) u8 (in_u8 = 1) or
@@ -68,13 +109,15 @@ static cudaError_t launch(const void* x, int n, const Geom& g, float* primary, f
 // components (the centre ones with nms); mag (n, h, w) the un-thinned
 // magnitude (nms only); bmax (n, gh, gw) the per-tile max of the
 // un-thinned magnitude. acc_int = 1 runs the integer lane (u8 gray input
-// only; the caller has checked core/ladder.int_lane_eligible). Returns the
-// launch's cudaError_t.
+// only; the caller has checked core/ladder.int_lane_eligible). const_taps
+// = 1 runs the compile-time instance of the default sobel5 (the caller has
+// checked that the packed taps are its taps; size 5, v2, 2 or 4
+// directions). Returns the launch's cudaError_t.
 extern "C" int repro_edge_launch(const void* x, int in_u8, int rgb, int n, int h, int w,
                                  int bh, int bw, int size, int variant, int dirs, int padding,
-                                 int nms, float tan_pi8, const float* taps_host, int acc_int,
-                                 float* primary, float* comps, float* mag, float* bmax,
-                                 void* stream) {
+                                 int nms, float tan_pi8, const float* taps_host, int const_taps,
+                                 int acc_int, float* primary, float* comps, float* mag,
+                                 float* bmax, void* stream) {
   Taps t;
   memcpy(&t, taps_host, sizeof(Taps));
   cudaStream_t s = (cudaStream_t)stream;
@@ -82,14 +125,12 @@ extern "C" int repro_edge_launch(const void* x, int in_u8, int rgb, int n, int h
                   variant, dirs, padding, nms, tan_pi8};
   if (acc_int) {
     if (!in_u8 || rgb) return (int)cudaErrorInvalidValue;
-    const TapsT<int32_t> ti = int_taps(t);
-    REPRO_SWITCH_SIZE(size, ((int)launch<KS, uint8_t, int32_t>(x, n, g, primary, comps, mag, bmax,
-                                                               ti, s)))
+    return (int)launch_lane<uint8_t, int32_t>(x, n, g, size, const_taps, primary, comps, mag,
+                                              bmax, int_taps(t), s);
   }
-  if (in_u8) {
-    REPRO_SWITCH_SIZE(size, ((int)launch<KS, uint8_t, float>(x, n, g, primary, comps, mag, bmax,
-                                                             t, s)))
-  }
-  REPRO_SWITCH_SIZE(size, ((int)launch<KS, float, float>(x, n, g, primary, comps, mag, bmax, t,
-                                                         s)))
+  if (in_u8)
+    return (int)launch_lane<uint8_t, float>(x, n, g, size, const_taps, primary, comps, mag, bmax,
+                                            t, s);
+  return (int)launch_lane<float, float>(x, n, g, size, const_taps, primary, comps, mag, bmax, t,
+                                        s);
 }

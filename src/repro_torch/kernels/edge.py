@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ladder
-from repro_torch.core.filters import OperatorSpec
+from repro_torch.core.filters import OperatorSpec, get_operator
 from repro_torch.core.nms import TAN_PI8_F32, thin_map
 from repro_torch.core.sobel import _pad, magnitude, spec_components, to_lane
 from repro_torch.kernels.tiling import PAD_MODES, luma, window_radius
@@ -43,6 +43,7 @@ __all__ = [
     "kernel_dtype",
     "window_smem_bytes",
     "pipelined_smem_bytes",
+    "const_taps_instance",
     "PIPELINE_DEPTHS",
 ]
 
@@ -60,10 +61,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False) -> int:
-    """Dynamic shared memory of one CTA (``csrc/edge_tile.cuh``,
-    ``tile_smem_bytes``): its f32 halo window, and with NMS the f32
-    magnitude of the ``(block + 2)`` inner tile and a sector byte per
-    output pixel."""
+    """The shared-memory footprint a tile is held to for K1 and K3: the f32
+    halo window (``csrc/edge_tile.cuh``, ``tile_smem_bytes``, what K1 and K3
+    allocate), and with NMS also the f32 magnitude of the ``(block + 2)``
+    inner tile and a sector byte per output pixel. K1 and K3 keep those two
+    in registers; the bound still counts them, as the NMS buffers of K2's
+    layout do, so that the tiles legal for an NMS call did not change."""
     halo = window_radius(radius, nms)
     smem = 4 * (block_h + 2 * halo) * (block_w + 2 * halo)
     if nms:
@@ -313,13 +316,14 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geometry = [p, i, i, i, i, i, i, i, i, i, i, i, i, f, p]
-    # repro_edge_launch: acc_int, 4 outputs + stream; repro_pipelined_launch:
-    # acc_int, depth, 4 outputs + stream; repro_stream_launch: mask, 2
-    # caches, 2 outputs + stream. Each returns a cudaError_t as int.
+    # repro_edge_launch: const_taps, acc_int, 4 outputs + stream;
+    # repro_pipelined_launch: acc_int, depth, 4 outputs + stream;
+    # repro_stream_launch: const_taps, mask, 2 caches, 2 outputs + stream.
+    # Each returns a cudaError_t as int.
     entry, extra = {
-        "edge": ("repro_edge_launch", [i] + [p] * 5),
+        "edge": ("repro_edge_launch", [i, i] + [p] * 5),
         "edge_pipelined": ("repro_pipelined_launch", [i, i] + [p] * 5),
-        "edge_stream": ("repro_stream_launch", [p] * 6),
+        "edge_stream": ("repro_stream_launch", [i] + [p] * 6),
     }[name]
     launch = getattr(lib, entry)
     launch.argtypes = geometry + extra
@@ -336,6 +340,13 @@ def _lib(name: str) -> ctypes.CDLL:
         raise RuntimeError(f"csrc/{name}.cu and kernels/edge.py disagree on KMAX")
     if lib.repro_taps_len() != _taps_len():
         raise RuntimeError(f"csrc/{name}.cu's Taps layout differs from _pack_taps")
+    lib.repro_default_taps.argtypes, lib.repro_default_taps.restype = [p], None
+    built_in = np.zeros(_taps_len(), np.float32)
+    lib.repro_default_taps(built_in.ctypes.data)
+    fields = _default_fields()
+    if not np.array_equal(built_in[fields], _default_taps()[fields]):
+        raise RuntimeError(f"csrc/{name}.cu's compile-time sobel5 taps differ from "
+                           "_pack_taps(get_operator('sobel5'))")
     return lib
 
 
@@ -345,9 +356,24 @@ def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {text} (cudaError {err})")
 
 
+# The packed ``Taps`` struct (csrc/edge_tile.cuh), field by field in order:
+# name -> shape, every element an f32.
+_TAPS_FIELDS = (("dense", (4, KMAX, KMAX)), ("col", (2, KMAX)), ("row", (2, KMAX)),
+                ("v2", (3, KMAX)), ("sym", (2, KMAX, KMAX)), ("sym_pass", (2, KMAX)),
+                ("sym_neg", (2, KMAX)))
+
+
+def _taps_offsets() -> dict:
+    """Each field's offset into the packed ``Taps``."""
+    out, off = {}, 0
+    for name, shape in _TAPS_FIELDS:
+        out[name] = off
+        off += int(np.prod(shape))
+    return out
+
+
 def _taps_len() -> int:
-    k = KMAX
-    return 4 * k * k + 4 * k + 3 * k + 2 * k * k + 4 * k
+    return sum(int(np.prod(shape)) for _, shape in _TAPS_FIELDS)
 
 
 def _sym_plan(dense: np.ndarray):
@@ -410,6 +436,38 @@ def _pack_taps(spec: OperatorSpec) -> np.ndarray:
         raise AssertionError("Taps packing out of step with _taps_len")
     flat.setflags(write=False)
     return flat
+
+
+@functools.lru_cache(maxsize=1)
+def _default_taps() -> np.ndarray:
+    """The packed taps of the default operator, sobel5 at ``SobelParams()``."""
+    return _pack_taps(get_operator("sobel5"))
+
+
+@functools.lru_cache(maxsize=1)
+def _default_fields() -> np.ndarray:
+    """Indices into the packed ``Taps`` of the fields the compile-time
+    instance reads: the 5-tap row, column and v2 vectors, K_d+'s passes and
+    its pass plan (``repro_default_taps`` fills exactly these)."""
+    k, K = 5, KMAX
+    off = _taps_offsets()
+    idx = []
+    for field, vectors in (("col", 2), ("row", 2), ("v2", 3), ("sym", K)):
+        for v in range(vectors):
+            idx.extend(off[field] + v * K + t for t in range(k))
+    idx.extend(off["sym_pass"] + t for t in range(k))
+    idx.extend(off["sym_neg"] + t for t in range(k))
+    return np.asarray(idx)
+
+
+def const_taps_instance(spec: OperatorSpec, variant: str, directions: int) -> bool:
+    """Whether K1 and K3 run their compile-time instance for this call: the
+    v2 ladder at 2 or 4 directions on an operator whose packed taps equal
+    the default sobel5's. Decided by value, never by name:
+    ``get_operator("sobel5", params)`` with other weights takes the run-time
+    path, and so does every other operator, variant and size."""
+    return (variant == "v2" and directions in (2, 4) and spec.size == 5
+            and np.array_equal(_pack_taps(spec), _default_taps()))
 
 
 def _check_launch(x: torch.Tensor, fn: str, spec: OperatorSpec, variant: str,
@@ -496,6 +554,7 @@ def edge_cuda(
     with_max: bool = False,
     precision: str = "f32",
     pipeline_depth: int = 0,
+    instance: str = "auto",
 ):
     """Launch K1 (``csrc/edge.cu``) on a contiguous CUDA tensor, or with
     ``pipeline_depth`` 2..8 K2 through :func:`edge_pipelined_cuda`.
@@ -517,12 +576,20 @@ def edge_cuda(
     raises with the ladder's first failing gate otherwise); the outputs are
     f32 and bit-identical to the f32 lane.
 
+    ``instance``: ``"auto"`` runs K1's compile-time instance where
+    :func:`const_taps_instance` says it applies and the run-time-taps
+    instance elsewhere; ``"runtime"`` forces the run-time-taps instance (to
+    hold the two against each other). Both give the same bits. K2 has one
+    instance and ignores it.
+
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
-    device refuses. ``edge_cuda.launches`` counts K1's launches and
-    ``edge_cuda.int_launches`` those of them on the integer lane.
+    device refuses. ``edge_cuda.launches`` counts K1's launches,
+    ``edge_cuda.int_launches`` those of them on the integer lane and
+    ``edge_cuda.const_launches`` those on the compile-time instance.
     """
     _check_depth(pipeline_depth)
+    _check_instance(instance)
     if pipeline_depth:
         return edge_pipelined_cuda(
             x, spec=spec, variant=variant, directions=directions, padding=padding,
@@ -539,22 +606,30 @@ def edge_cuda(
     outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
                           with_max)
     if n > 0 and h > 0 and w > 0:
+        const = instance == "auto" and const_taps_instance(spec, variant, directions)
         lib = _lib("edge")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.repro_edge_launch(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
-                int(acc_int), *ptrs, stream,
+                int(const), int(acc_int), *ptrs, stream,
             )
         _raise_on_error(lib, "edge", err)
         edge_cuda.launches += 1
         edge_cuda.int_launches += int(acc_int)
+        edge_cuda.const_launches += int(const)
     return outs
 
 
 edge_cuda.launches = 0
 edge_cuda.int_launches = 0
+edge_cuda.const_launches = 0
+
+
+def _check_instance(instance: str) -> None:
+    if instance not in ("auto", "runtime"):
+        raise ValueError(f"unknown instance {instance!r}; expected 'auto' or 'runtime'")
 
 
 def _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag, with_max):
@@ -659,6 +734,7 @@ def edge_stream_cuda(
     block_w: "int | None" = None,
     rgb: bool = False,
     out_nms: bool = False,
+    instance: str = "auto",
 ):
     """Launch K3 (``csrc/edge_stream.cu``): recompute the tiles ``mask``
     flags, splice the cached tiles and maxima everywhere else.
@@ -668,12 +744,14 @@ def edge_stream_cuda(
     ``(N, gh, gw)`` f32 and ``mask`` ``(N, gh, gw)`` int32, all contiguous
     CUDA tensors on the tile grid of ``block_h x block_w``. Returns fresh
     ``(primary, bmax)``, bit-identical to a full recompute where the
-    unflagged tiles' input windows did not change.
+    unflagged tiles' input windows did not change. ``instance`` as for
+    :func:`edge_cuda`: K3 runs K1's tile body, either instance.
 
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
     device refuses. ``edge_stream_cuda.launches`` counts the launches.
     """
+    _check_instance(instance)
     _check_launch(x, "edge_stream_cuda", spec, variant, directions, padding)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
@@ -694,6 +772,7 @@ def edge_stream_cuda(
             err = lib.repro_stream_launch(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
+                int(instance == "auto" and const_taps_instance(spec, variant, directions)),
                 mask.data_ptr(), prev_primary.data_ptr(), prev_bmax.data_ptr(),
                 primary.data_ptr(), bmax.data_ptr(), stream,
             )

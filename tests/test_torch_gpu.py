@@ -596,3 +596,113 @@ def test_ssm_engine_k5_lane_equals_plain_lane(cuda_device):
     for name in ("h", "conv"):
         torch.testing.assert_close(got["auto"][1]["layers"][name],
                                    got["torch"][1]["layers"][name], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4 at the tensor-core tile edges (3xTF32 mma.sync, 64-row/64-key tiles,
+# 16-row warps, 8-key groups, head dims padded to a power of two)
+# ---------------------------------------------------------------------------
+
+K4_EDGE_PAIRS = ((1, 15), (15, 16), (16, 17), (17, 63), (63, 64), (64, 65), (65, 127),
+                 (127, 129), (129, 2048), (2048, 1), (64, 17), (129, 63), (16, 16),
+                 (2048, 2048))
+K4_EDGE_DIMS = (8, 24, 40, 64, 72, 128)
+
+
+@pytest.mark.parametrize("s_t", K4_EDGE_PAIRS, ids=lambda p: f"S{p[0]}-T{p[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_cuda_tile_edges(cuda_device, s_t, dtype, causal):
+    """K4 against its plain version where the tensor-core tiles are ragged:
+    S and T one below, at and one above the 16-row, 64-row and 64-key tile
+    edges, S != T, at every head dim class the kernel pads (f32 within
+    2e-5 abs + rel; bf16 within one ulp of the output plus 2e-5)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    s, t = s_t
+    for d in K4_EDGE_DIMS:
+        q, k, v = _qkv((1, 2, s, t, d), dtype, cuda_device, seed=s * 7 + t + d)
+        got = flash_attention(q, k, v, causal=causal, block_q=s, block_kv=t)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), d
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5, msg=f"D={d}")
+        else:
+            w = want.float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+            assert bool(((got.float() - w).abs() <= ulp + 2e-5).all()), d
+
+
+# ---------------------------------------------------------------------------
+# K1's compile-time instance (the default sobel5, v2) against its
+# run-time-taps instance and edge_plain
+# ---------------------------------------------------------------------------
+
+K1_INSTANCE_CASES = (((1, 1), (8, 32)), ((2, 3), (16, 32)), ((37, 53), (16, 32)),
+                     ((70, 270), (64, 256)), ((130, 301), (32, 128)), ((237, 413), (64, 96)))
+
+
+@pytest.mark.parametrize("directions", (2, 4))
+@pytest.mark.parametrize("out_nms", (False, True), ids=["plain", "nms"])
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb", "rgb_f32", "int"))
+def test_edge_cuda_instances_equal_plain(cuda_device, kind, out_nms, directions):
+    spec = get_operator("sobel5")
+    assert ekern.const_taps_instance(spec, "v2", directions)
+    lane = dict(precision="int") if kind == "int" else {}
+    extras = (dict(out_components=True, out_mag=True, with_max=True) if out_nms
+              else dict(out_components=True, with_max=True))
+    for shape, (bh, bw) in K1_INSTANCE_CASES:
+        x = _frames("u8" if kind == "int" else kind, (2,) + shape, cuda_device)
+        for padding in ("reflect", "edge", "zero"):
+            for extra in (dict(with_max=True), extras):
+                kw = dict(spec=spec, variant="v2", directions=directions, padding=padding,
+                          block_h=bh, block_w=bw, rgb=kind.startswith("rgb"), out_nms=out_nms,
+                          **lane, **extra)
+                want = ekern.edge_plain(x, **kw)
+                before = ekern.edge_cuda.const_launches
+                const = ekern.edge_cuda(x, **kw)
+                assert ekern.edge_cuda.const_launches == before + 1
+                runtime = ekern.edge_cuda(x, instance="runtime", **kw)
+                assert ekern.edge_cuda.const_launches == before + 1
+                for got in (const, runtime):
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = want if isinstance(want, tuple) else (want,)
+                    assert len(got) == len(ref)
+                    assert all(torch.equal(a, b) for a, b in zip(got, ref)), (shape, padding)
+
+
+def test_edge_stream_cuda_instances_agree(cuda_device):
+    """K3 runs K1's tile body: both instances equal its plain version."""
+    spec = get_operator("sobel5")
+    rng = np.random.default_rng(5)
+    x = _frames("u8", (2, 130, 301), cuda_device)
+    n, h, w, bh, bw = 2, 130, 301, 32, 128
+    gh, gw = -(-h // bh), -(-w // bw)
+    prev = torch.rand((n, h, w), device=cuda_device) * 50
+    prev_max = torch.rand((n, gh, gw), device=cuda_device) * 50
+    mask = torch.from_numpy(rng.integers(0, 2, (n, gh, gw)).astype(np.int32)).to(cuda_device)
+    for out_nms in (False, True):
+        kw = dict(spec=spec, variant="v2", directions=4, block_h=bh, block_w=bw, out_nms=out_nms)
+        want = ekern.edge_stream_plain(x, prev, prev_max, mask, **kw)
+        for inst in ("auto", "runtime"):
+            got = ekern.edge_stream_cuda(x, prev, prev_max, mask, instance=inst, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (out_nms, inst)
+
+
+@pytest.mark.parametrize("out_nms", (False, True), ids=["plain", "nms"])
+@pytest.mark.parametrize("kind", ("u8", "f32", "int"))
+def test_edge_cuda_tiles_wider_than_one_cta_pass(cuda_device, kind, out_nms):
+    """Tiles wider than one pass of K1's CTA (384 threads, or 12 warps of
+    30 centre columns with NMS) loop over their columns; a full-width tile
+    (``block_w=None``) does too. Both instances equal edge_plain."""
+    spec = get_operator("sobel5")
+    lane = dict(precision="int") if kind == "int" else {}
+    x = _frames("u8" if kind == "int" else kind, (2, 37, 1000), cuda_device)
+    for bh, bw in ((8, 512), (16, None)):
+        kw = dict(spec=spec, variant="v2", directions=4, block_h=bh, block_w=bw,
+                  out_nms=out_nms, with_max=True, **lane)
+        want = ekern.edge_plain(x, **kw)
+        for inst in ("auto", "runtime"):
+            got = ekern.edge_cuda(x, instance=inst, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (bh, bw, inst)
