@@ -25,15 +25,20 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 2c. Holds K3 (``edge_stream_cuda``) bit-equal to ``edge_stream_plain`` with
    masks all-0, all-1 and random, NMS on and off, on ragged shapes and at
    4x2048x2048 u8; with an all-1 mask K3 must equal K1.
-2d. Holds K2 (``edge_cuda(pipeline_depth=d)``, the DMA ring) bit-equal to
-   ``edge_plain`` and to K1 at depths 2, 3 and 8, for every operator x
-   variant x directions x padding on gray u8/f32 and RGB u8/f32 at the
-   phase-2 sizes (the 237x413 grid has fewer tiles in a row than depth 8),
-   with NMS off (magnitude, components, per-tile max) and on (thin map,
-   components, un-thinned magnitude, per-tile max), and at 4x2048x2048 f32
-   and u8 on the FULL 64x256 tile at every depth that fits; every depth
-   whose footprint exceeds ``SMEM_MAX`` must raise, and
-   ``edge.pipelined_smem_bytes`` must equal the source's own layout.
+2d. Holds K2 (``edge_cuda(pipeline_depth=d)``, K1's walk fed by a ring of
+   windows copied ahead on a persistent grid) bit-equal to ``edge_plain``
+   and to K1 at depths 2, 3 and 8, on both instances where K1 has two, for
+   every operator x variant x directions x padding on gray u8/f32 and RGB
+   u8/f32 at the phase-2 sizes (the 237x413 grid has fewer tiles in a row
+   than depth 8) and at 29x96, whose 16-byte rows take the TMA route (an
+   offset copy of the same frames the cp.async route; the other sizes take
+   cp.async), with NMS off (magnitude, components, per-tile max) and on
+   (thin map, components, un-thinned magnitude, per-tile max), and at
+   4x2048x2048 f32 and u8 on the FULL 64x256 tile at every depth that fits
+   (1,024 tiles, more than the grid has CTAs); both copy routes must have
+   run, every depth whose footprint exceeds ``SMEM_MAX`` must raise, and
+   ``edge.pipelined_smem_bytes`` and ``pipelined_bands`` must equal the
+   source's own layout and band count.
 2e. Holds the integer lane (``precision="int"``) of K1 and K2 bit-equal to
    the f32 plain lane for every int-eligible operator x variant x
    directions x padding on u8 gray at the phase-2 sizes, and at
@@ -77,8 +82,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    (``WEAK_LOW``/``WEAK_HIGH``): must equal the torch lane and take as many
    dilation steps; prints the steps and the linking loop's time.
 5. Times K1, K1 with ``out_nms``, K2 at every depth that fits at
-   4x2048x2048 f32 and u8, the integer lane of K1 and K2 at 4x2048x2048 u8
-   (K1's beside its f32 lane on the same frames, timed again after it),
+   4x2048x2048 f32 and u8 in turns with K1 (K1, K2, K2, K1) with its copy
+   route, the integer lane of K1 and K2 at 4x2048x2048 u8 (K2's in turns
+   with K1's; K1's beside its f32 lane on the same frames, timed again
+   after it),
    and K3 (at 0%, the motion run's share and 100% of tiles changed), K1
    and K3 on both instances, with
    CUDA events, beside their plain versions and their bounds on the card
@@ -95,8 +102,9 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    version and its bound (``flash_bound``: the 3xTF32 products at the
    dense TF32 rate, the SFU's exponentials and the bytes, each printed, and
    the SIMT bound of the kernel it replaced). K5 joins it: CUDA-event
-   medians at (1, 2048, 8192, 16) and at the ssm server's prefill shapes
-   (1, L in 8/16/32/64, 8192, 16), f32, beside its plain version and its
+   medians and device microseconds a launch (profiler, 50 launches) at
+   (1, 2048, 8192, 16) and at the ssm server's prefill shapes (1, L in
+   8/16/32/64, 8192, 16), f32, beside its plain version and its
    bound (``scan_bound``: bytes, f32 operations and the SFU's exponentials,
    each term printed); no PyTorch call computes a selective scan, so it
    has no yardstick.
@@ -120,10 +128,11 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 8. Holds K5 (``selective_scan``) to ``selective_scan_plain`` on the card,
    both outputs (y and the final state), f32 and bf16: the reference
    test's shapes and blocks, ragged d_inner (24, 200) x N (1, 4, 16) x L
-   (1, 7, 2048), the ssm server's prefill shapes (1, L, 8192, 16) for L =
-   8/16/32/64, and (1, 2048, 8192, 16). f32 within 3e-5 (abs + rel, the
-   reference test's); bf16 y within one ulp plus 3e-5, its f32 state
-   within 3e-5.
+   (1, 7, 2048), N of 33 and 64 at L = 7 and 2,049, the ssm server's
+   prefill shapes (1, L, 8192, 16) for L = 8/16/32/64, and (1, 2048, 8192,
+   16). f32 within 3e-5 (abs + rel, the reference test's); bf16 y within
+   one ulp plus 3e-5, its f32 state within 3e-5; prints how many cases are
+   bit-equal to the plain version and how many launches took cp.async.
 9. The ssm slice's main path: first the port's server with ``--arch
    falcon-mamba-7b`` must refuse the reference server's random prompt
    lengths in the reference's words. Then ``repro_torch.serve.Engine`` on
@@ -175,6 +184,9 @@ PADDINGS = ("reflect", "edge", "zero")
 OPERATORS = ("sobel5", "sobel3", "scharr3", "prewitt3", "sobel7", "sep9")
 INT_OPERATORS = ("prewitt3", "scharr3", "sobel3", "sobel5", "sobel7")  # integer taps
 K2_DEPTHS = (2, 3, 8)   # with 32x64 tiles the 237x413 grid has gw = 7 < 8
+# Phase 2d's sizes: phase 2's, whose widths take K2's cp.async route, and
+# one whose rows are 16-byte aligned in every kind (the TMA route).
+K2_SIZES = SIZES + ((29, 96),)
 # The outputs K2 and the integer lane are held to: magnitude and per-tile
 # max; components and max; the NMS lane's thin map, components, un-thinned
 # magnitude and max.
@@ -351,17 +363,15 @@ def int_lane_bound(n_px: int, in_bytes_px: int, out_bytes: int, spec, variant: s
             t_bytes * 1e3, t_ops * 1e3, int_px)
 
 
-def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bool,
-                   variant: str, directions: int):
+def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bool):
     """K2's ring depths whose footprint fits a CTA's shared memory."""
     from repro_torch.kernels.edge import PIPELINE_DEPTHS, SMEM_MAX, pipelined_smem_bytes
 
     return [d for d in PIPELINE_DEPTHS
-            if pipelined_smem_bytes(bh, bw, spec.radius, d, in_bytes, channels, nms, variant,
-                                    directions) <= SMEM_MAX]
+            if pipelined_smem_bytes(bh, bw, spec.radius, d, in_bytes, channels, nms) <= SMEM_MAX]
 
 
-COUNTS = ("k1", "k1_int", "k2", "k2_int", "k3", "k4", "k5")
+COUNTS = ("k1", "k1_int", "k2", "k2_int", "k2_tma", "k2_cp_async", "k3", "k4", "k5")
 
 
 def reset_counts():
@@ -374,6 +384,7 @@ def reset_counts():
                selective_scan):
         fn.launches = 0
     edge_cuda.int_launches = edge_pipelined_cuda.int_launches = 0
+    edge_pipelined_cuda.tma_launches = edge_pipelined_cuda.cp_async_launches = 0
 
 
 def read_counts() -> dict:
@@ -383,6 +394,8 @@ def read_counts() -> dict:
 
     return dict(k1=edge_cuda.launches, k1_int=edge_cuda.int_launches,
                 k2=edge_pipelined_cuda.launches, k2_int=edge_pipelined_cuda.int_launches,
+                k2_tma=edge_pipelined_cuda.tma_launches,
+                k2_cp_async=edge_pipelined_cuda.cp_async_launches,
                 k3=edge_stream_cuda.launches, k4=flash_attention.launches,
                 k5=selective_scan.launches)
 
@@ -624,9 +637,10 @@ def phase_stream_vs_plain(rng, dev):
 
 
 def k2_against(x, kw: dict, depths, fits, label: str):
-    """K2 at each of ``depths`` on ``x``: bit-equal to ``edge_plain`` and to
-    K1 where the depth fits, a ``ValueError`` where it does not. Returns
-    ``(cases, mismatches, raised)``."""
+    """K2 at each of ``depths`` on ``x``, on each instance K1 has for the
+    call: bit-equal to ``edge_plain`` and to K1 where the depth fits, a
+    ``ValueError`` where it does not. Returns ``(cases, mismatches,
+    raised)``."""
     from repro_torch.kernels.edge import edge_cuda, edge_plain
 
     want, k1 = edge_plain(x, **kw), edge_cuda(x, **kw)
@@ -639,12 +653,23 @@ def k2_against(x, kw: dict, depths, fits, label: str):
                 raised += 1
                 continue
             check(False, f"K2 depth {depth} over the shared-memory budget did not raise ({label})")
-        got = edge_cuda(x, pipeline_depth=depth, **kw)
-        cases += 1
-        if not (_same(got, want) and _same(got, k1)):
-            mismatches += 1
-            print(f"  MISMATCH K2 {label} depth={depth}")
+        for inst in instances(kw["spec"], kw["variant"], kw["directions"]):
+            got = edge_cuda(x, pipeline_depth=depth, instance=inst, **kw)
+            cases += 1
+            if not (_same(got, want) and _same(got, k1)):
+                mismatches += 1
+                print(f"  MISMATCH K2 {label} depth={depth} {inst}")
     return cases, mismatches, raised
+
+
+def offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base is one element past a 16-byte
+    boundary, so that K2 copies its windows by ``cp.async`` whatever the
+    row pitch."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
 
 
 def phase_k2_vs_plain(rng, dev):
@@ -654,10 +679,15 @@ def phase_k2_vs_plain(rng, dev):
     from repro_torch.core.filters import get_operator
     from repro_torch.kernels.edge import PIPELINE_DEPTHS
 
+    from repro_torch.kernels.edge import edge_pipelined_cuda
+
     t0 = time.perf_counter()
     results = []  # (cases, mismatches, raised) of each k2_against
-    for shape in SIZES:
+    tma0, cp0 = edge_pipelined_cuda.tma_launches, edge_pipelined_cuda.cp_async_launches
+    for shape in K2_SIZES:
         inputs = {k: frames(k, (2,) + shape, rng, dev) for k in KINDS}
+        if shape[1] % 16 == 0:  # TMA on every kind: the cp.async route on an offset copy too
+            inputs.update({f"{k}@1": offset_copy(v) for k, v in inputs.items()})
         for op in OPERATORS:
             spec = get_operator(op)
             for variant in spec.variants:
@@ -670,8 +700,7 @@ def phase_k2_vs_plain(rng, dev):
                                           padding=padding, block_h=32, block_w=64, rgb=rgb,
                                           **extra)
                                 fits = fitting_depths(32, 64, spec, x.element_size(),
-                                                      3 if rgb else 1, "out_nms" in extra,
-                                                      variant, d)
+                                                      3 if rgb else 1, "out_nms" in extra)
                                 results.append(k2_against(
                                     x, kw, K2_DEPTHS, fits,
                                     f"{shape} {op} {variant} {d} {padding} {kind} "
@@ -683,17 +712,20 @@ def phase_k2_vs_plain(rng, dev):
         full[kind] = x
         for extra in (dict(with_max=True), dict(out_nms=True, with_max=True)):
             kw = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256, **extra)
-            fits = fitting_depths(64, 256, spec5, x.element_size(), 1, "out_nms" in extra,
-                                  "v2", 4)
+            fits = fitting_depths(64, 256, spec5, x.element_size(), 1, "out_nms" in extra)
             results.append(k2_against(x, kw, PIPELINE_DEPTHS, fits,
                                       f"4x2048x2048 {kind} {sorted(extra)}"))
             print(f"  4x2048x2048 {kind} 64x256 {sorted(extra)}: depths that fit {fits}")
     torch.cuda.synchronize()
     cases, mismatches, raised = map(sum, zip(*results))
+    tma = edge_pipelined_cuda.tma_launches - tma0
+    cp = edge_pipelined_cuda.cp_async_launches - cp0
     print(f"K2 vs plain and K1: {cases} cases, {mismatches} mismatches; {raised} over-budget "
-          f"depths raised ({time.perf_counter() - t0:.1f}s)")
+          f"depths raised; copy routes: {tma} TMA launches, {cp} cp.async launches "
+          f"({time.perf_counter() - t0:.1f}s)")
     check(mismatches == 0, f"K2 differs from edge_plain/K1 in {mismatches} of {cases} cases")
     check(raised > 0, "no over-budget depth was tried")
+    check(tma > 0 and cp > 0, f"phase 2d ran one copy route only ({tma} TMA, {cp} cp.async)")
     k2_footprints_agree()
     return full
 
@@ -701,25 +733,30 @@ def phase_k2_vs_plain(rng, dev):
 def k2_footprints_agree():
     """``edge.pipelined_smem_bytes`` against the source's own
     ``pipelined_layout`` (``repro_pipelined_smem_bytes``) over tiles,
-    radii, depths, input types, layouts, NMS, variants and directions."""
+    radii, depths, input types, layouts and NMS, and ``edge.pipelined_bands``
+    against ``repro_pipelined_bands``."""
     import itertools
 
-    from repro_torch.kernels.edge import (PIPELINE_DEPTHS, _VARIANT_CODES, _lib,
+    from repro_torch.kernels.edge import (PIPELINE_DEPTHS, _lib, pipelined_bands,
                                           pipelined_smem_bytes)
 
     lib = _lib("edge_pipelined")
+    tiles = ((1, 1), (8, 32), (32, 64), (29, 96), (64, 256), (128, 128), (300, 512), (16, 1000))
     cases = bad = 0
-    for (bh, bw), r, d, nb, ch, nms, variant, dirs in itertools.product(
-            ((1, 1), (8, 32), (32, 64), (64, 256), (128, 128)), (1, 2, 3, 4), PIPELINE_DEPTHS,
-            (1, 4), (1, 3), (False, True), tuple(_VARIANT_CODES), (2, 4)):
-        want = pipelined_smem_bytes(bh, bw, r, d, nb, ch, nms, variant, dirs)
-        got = lib.repro_pipelined_smem_bytes(bh, bw, r, d, nb, ch, int(nms),
-                                             _VARIANT_CODES[variant], dirs)
+    for (bh, bw), r, d, nb, ch, nms in itertools.product(
+            tiles, (1, 2, 3, 4), PIPELINE_DEPTHS, (1, 4), (1, 3), (False, True)):
+        want = pipelined_smem_bytes(bh, bw, r, d, nb, ch, nms)
+        got = lib.repro_pipelined_smem_bytes(bh, bw, r, d, nb, ch, int(nms))
         cases += 1
         bad += int(got != want)
-    print(f"K2 footprint, pipelined_smem_bytes vs the source's pipelined_layout: {cases} "
-          f"cases, {bad} differ")
-    check(bad == 0, f"pipelined_smem_bytes differs from csrc/edge_pipelined.cu in {bad} cases")
+    for (bh, bw), nms, size in itertools.product(tiles + ((320, 32), (305, 32)), (False, True),
+                                                 (3, 5, 7, 9)):
+        cases += 1
+        bad += int(lib.repro_pipelined_bands(bh, bw, int(nms), size)
+                   != len(pipelined_bands(bh, bw, nms, size)))
+    print(f"K2 footprint and bands, edge.py vs the source's pipelined_layout and "
+          f"pipelined_bands: {cases} cases, {bad} differ")
+    check(bad == 0, f"edge.py's K2 layout differs from csrc/edge_pipelined.cu in {bad} cases")
 
 
 def phase_int_lane(rng, dev, full):
@@ -755,7 +792,7 @@ def phase_int_lane(rng, dev, full):
     want = edge_plain(x, **kw)
     k1_int, k2_int = edge_cuda.int_launches, edge_pipelined_cuda.int_launches
     k1_const = edge_cuda.const_launches
-    depths = [0] + fitting_depths(64, 256, spec5, 1, 1, False, "v2", 4)
+    depths = [0] + fitting_depths(64, 256, spec5, 1, 1, False)
     for depth, inst in [(0, "runtime")] + [(d, "auto") for d in depths]:
         cases += 1
         if not _same(edge_cuda(x, precision="int", pipeline_depth=depth, instance=inst, **kw),
@@ -820,7 +857,7 @@ def phase_depth_facade(full_inputs, dev):
     runs = []
     for kind, x in full_inputs.items():
         for depth in fitting_depths(full.sobel_block_h, full.sobel_block_w, spec5,
-                                    x.element_size(), 1, False, "v2", 4):
+                                    x.element_size(), 1, False):
             cfg = full.edge_config(pipeline_depth=depth, with_max=True)
             reset_counts()
             res = edge_detect(x, cfg)
@@ -1458,6 +1495,7 @@ def phase_k4_timing(dev, lm, long_launches, main_err):
 K5_CASES = (
     [((2, 32, 16, 4), blocks) for blocks in ((8, 8), (16, 4), (32, 16))]
     + [((2, l, di, n), (l, di)) for di in (24, 200) for n in (1, 4, 16) for l in (1, 7, 2048)]
+    + [((2, l, 200, n), (l, 200)) for n in (33, 64) for l in (7, 2049)]
     + [((1, l, 8192, 16), (l, 8192)) for l in (8, 16, 32, 64)]
     + [((1, 2048, 8192, 16), (16, 8192))]
 )
@@ -1495,7 +1533,8 @@ def phase_k5_vs_plain(dev):
     state. Returns the worst f32 error of y at (1, 2048, 8192, 16)."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
-    cases = bad = 0
+    cases = bad = equal = 0
+    async0 = selective_scan.async_launches
     worst_f32, worst_h, worst_ulps, worst_bf16, main_err = 0.0, 0.0, 0.0, 0.0, None
     for i, (shape, (chunk, block_d)) in enumerate(K5_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1504,6 +1543,7 @@ def phase_k5_vs_plain(dev):
             wy, wh = selective_scan_plain(*args)
             dy = (y.float() - wy.float()).abs()
             worst_h = max(worst_h, float((h - wh).abs().max()))
+            equal += int(torch.equal(y, wy) and torch.equal(h, wh))
             ok = within(h, wh, K5_TOL) and y.dtype == dtype and h.shape == wh.shape
             cases += 1
             if dtype == torch.float32:
@@ -1523,10 +1563,12 @@ def phase_k5_vs_plain(dev):
                 print(f"  MISMATCH K5 {shape} {dtype} blocks ({chunk}, {block_d}): max abs err "
                       f"y {float(dy.max())}, h {float((h - wh).abs().max())}")
     torch.cuda.synchronize()
-    print(f"K5 vs plain: {cases} cases, {bad} outside tolerance; worst f32 abs err of y "
+    print(f"K5 vs plain: {cases} cases, {bad} outside tolerance, {equal} of them bit-equal "
+          f"(y and the final state); worst f32 abs err of y "
           f"{worst_f32:.3g} (tolerance {K5_TOL} abs + rel); of the final state {worst_h:.3g}; "
           f"worst bf16 abs err {worst_bf16:.3g}, {worst_ulps:.3g} ulp of the output "
-          f"(tolerance 1 ulp + {K5_TOL})")
+          f"(tolerance 1 ulp + {K5_TOL}); {selective_scan.async_launches - async0} of the "
+          f"launches copied by cp.async")
     check(bad == 0, f"K5 differs from selective_scan_plain in {bad} of {cases} cases")
     return main_err
 
@@ -1699,6 +1741,25 @@ def phase_ssm_long_prefill(dev, params):
     return launches
 
 
+def launch_device_us(fn, kernel: str, launches: int = 50) -> float:
+    """Mean device microseconds a launch of the kernels whose name contains
+    ``kernel``, over ``launches`` calls of ``fn`` under the profiler (no
+    host time between launches counts), averaged over the launches the
+    profiler kept (it may drop some of a long run of short kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in evs)
+    check(0 < count <= launches, f"the profiler saw {count} {kernel} launches of {launches}")
+    return sum(e.self_device_time_total for e in evs) / count
+
+
 def scan_bound(shape, elt: int):
     """K5's least time: x, dt and y (``elt`` bytes), B and C (``elt``), A
     and the final state (f32) moved once at 3.35 TB/s; about 6 f32
@@ -1733,10 +1794,13 @@ def phase_k5_timing(dev, ssm, long_launches, main_err):
                    library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes,
                    ops_ms=t_ops, sfu_ms=t_sfu, max_abs_err=float((y - wy).abs().max()),
                    shape=list(shape))
+        row["device_us"] = launch_device_us(
+            lambda: selective_scan(*args, chunk=l, block_d=8192), "selective_scan")
         rows[f"1x{l}x8192x16"] = row
-        print(f"K5 at (1, {l}, 8192, 16) f32: {row['ms']:.4f} ms; plain {row['plain_ms']:.4f} "
-              f"ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, f32 ops "
-              f"{t_ops:.4f} ms, SFU exp {t_sfu:.4f} ms); no library call")
+        print(f"K5 at (1, {l}, 8192, 16) f32: {row['ms']:.4f} ms on CUDA events, "
+              f"{row['device_us']:.2f} us a launch of device time (profiler, 50 launches); plain "
+              f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
+              f"f32 ops {t_ops:.4f} ms, SFU exp {t_sfu:.4f} ms); no library call")
     main = rows["1x2048x8192x16"]
     return {
         "name": "K5 selective_scan (Mamba-1 forward scan)",
@@ -1764,7 +1828,8 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
     of K1 and K2, and K3 beside their plain versions and bounds."""
     from repro_torch.configs import get_config
     from repro_torch.core.filters import get_operator
-    from repro_torch.kernels.edge import edge_cuda, edge_plain, edge_stream_cuda, edge_stream_plain
+    from repro_torch.kernels.edge import (edge_cuda, edge_plain, edge_stream_cuda,
+                                          edge_stream_plain, tma_route)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1821,16 +1886,22 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         library_ms = median_ms(lambda: conv_components(x, False))
         k1_ms = median_ms(lambda: edge_cuda(x, **kw))
         k1_runtime_ms = median_ms(lambda: edge_cuda(x, instance="runtime", **kw))
-        for depth in fitting_depths(64, 256, spec5, x.element_size(), 1, False, "v2", 4):
+        route = "TMA" if tma_route(x, w, False) else "cp.async"
+        for depth in fitting_depths(64, 256, spec5, x.element_size(), 1, False):
             got = edge_cuda(x, pipeline_depth=depth, **kw)
             check(_same(got, want), f"K2 {kind} depth {depth} differs at the timing shape")
-            row = dict(ms=median_ms(lambda: edge_cuda(x, pipeline_depth=depth, **kw)),
-                       k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       bytes_ms=t_bytes, ops_ms=t_ops, ops_per_px=ops, library_ms=library_ms,
+            # In turns with K1 on the same frames: K1, K2, K2, K1.
+            turns = [median_ms(lambda: edge_cuda(x, pipeline_depth=dd, **kw))
+                     for dd in (0, depth, depth, 0)]
+            row = dict(ms=turns[1], k2_ms_turns=turns[1:3], k1_ms_turns=[turns[0], turns[3]],
+                       k1_ms=turns[0], route=route, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
+                       ops_per_px=ops, library_ms=library_ms,
                        max_abs_err=float((got[0] - want[0]).abs().max()), shape=[n, h, w])
             k2_rows[f"{kind} depth {depth}"] = row
-            print(f"K2 at 4x{h}x{w} {kind} block 64x256 depth {depth}: {row['ms']:.4f} ms "
-                  f"(K1 {k1_ms:.4f} ms); plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
+            print(f"K2 at 4x{h}x{w} {kind} block 64x256 depth {depth} ({route}): "
+                  f"{turns[1]:.4f} / {turns[2]:.4f} ms in turns with K1 {turns[0]:.4f} / "
+                  f"{turns[3]:.4f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
                   f"cuDNN conv2d {library_ms:.4f} ms")
         if kind == "f32":
             # The tuned facade's choice for this workload (phase 3d).
@@ -1851,7 +1922,7 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
             continue
         ib_ms, ib_by, it_bytes, it_ops, int_px = int_lane_bound(
             n_px, 1, out_bytes, spec5, "v2", 4, int_rate)
-        for depth in [0] + fitting_depths(64, 256, spec5, 1, 1, False, "v2", 4):
+        for depth in [0] + fitting_depths(64, 256, spec5, 1, 1, False):
             got = edge_cuda(x, precision="int", pipeline_depth=depth, **kw)
             check(_same(got, want), f"int lane depth {depth} differs at the timing shape")
             row = dict(ms=median_ms(lambda: edge_cuda(x, precision="int", pipeline_depth=depth,
@@ -1861,6 +1932,14 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
                        ops_ms=it_ops, int_ops_per_px=int_px, int32_ops_per_s=int_rate,
                        library_ms=library_ms, max_abs_err=float((got[0] - want[0]).abs().max()),
                        shape=[n, h, w])
+            if depth:
+                # In turns with K1's integer lane: K1, K2, K2, K1.
+                turns = [median_ms(lambda: edge_cuda(x, precision="int", pipeline_depth=dd, **kw))
+                         for dd in (0, depth, depth, 0)]
+                row.update(ms=turns[1], k2_ms_turns=turns[1:3],
+                           k1_int_ms_turns=[turns[0], turns[3]])
+                print(f"int lane K2 depth {depth} in turns with K1's: {turns[1]:.4f} / "
+                      f"{turns[2]:.4f} ms against {turns[0]:.4f} / {turns[3]:.4f} ms")
             if depth == 0:
                 row.update(ms_runtime=median_ms(lambda: edge_cuda(x, precision="int",
                                                                   instance="runtime", **kw)),
@@ -1952,7 +2031,7 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         "int_lane": int_rows["K1 depth 0"],
         "launches_depth_facade": main_counts["k1"],
     }, {
-        "name": "K2 edge_pipelined (DMA-ring megakernel)",
+        "name": "K2 edge_pipelined (prefetching megakernel: K1's walk fed by a ring)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/edge_pipelined.cu",
         "replaces": "src/repro/kernels/edge.py:274",

@@ -1,5 +1,5 @@
-// The per-tile compute of K1 (edge.cu) and K3 (edge_stream.cu), and the
-// ladder, output and reduction helpers K2 (edge_pipelined.cu) shares.
+// The per-tile compute of K1 (edge.cu) and K3 (edge_stream.cu), whose walk
+// and outputs K2 (edge_pipelined.cu) runs too.
 //
 // One CTA owns one bh x bw output tile. edge_tile() stages the tile's halo
 // window in shared memory (the luma or the cast applied once per element,
@@ -34,7 +34,8 @@
 // (~0.11 ms with the walk left out) and the walk (~0.15 ms with the
 // staging left out) add up to ~0.20 ms, so they barely overlap: the window
 // is staged whole before the walk, and no CTA prefetches its next window
-// (the paper's §4.3.4 is not applied). The integer lane's walk takes twice
+// (K2 does: a producer warp copies the next windows while the walk runs).
+// The integer lane's walk takes twice
 // the f32 lane's (~0.33 ms with the staging left out): its adds and
 // multiplies issue on the integer pipe, at half the f32 rate.
 //
@@ -59,7 +60,6 @@
 #include <type_traits>
 
 #define KMAX 9
-#define THREADS 256      // K2's CTA
 #define MAX_THREADS 384  // K1's and K3's largest CTA (tile_threads)
 
 enum { V_DIRECT = 0, V_SEPARABLE = 1, V_V1 = 2, V_V2 = 3 };
@@ -125,8 +125,8 @@ __device__ __forceinline__ float maxp(float a, float b) {
 }
 
 // A stencil source: src(i, j) is the ladder input at row i, column j of the
-// stencil whose top-left corner the source was made for. K1 and K3 read a
-// shared-memory window (PtrSrc); K2 reads its ring through index maps.
+// stencil whose top-left corner the source was made for, in a shared-memory
+// window.
 template <typename A>
 struct PtrSrc {
   const A* p;
@@ -240,60 +240,6 @@ __device__ __forceinline__ A symrow(const TapsT<A>& T, int s, const Src& src) {
   return acc;
 }
 
-// core/sobel.spec_components at one pixel, in the accumulator type A, with
-// the row passes F, S and D read from `rows` (K2's shared-memory sink).
-template <int K, typename A, typename Src, typename Rows>
-__device__ __forceinline__ void components(const TapsT<A>& T, const Src& src, const Rows& rows,
-                                           int variant, int dirs, A g[4]) {
-  if (variant == V_DIRECT) {
-    g[0] = corr2d<K, A>(T.dense[0], src);
-    g[1] = corr2d<K, A>(T.dense[1], src);
-    if (dirs == 4) {
-      g[2] = corr2d<K, A>(T.dense[2], src);
-      g[3] = corr2d<K, A>(T.dense[3], src);
-    }
-    return;
-  }
-  A f[K], s[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    f[i] = rows.f(i);
-    s[i] = rows.s(i);
-  }
-  g[0] = vsum<K, A>(T.col[0], f);
-  g[1] = vsum<K, A>(T.col[1], s);
-  if (dirs == 2) return;
-  if (variant == V_SEPARABLE) {
-    g[2] = corr2d<K, A>(T.dense[2], src);
-    g[3] = corr2d<K, A>(T.dense[3], src);
-    return;
-  }
-  const A gp = symrow<K, A>(T, 0, src);
-  A gm;
-  if (variant == V_V1) {
-    gm = symrow<K, A>(T, 1, src);
-  } else {
-    A d[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) d[i] = rows.d(i);
-    gm = vsum<K, A>(T.col_f, f) - vsum<K, A>(T.col_d, d);
-  }
-  g[2] = halve(gp + gm);
-  g[3] = halve(gp - gm);
-}
-
-// The f32 components of one pixel: the ladder in A, then the cast.
-template <int K, typename A, typename Src, typename Rows>
-__device__ __forceinline__ void components_f32(const TapsT<A>& T, const Src& src, const Rows& rows,
-                                               int variant, int dirs, float c[4]) {
-  A a[4];
-  components<K, A>(T, src, rows, variant, dirs, a);
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    if (d < dirs) c[d] = to_f32(a[d]);
-  }
-}
-
 // core/sobel.magnitude: ((g0^2 + g1^2) + g2^2) + g3^2, IEEE sqrtf.
 __device__ __forceinline__ float magnitude(const float g[4], int dirs) {
   float m = g[0] * g[0];
@@ -359,8 +305,8 @@ struct LoadVal<uint8_t, int32_t> {
 // Dynamic shared memory edge_tile() needs: the halo window, in 4-byte
 // words. With NMS the halo is one wider; the inner tile's magnitude and
 // sectors stay in registers. (kernels/edge.py's window_smem_bytes, the bound
-// tile choices are checked against, also counts the magnitude and sector
-// buffers K2 keeps in shared memory.)
+// tile choices are checked against, still counts a magnitude and a sector
+// buffer, so that the tiles legal for an NMS call did not change.)
 __host__ __device__ inline size_t tile_smem_bytes(int bh, int bw, int radius, int nms) {
   const int halo = radius + (nms ? 1 : 0);
   return (size_t)(bh + 2 * halo) * (bw + 2 * halo) * sizeof(float);
@@ -385,60 +331,6 @@ __device__ __forceinline__ void emit_pixel(const Geom& g, long long img, int gy,
     if (out_primary != nullptr) out_primary[(size_t)img * plane + o] = m;
     tmax = maxp(tmax, m);
   }
-}
-
-// With NMS (K2): pixel (ey, ex) of tile (tr, tc)'s (bh+2) x (bw+2) inner
-// tile. Its magnitude goes to mag_ext; a centre pixel also stores its sector
-// and, when in the image, its components.
-__device__ __forceinline__ void emit_inner(const Geom& g, long long img, int tr, int tc, int ey,
-                                           int ex, const float c[4], float* mag_ext,
-                                           unsigned char* sector, float* __restrict__ out_comps) {
-  mag_ext[ey * (g.bw + 2) + ex] = magnitude(c, g.dirs);
-  if (ey >= 1 && ey <= g.bh && ex >= 1 && ex <= g.bw) {
-    const int oy = ey - 1, ox = ex - 1;
-    sector[oy * g.bw + ox] = (unsigned char)sector_of(c, g.dirs, g.tan_pi8);
-    const int gy = tr * g.bh + oy, gx = tc * g.bw + ox;
-    if (out_comps != nullptr && gy < g.h && gx < g.w) {
-      const size_t plane = (size_t)g.h * g.w;
-      const size_t o = (size_t)gy * g.w + gx;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        if (d < g.dirs) out_comps[((size_t)img * g.dirs + d) * plane + o] = c[d];
-      }
-    }
-  }
-}
-
-// With NMS (K2), once mag_ext and sector are complete: compare each in-image
-// centre pixel with its two neighbours along its sector, store the thin map
-// and the un-thinned magnitude (either may be null). Returns this thread's
-// max of the un-thinned magnitude.
-__device__ __forceinline__ float nms_suppress(const Geom& g, long long img, int tr, int tc,
-                                              const float* mag_ext, const unsigned char* sector,
-                                              float* __restrict__ out_primary,
-                                              float* __restrict__ out_mag) {
-  const int mw = g.bw + 2;
-  const size_t plane = (size_t)g.h * g.w;
-  float tmax = 0.0f;
-  for (int q = threadIdx.x; q < g.bh * g.bw; q += blockDim.x) {
-    const int oy = q / g.bw, ox = q - oy * g.bw;
-    const int gy = tr * g.bh + oy, gx = tc * g.bw + ox;
-    if (gy >= g.h || gx >= g.w) continue;
-    const float* c = mag_ext + (oy + 1) * mw + (ox + 1);
-    const float cv = c[0];
-    float n1, n2;
-    switch (sector[q]) {
-      case 0: n1 = c[-1]; n2 = c[1]; break;
-      case 1: n1 = c[-mw]; n2 = c[mw]; break;
-      case 2: n1 = c[-mw - 1]; n2 = c[mw + 1]; break;
-      default: n1 = c[-mw + 1]; n2 = c[mw - 1]; break;
-    }
-    const size_t o = (size_t)img * plane + (size_t)gy * g.w + gx;
-    if (out_primary != nullptr) out_primary[o] = (cv >= n1 && cv >= n2) ? cv : 0.0f;
-    if (out_mag != nullptr) out_mag[o] = cv;
-    tmax = maxp(tmax, cv);
-  }
-  return tmax;
 }
 
 // The compile-time taps of one 5-tap vector (the default operator's taps
@@ -728,8 +620,10 @@ struct EmitPixel {
 // magnitudes of the last three inner rows and their left and right
 // neighbours' (one shuffle each way a row) and the sector of the middle
 // row: once inner row y is in, centre row y - 2 is thinned. Every lane of
-// the warp calls it for every row (the shuffles need all 32).
-template <typename P>
+// the warp calls it for every row (the shuffles need all 32). kBand (K2)
+// limits the stores to the centre rows c0 .. c1 - 1 of a band that walks
+// inner rows c0 .. c1 + 1; K1 and K3 walk the whole inner tile.
+template <typename P, bool kBand = false>
 struct EmitNms {
   const Geom& g;
   long long img;
@@ -741,6 +635,7 @@ struct EmitNms {
   float m[3], ml[3], mr[3];  // inner rows y - 2, y - 1, y: own, left, right
   int sec_prev;
   float tmax;
+  int c0 = 0, c1 = 0;  // kBand: the band's centre rows
   template <typename A>
   __device__ __forceinline__ void operator()(int y, const A (&a)[4]) {
     float c[4];
@@ -758,7 +653,8 @@ struct EmitNms {
     if (centre && y >= 1 && y <= g.bh) {
       sec = sector_of(c, g.dirs, g.tan_pi8);
       const int gy = tr * g.bh + y - 1;
-      if (comps != nullptr && gy < g.h && gx < g.w) {
+      const bool own = !kBand || (y - 1 >= c0 && y - 1 < c1);
+      if (comps != nullptr && own && gy < g.h && gx < g.w) {
         const size_t o = (size_t)gy * g.w + gx;
 #pragma unroll
         for (int d = 0; d < 4; ++d) {
@@ -766,7 +662,7 @@ struct EmitNms {
         }
       }
     }
-    if (centre && y >= 2) {
+    if (centre && y >= 2 && (!kBand || y >= c0 + 2)) {
       const int gy = tr * g.bh + y - 2;
       if (gy < g.h && gx < g.w) {
         const float cv = m[1];

@@ -14,33 +14,52 @@
 // each (t, d, n) costs about 6 f32 operations (33.5 T/s) and one exp on the
 // special-function units (16 a clock per SM: 4.18 T/s at 132 SMs and
 // 1,980 MHz). At falcon-mamba-7b's (1, 2048, 8192, 16) in f32 that is
-// 0.060 ms of bytes, 0.048 ms of f32 operations and 0.064 ms of exp: the
-// scan is bound by its exponentials, then by its bytes.
+// 0.060 ms of bytes, 0.048 ms of f32 operations and 0.064 ms of exp. What
+// bounds the kernel in practice is instruction issue: an accurate expf is
+// about eight instructions, so a (t, d, n) costs some 15-20 of them.
 //
-// Design (simple and right first). The Pallas grid walks the L-chunks of a
-// (batch, channel block) in order and carries h in scratch; CUDA blocks run
-// in no order, so here one CTA owns a (batch, channel range) and loops over
-// all of L itself. The parallelism comes from d_inner x N: one thread per
-// state element (d, n), NP lanes per channel (N rounded up to a power of two
-// <= 32; lanes past N hold h = 0), THREADS / NP channels per CTA; at
-// (1, L, 8192, 16) that is 512 CTAs and 131,072 threads. y_t is the sum of a
-// channel's NP lanes by __shfl_xor_sync. Each chunk of TC time steps of x
-// and dt (coalesced along the channels) and of B and C (shared by every
-// channel) is staged in shared memory, and the next chunk's loads are
-// issued into registers before the current chunk is stepped through, so a
-// global load's latency is paid once a chunk, not once a step. A chunk's y
-// is kept in shared memory over x's slots (only the channel's own lanes
-// read them, and they have all read step s once the shuffles of step s are
-// done) and written out coalesced. expf, not __expf; --fmad=false keeps
-// h * da + bx two roundings, as the plain version rounds them.
+// What held the first version back (tools/profile_k5.py on an H100 80GB
+// HBM3 at 700 W): one thread per state element (d, n), so every (t, d, n)
+// re-read dt, x, B and C from shared memory, recomputed dt * x (the same
+// for all N lanes of a channel) and paid four __shfl_xor_sync and four adds
+// to reduce y: tens of instructions for one exp and six flops, 0.59 ms at
+// (1, 2048, 8192, 16) and 14.6 us of device time a launch at the ssm
+// engine's prefills (L = 8-64), about ten times its bound.
+//
+// Design. The Pallas grid walks the L-chunks of a (batch, channel block) in
+// order and carries h in scratch; CUDA blocks run in no order, so one CTA
+// owns a (batch, channel range) and loops over all of L itself. A thread
+// owns one channel and a group of G of its states, in registers: state n =
+// j + i * TPC for i < G, where j is the thread's index among the TPC = NP / G
+// threads of its channel (NP is N rounded up to a power of two; states past
+// N hold h = 0). dt * x is formed once a step per thread, B_t and C_t are
+// read from shared memory (the same words for every channel), and the G
+// exponentials of a step do not depend on h, so they and those of later
+// steps (the step loop is unrolled) overlap the G independent h chains. y_t
+// is reduced in registers, then over the TPC threads by log2(TPC) shuffles,
+// in the pairwise order of the first version's xor butterfly over NP lanes:
+// the strided groups make the butterfly's large offsets local adds, so y
+// keeps the first version's bits (and the plain version's, which matched
+// them). Chunks of TC steps of x and dt (coalesced along the channels) and
+// of B and C (contiguous in memory) are double-buffered in shared memory:
+// chunk k + 1 is copied with 16-byte cp.async while chunk k is stepped
+// through, wherever the rows are 16-byte aligned (any f32 or bf16 Mamba
+// shape); elsewhere plain loads fill the next buffer before the steps. A
+// chunk's y is collected in shared memory and written out coalesced. expf,
+// not __expf; --fmad=false keeps h * da + bx two roundings, as the plain
+// version rounds them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-constexpr int THREADS = 256;              // threads per CTA
-constexpr int NMAX = 32;                  // largest state size N instantiated
+#define K5_GROUP 4    // states a thread holds (more where N > 32 * K5_GROUP)
+#define K5_CHUNK 32   // time steps per staged chunk (fewer where N is large)
+
+constexpr int THREADS = 128;              // threads per CTA
+constexpr int NMAX = 1024;                // largest state size N instantiated
 constexpr int SMEM_BUDGET = 40 * 1024;    // bytes of static shared memory per CTA
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -48,64 +67,101 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// Time steps per staged chunk: the largest power of two <= 64 whose x, dt,
-// B and C tiles fit SMEM_BUDGET (64 at NP >= 4, 32 at NP 2, 16 at NP 1).
-template <int NP>
-__host__ __device__ constexpr int chunk_steps() {
-  int tc = 64;
-  while (tc > 1 && tc * (2 * (THREADS / NP) + 2 * NP) * 4 > SMEM_BUDGET) tc /= 2;
+// States a thread holds for a padded state size NP: K5_GROUP, or enough
+// that a channel's threads fit one warp.
+__host__ __device__ constexpr int group_of(int np) {
+  return np < K5_GROUP ? np : (np / 32 > K5_GROUP ? np / 32 : K5_GROUP);
+}
+
+// Time steps per staged chunk: the largest power of two <= K5_CHUNK whose
+// two buffers of x, dt, B and C and the chunk's y fit SMEM_BUDGET.
+__host__ __device__ constexpr int chunk_steps(int np, int es) {
+  const int ch = THREADS / (np / group_of(np));
+  int tc = K5_CHUNK;
+  while (tc > 1 && tc * (2 * (2 * ch + 2 * np) * es + 4 * ch) > SMEM_BUDGET) tc /= 2;
   return tc;
 }
 
-// Loads the chunk starting at time t0 into this thread's registers: XE
-// elements of x and dt, BE of B and C (0 past L, d_inner or N).
-template <int NP, int TC, int XE, int BE, typename T>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ xb, const T* __restrict__ dtb,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copies the chunk of TC steps from t0 into one buffer: x and dt rows of
+// the CTA's CH channels ([TC][CH]) and B and C ([TC][N], contiguous in
+// memory and in the buffer). ASYNC: 16-byte cp.async pieces (the caller
+// checked that every row and chunk starts on 16 bytes; a chunk's last piece
+// of B and C may be short, and is zero-filled); else plain loads and stores.
+template <bool ASYNC, int TC, int CH, typename T>
+__device__ __forceinline__ void copy_chunk(const T* __restrict__ xb, const T* __restrict__ dtb,
                                            const T* __restrict__ bb, const T* __restrict__ cb,
-                                           int t0, int d0, int len, int di, int n,
-                                           float (&rx)[XE], float (&rdt)[XE], float (&rb)[BE],
-                                           float (&rc)[BE]) {
-  constexpr int CH = THREADS / NP;
-#pragma unroll
-  for (int e = 0; e < XE; ++e) {
-    const int i = threadIdx.x + e * THREADS;
-    const int t = t0 + i / CH, d = d0 + i % CH;
-    const bool ok = t < len && d < di;
-    const long long off = (long long)t * di + d;
-    rx[e] = ok ? to_f32(xb[off]) : 0.f;
-    rdt[e] = ok ? to_f32(dtb[off]) : 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < BE; ++e) {
-    const int i = threadIdx.x + e * THREADS;
-    const int t = t0 + i / NP, k = i % NP;
-    const bool ok = i < TC * NP && t < len && k < n;
-    const long long off = (long long)t * n + k;
-    rb[e] = ok ? to_f32(bb[off]) : 0.f;
-    rc[e] = ok ? to_f32(cb[off]) : 0.f;
+                                           int t0, int d0, int len, int di, int n, T* sx, T* sdt,
+                                           T* sb, T* sc) {
+  const int steps = min(TC, len - t0);
+  const int chs = min(CH, di - d0);
+  if (ASYNC) {
+    constexpr int PER = 16 / sizeof(T);                 // elements per piece
+    const int row_pieces = chs / PER;                   // chs * sizeof(T) % 16 == 0
+    for (int q = threadIdx.x; q < steps * row_pieces; q += THREADS) {
+      const int s = q / row_pieces, e = (q - s * row_pieces) * PER;
+      const long long off = (long long)(t0 + s) * di + d0 + e;
+      cp_async16(sx + s * CH + e, xb + off, 16);
+      cp_async16(sdt + s * CH + e, dtb + off, 16);
+    }
+    const int bytes = steps * n * (int)sizeof(T);
+    const long long boff = (long long)t0 * n;
+    for (int q = threadIdx.x; q * 16 < bytes; q += THREADS) {
+      const int left = min(16, bytes - q * 16);
+      cp_async16(sb + q * PER, bb + boff + q * PER, left);
+      cp_async16(sc + q * PER, cb + boff + q * PER, left);
+    }
+  } else {
+    for (int q = threadIdx.x; q < steps * CH; q += THREADS) {
+      const int s = q / CH, c = q - s * CH;
+      if (c < chs) {
+        const long long off = (long long)(t0 + s) * di + d0 + c;
+        sx[q] = xb[off];
+        sdt[q] = dtb[off];
+      }
+    }
+    for (int q = threadIdx.x; q < steps * n; q += THREADS) {
+      sb[q] = bb[(long long)t0 * n + q];
+      sc[q] = cb[(long long)t0 * n + q];
+    }
   }
 }
 
-// One CTA per (channel range of THREADS / NP channels, batch row).
-template <int NP, typename T>
+// One CTA per (channel range of CH = THREADS / TPC channels, batch row).
+template <int NP, typename T, bool ASYNC>
 __global__ void __launch_bounds__(THREADS)
 selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                       const T* __restrict__ bm, const T* __restrict__ cm,
                       const float* __restrict__ a, T* __restrict__ y,
                       float* __restrict__ h_last, int len, int di, int n) {
-  constexpr int CH = THREADS / NP;                        // channels per CTA
-  constexpr int TC = chunk_steps<NP>();                   // time steps per chunk
-  constexpr int XE = TC * CH / THREADS;                   // x/dt elements a thread stages
-  constexpr int BE = (TC * NP + THREADS - 1) / THREADS;   // B/C elements a thread stages
-  static_assert(TC * CH % THREADS == 0, "a chunk of x must split evenly over the CTA");
-  __shared__ float sx[TC][CH];    // x of the chunk, then its y
-  __shared__ float sdt[TC][CH];
-  __shared__ float sb[TC][NP];
-  __shared__ float sc[TC][NP];
+  constexpr int G = group_of(NP);                   // states a thread holds
+  constexpr int TPC = NP / G;                       // threads a channel
+  constexpr int CH = THREADS / TPC;                 // channels a CTA
+  constexpr int TC = chunk_steps(NP, sizeof(T));    // time steps a chunk
+  static_assert(TPC <= 32 && TPC * G == NP, "a channel's threads share one warp");
+  __shared__ __align__(16) T sx[2][TC * CH];
+  __shared__ __align__(16) T sdt[2][TC * CH];
+  __shared__ __align__(16) T sb[2][TC * NP];
+  __shared__ __align__(16) T sc[2][TC * NP];
+  __shared__ float sy[TC * CH];
 
   const int tid = threadIdx.x;
-  const int c = tid / NP;         // this thread's channel within the CTA
-  const int k = tid % NP;         // and its state index
+  const int c = tid / TPC;        // this thread's channel within the CTA
+  const int j = tid % TPC;        // and its index among the channel's threads
   const int d0 = blockIdx.x * CH;
   const int d = d0 + c;
   const long long row = blockIdx.y;
@@ -115,63 +171,101 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const T* cb = cm + row * len * n;
   T* yb = y + row * len * di;
 
-  const bool live = d < di && k < n;
-  const float av = live ? a[(long long)d * n + k] : 0.f;
-  float h = 0.f;
+  float h[G], av[G];
+  bool live[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int k = j + i * TPC;
+    live[i] = d < di && k < n;
+    av[i] = live[i] ? a[(long long)d * n + k] : 0.f;
+    h[i] = 0.f;
+  }
 
-  float rx[XE], rdt[XE], rb[BE], rc[BE];
-  load_chunk<NP, TC, XE, BE>(xb, dtb, bb, cb, 0, d0, len, di, n, rx, rdt, rb, rc);
-  for (int t0 = 0; t0 < len; t0 += TC) {
-    // The registers hold chunk t0: stage it.
-#pragma unroll
-    for (int e = 0; e < XE; ++e) {
-      const int i = tid + e * THREADS;
-      sx[i / CH][i % CH] = rx[e];
-      sdt[i / CH][i % CH] = rdt[e];
-    }
-#pragma unroll
-    for (int e = 0; e < BE; ++e) {
-      const int i = tid + e * THREADS;
-      if (i < TC * NP) {
-        sb[i / NP][i % NP] = rb[e];
-        sc[i / NP][i % NP] = rc[e];
-      }
+  const int chunks = (len + TC - 1) / TC;
+  copy_chunk<ASYNC, TC, CH>(xb, dtb, bb, cb, 0, d0, len, di, n, sx[0], sdt[0], sb[0], sc[0]);
+  cp_async_commit();
+  for (int k = 0; k < chunks; ++k) {
+    const int buf = k & 1;
+    const int t0 = k * TC;
+    if (k + 1 < chunks) {
+      copy_chunk<ASYNC, TC, CH>(xb, dtb, bb, cb, t0 + TC, d0, len, di, n, sx[buf ^ 1],
+                                sdt[buf ^ 1], sb[buf ^ 1], sc[buf ^ 1]);
+      cp_async_commit();
+      cp_async_wait<1>();   // chunk k has landed; chunk k + 1 stays in flight
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    // The next chunk's loads are in flight while this one is stepped through.
-    if (t0 + TC < len)
-      load_chunk<NP, TC, XE, BE>(xb, dtb, bb, cb, t0 + TC, d0, len, di, n, rx, rdt, rb, rc);
+    const T* px = sx[buf] + c;
+    const T* pdt = sdt[buf] + c;
+    const T* pb = sb[buf] + j;
+    const T* pc = sc[buf] + j;
     const int steps = min(TC, len - t0);
 #pragma unroll 4
     for (int s = 0; s < steps; ++s) {
-      const float dtv = sdt[s][c];
-      const float da = expf(dtv * av);
-      h = h * da + (dtv * sx[s][c]) * sb[s][k];
-      float p = h * sc[s][k];
+      const float dtv = to_f32(pdt[s * CH]);
+      const float dx = dtv * to_f32(px[s * CH]);
+      float da[G], p[G];
 #pragma unroll
-      for (int off = NP / 2; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (k == 0) sx[s][c] = p;
+      for (int i = 0; i < G; ++i) {
+        da[i] = expf(dtv * av[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const float bv = live[i] ? to_f32(pb[s * n + i * TPC]) : 0.f;
+        const float cv = live[i] ? to_f32(pc[s * n + i * TPC]) : 0.f;
+        h[i] = h[i] * da[i] + dx * bv;
+        p[i] = h[i] * cv;
+      }
+      // The xor butterfly over NP lanes: offsets of TPC and more are adds
+      // of the thread's own states, the rest shuffles.
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int i = 0; i < off; ++i) p[i] = p[i] + p[i + off];
+      }
+#pragma unroll
+      for (int off = TPC / 2; off > 0; off >>= 1) p[0] += __shfl_xor_sync(0xffffffffu, p[0], off);
+      if (j == 0) sy[s * CH + c] = p[0];
     }
-    __syncthreads();
+    __syncthreads();   // every step's y is in sy, and buffer buf is free again
     // The chunk's y, coalesced along the channels.
-#pragma unroll
-    for (int e = 0; e < XE; ++e) {
-      const int i = tid + e * THREADS;
-      const int t = t0 + i / CH, dd = d0 + i % CH;
-      if (t < len && dd < di) store(&yb[(long long)t * di + dd], sx[i / CH][i % CH]);
+    for (int q = tid; q < steps * CH; q += THREADS) {
+      const int s = q / CH, cc = q - s * CH;
+      if (d0 + cc < di) store(&yb[(long long)(t0 + s) * di + d0 + cc], sy[q]);
     }
-    __syncthreads();   // before the next chunk overwrites the tiles
   }
-  if (live) h_last[(row * di + d) * n + k] = h;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    if (live[i]) h_last[(row * di + d) * n + j + i * TPC] = h[i];
+  }
+}
+
+// Whether every copy of a launch can be a 16-byte cp.async: the tensors
+// start on 16 bytes, and so does every row of x and dt, every channel range
+// and every chunk of B and C.
+template <int NP, typename T>
+static bool async_ok(const void* x, const void* dt, const void* b, const void* c, int len,
+                     int di, int n) {
+  constexpr int G = group_of(NP), CH = THREADS / (NP / G), TC = chunk_steps(NP, sizeof(T));
+  const size_t es = sizeof(T);
+  for (const void* p : {x, dt, b, c}) {
+    if ((uintptr_t)p % 16) return false;
+  }
+  return (di * es) % 16 == 0 && (CH * es) % 16 == 0 && ((size_t)TC * n * es) % 16 == 0 &&
+         ((size_t)len * n * es) % 16 == 0;
 }
 
 template <int NP, typename T>
 static cudaError_t launch_np(const void* x, const void* dt, const void* b, const void* c,
                              const void* a, void* y, void* h_last, int bsz, int len, int di,
-                             int n, cudaStream_t st) {
-  constexpr int CH = THREADS / NP;
+                             int n, int* route, cudaStream_t st) {
+  constexpr int CH = THREADS / (NP / group_of(NP));
   const dim3 grid((di + CH - 1) / CH, bsz);
-  selective_scan_kernel<NP, T><<<grid, THREADS, 0, st>>>(
+  const bool async = async_ok<NP, T>(x, dt, b, c, len, di, n);
+  *route = async ? 1 : 0;
+  auto kernel = async ? selective_scan_kernel<NP, T, true> : selective_scan_kernel<NP, T, false>;
+  kernel<<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const T*>(b),
       static_cast<const T*>(c), static_cast<const float*>(a), static_cast<T*>(y),
       static_cast<float*>(h_last), len, di, n);
@@ -181,28 +275,30 @@ static cudaError_t launch_np(const void* x, const void* dt, const void* b, const
 template <typename T>
 static cudaError_t launch_t(const void* x, const void* dt, const void* b, const void* c,
                             const void* a, void* y, void* h_last, int bsz, int len, int di,
-                            int n, cudaStream_t st) {
-  if (n <= 1) return launch_np<1, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  if (n <= 2) return launch_np<2, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  if (n <= 4) return launch_np<4, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  if (n <= 8) return launch_np<8, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  if (n <= 16) return launch_np<16, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  return launch_np<32, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
+                            int n, int* route, cudaStream_t st) {
+#define K5_NP(NPV)                                                                           \
+  if (n <= NPV)                                                                              \
+    return launch_np<NPV, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
+  K5_NP(1) K5_NP(2) K5_NP(4) K5_NP(8) K5_NP(16) K5_NP(32) K5_NP(64) K5_NP(128) K5_NP(256)
+  K5_NP(512) K5_NP(1024)
+#undef K5_NP
+  return cudaErrorInvalidValue;
 }
 
 // x, dt (B, L, d_inner), b, c (B, L, N): all f32 or all bf16 (bf16 != 0),
 // contiguous; a (d_inner, N) f32; y like x; h_last (B, d_inner, N) f32.
-// Launches on `stream` and returns the launch's cudaError_t.
+// Launches on `stream` and returns the launch's cudaError_t; *route is set
+// to the copy route taken (1: 16-byte cp.async, 0: plain loads).
 extern "C" int repro_selective_scan_launch(const void* x, const void* dt, const void* b,
                                            const void* c, const void* a, void* y,
                                            void* h_last, int bsz, int len, int di, int n,
-                                           int bf16, void* stream) {
+                                           int bf16, int* route, void* stream) {
   if (bsz <= 0 || len <= 0 || di <= 0 || n <= 0 || n > NMAX || bsz > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    return (int)launch_t<__nv_bfloat16>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
-  return (int)launch_t<float>(x, dt, b, c, a, y, h_last, bsz, len, di, n, st);
+    return (int)launch_t<__nv_bfloat16>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
+  return (int)launch_t<float>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
 }
 
 extern "C" int repro_selective_scan_max_state(void) { return NMAX; }

@@ -143,7 +143,6 @@ def choose_block_shape(
     precision: str = "f32",
     pipeline_depth: Optional[int] = None,
     nms: bool = False,
-    directions: int = 0,
 ) -> Tuple[int, int, int, str]:
     """Resolve ``(block_h, block_w, depth, source)`` as the reference does.
 
@@ -157,7 +156,7 @@ def choose_block_shape(
     tuned or default tile.
 
     The key carries no ``nms``, so on ``cuda`` a tuned tile whose
-    footprint for this call (``nms``, ``directions``, the depth) exceeds
+    footprint for this call (``nms`` and the depth) exceeds
     ``SMEM_MAX`` is skipped with a warning, like a corrupt entry: a cache
     entry never turns a call that works into an error.
     """
@@ -174,8 +173,7 @@ def choose_block_shape(
             depth = pipeline_depth
         bh, bw = block_h or bh, block_w or bw
         smem = tuning.tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
-                                      variant=variant, directions=directions,
-                                      precision=precision, nms=nms)
+                                      nms=nms)
         if backend != "cuda" or smem <= ekern.SMEM_MAX:
             return bh, bw, depth, "tuned"
         warnings.warn(
@@ -266,7 +264,7 @@ def edge(
         dtype=_kernel_dtype_name(x), backend=backend, padding=config.padding,
         layout="rgb" if rgb else "gray", block_h=config.block_h, block_w=config.block_w,
         cache=tuning_cache, precision=precision, pipeline_depth=config.pipeline_depth,
-        nms=config.nms, directions=config.directions,
+        nms=config.nms,
     )
     run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
     out = run(
@@ -344,8 +342,7 @@ def stream_block_shape(
     bh, bw, _depth, _src = choose_block_shape(
         h, w, operator=config.operator, variant=config.variant, dtype=dtype,
         backend=backend, padding=config.padding, layout="rgb" if rgb else "gray",
-        block_h=config.block_h, block_w=config.block_w, pipeline_depth=0,
-        nms=config.nms, directions=config.directions,
+        block_h=config.block_h, block_w=config.block_w, pipeline_depth=0, nms=config.nms,
     )
     return bh, bw
 

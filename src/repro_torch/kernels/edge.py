@@ -2,8 +2,9 @@
 
 ``edge_cuda`` launches K1, ``csrc/edge.cu`` (the Hopper port of
 ``repro/kernels/edge.py::_kernel``), or with ``pipeline_depth`` 2..8 K2,
-``csrc/edge_pipelined.cu`` (the port of ``_pipelined_kernel``, the DMA
-ring), through ``edge_pipelined_cuda``; ``edge_stream_cuda`` launches K3,
+``csrc/edge_pipelined.cu`` (the port of ``_pipelined_kernel``: K1's walk
+fed by a ring of windows that a producer warp copies ahead, on a
+persistent grid), through ``edge_pipelined_cuda``; ``edge_stream_cuda`` launches K3,
 ``csrc/edge_stream.cu`` (the port of ``_stream_kernel``). They take CUDA
 tensors and raise on anything else. ``edge_plain`` and
 ``edge_stream_plain`` compute the same outputs from ``repro_torch.core``
@@ -43,6 +44,8 @@ __all__ = [
     "kernel_dtype",
     "window_smem_bytes",
     "pipelined_smem_bytes",
+    "pipelined_bands",
+    "pipelined_tiles",
     "const_taps_instance",
     "PIPELINE_DEPTHS",
 ]
@@ -53,7 +56,9 @@ KMAX = 9                 # largest operator size csrc/edge.cu instantiates
 SMEM_MAX = 232448        # shared memory one CTA may opt into on an H100
 SMEM_DEFAULT = 48 * 1024  # default tiles stay under the no-opt-in limit
 PIPELINE_DEPTHS = range(2, 9)  # K2's ring depths; 0 means K1
-STRIP = 16               # K2's row-pass strip height (csrc/edge_pipelined.cu)
+K2_CONSUMERS = 512       # K2's threads a CTA aims at (csrc/edge_pipelined.cu)
+K2_CONSUMERS_WIDE = 384  # the same for operator sizes 7 and 9
+K2_MAX_THREADS = 512     # K2's largest CTA
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,8 +70,8 @@ def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False
     halo window (``csrc/edge_tile.cuh``, ``tile_smem_bytes``, what K1 and K3
     allocate), and with NMS also the f32 magnitude of the ``(block + 2)``
     inner tile and a sector byte per output pixel. K1 and K3 keep those two
-    in registers; the bound still counts them, as the NMS buffers of K2's
-    layout do, so that the tiles legal for an NMS call did not change."""
+    in registers; the bound still counts them, so that the tiles legal for
+    an NMS call did not change."""
     halo = window_radius(radius, nms)
     smem = 4 * (block_h + 2 * halo) * (block_w + 2 * halo)
     if nms:
@@ -78,51 +83,71 @@ def _align16(b: int) -> int:
     return _round_up(b, 16)
 
 
-def sink_slots(variant: str, directions: int) -> int:
-    """Row-pass planes K2 keeps in shared memory (reference ``_sink_slots``):
-    F and S for the separable ladders, plus v2's D with 4 directions;
-    ``direct`` has none."""
-    if variant == "direct":
-        return 0
-    return 3 if (variant == "v2" and directions != 2) else 2
+def _tile_threads(bw: int, nms: bool) -> int:
+    """K1's CTA (``csrc/edge_tile.cuh``, ``tile_threads``): a thread per
+    column, with NMS a warp per 30 columns, at most 384."""
+    t = _round_up(bw, 30) // 30 * 32 if nms else _round_up(bw, 32)
+    return min(t, 384)
 
 
 def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: int,
-                         channels: int, nms: bool, variant: str, directions: int,
-                         acc: str = "f32") -> int:
+                         channels: int, nms: bool) -> int:
     """Dynamic shared memory of one K2 CTA (``csrc/edge_pipelined.cu``,
-    ``pipelined_layout``), each part aligned to 16 B:
+    ``pipelined_layout``), for the window of ``eh x ew = (bh + 2 R_in) x
+    (bw + 2 R_in)`` (``R_in`` = radius, + 1 with NMS):
 
-      * the ring: ``depth`` slots of the raw ``(bh + 2 R_in) x (bw + 2 R_in)``
-        window (``R_in`` = radius, + 1 with NMS), ``channels`` x ``in_bytes``
-        per pixel, each row padded to 4 B (+ 3 B for a u8 row's lead);
-      * an int32 byte offset per row and per column of the extended tile;
-      * one strip of the extended tile read out of the ring: ``min(STRIP,
-        mh) + 2 radius`` rows x ``bw + 2 R_in`` 4-byte values (``mh x mw``
-        is the tile, or with NMS its inner tile);
-      * the row-pass sink: :func:`sink_slots` planes of as many rows x
-        ``mw`` 4-byte values;
-      * with NMS, K1's inner-tile f32 magnitude and a sector byte per pixel.
+      * the ring: ``depth`` slots, each the larger of the two copy routes'
+        layouts of the raw window, rounded up to 128 B. cp.async: ``eh``
+        rows of the window row's ``ew x channels x in_bytes`` bytes behind
+        up to 15 of lead, in 16-byte words. TMA (gray only): ``chunks x
+        row_boxes`` boxes of ``box_h`` rows x ``box_w`` elements (at most
+        256 each, ``box_w`` a multiple of 16 B) covering the window and up
+        to 15 B of lead, each box's bytes rounded up to 128;
+      * an int32 byte offset per window row and per window column;
+      * K1's window, ``eh x ew`` 4-byte values (f32, or int32 on the
+        integer lane);
+      * two buffers of warp maxima (``K2_MAX_THREADS / 32`` f32 each) and an
+        mbarrier (8 B) per slot;
+      * 128 B for the layout itself, which the kernel keeps in shared memory;
 
-    ``acc`` is the lane, ``"f32"`` or ``"int"``; both accumulate in 4 bytes.
+    each part but the barriers starting on 16 B.
     """
-    if acc not in ("f32", "int"):
-        raise ValueError(f"unknown accumulator lane {acc!r}; expected 'f32' or 'int'")
-    nms = int(bool(nms))
-    r_in = radius + nms
-    wh, ww = bh + 2 * r_in, bw + 2 * r_in
-    row_stride = _round_up(ww * channels * in_bytes + (3 if in_bytes == 1 else 0), 4)
-    mh, mw = bh + 2 * nms, bw + 2 * nms
-    sink_rows = min(mh, STRIP) + 2 * radius
-    off = depth * _align16(wh * row_stride)
-    off = _align16(off + 4 * wh)
-    off = _align16(off + 4 * ww)
-    off = _align16(off + 4 * sink_rows * ww)
-    off = _align16(off + 4 * sink_slots(variant, directions) * sink_rows * mw)
-    if nms:
-        off = _align16(off + 4 * mh * mw)
-        off = _align16(off + bh * bw)
-    return off
+    r_in = radius + int(bool(nms))
+    eh, ew = bh + 2 * r_in, bw + 2 * r_in
+    slot = eh * _round_up(ew * channels * in_bytes + 15, 16)
+    if channels == 1:
+        m = 16 // in_bytes
+        units = ew + m - 1
+        chunks = -(-units // (256 // m * m))
+        box_w = _round_up(-(-units // chunks), m)
+        row_boxes = -(-eh // 256)
+        box_h = -(-eh // row_boxes)
+        slot = max(slot, chunks * row_boxes * _round_up(box_h * box_w * in_bytes, 128))
+    off = depth * _round_up(slot, 128)
+    off = _align16(off + 4 * eh)
+    off = _align16(off + 4 * ew)
+    off = _align16(off + 4 * eh * ew)
+    off = _align16(off + 2 * (K2_MAX_THREADS // 32) * 4 + depth * 8)
+    return off + 128
+
+
+def pipelined_bands(bh: int, bw: int, nms: bool, size: int = 5) -> list:
+    """The rows each band of K2's threads walks (``csrc/
+    edge_pipelined.cu``, ``pipelined_bands``): as many of K1's CTAs as fit
+    ``K2_CONSUMERS`` threads (``K2_CONSUMERS_WIDE`` for operators of size 7
+    and 9), at most one per 16 rows, at least one, the tile's ``bh`` rows
+    split evenly; ``[(first row, end row), ...]``."""
+    consumers = K2_CONSUMERS if size <= 5 else K2_CONSUMERS_WIDE
+    bands = max(1, min(consumers // _tile_threads(bw, nms), bh // 16))
+    per = -(-bh // bands)
+    return [(b * per, min(bh, (b + 1) * per)) for b in range(bands)]
+
+
+def pipelined_tiles(n_tiles: int, ctas: int) -> list:
+    """K2's persistent schedule: CTA ``b`` of ``ctas`` takes tiles ``b, b +
+    ctas, ...`` of the batch's ``n_tiles`` (raster order, ``(n, gh, gw)``);
+    one list of tile indices per CTA."""
+    return [list(range(b, n_tiles, ctas)) for b in range(ctas)]
 
 
 def default_block_shape(h: int, w: int, size: int = 5) -> tuple:
@@ -322,17 +347,19 @@ def _lib(name: str) -> ctypes.CDLL:
     # Each returns a cudaError_t as int.
     entry, extra = {
         "edge": ("repro_edge_launch", [i, i] + [p] * 5),
-        "edge_pipelined": ("repro_pipelined_launch", [i, i] + [p] * 5),
+        "edge_pipelined": ("repro_pipelined_launch", [i, i, i, i] + [p] * 5),
         "edge_stream": ("repro_stream_launch", [i] + [p] * 6),
     }[name]
     launch = getattr(lib, entry)
     launch.argtypes = geometry + extra
     launch.restype = i
     if name == "edge_pipelined":
-        # pipelined_layout's footprint, held against pipelined_smem_bytes by
-        # chip_smoke.py and the gpu tests (not on every launch).
-        lib.repro_pipelined_smem_bytes.argtypes = [i] * 9
+        # pipelined_layout's footprint and pipelined_bands' count, held
+        # against pipelined_smem_bytes and pipelined_bands by chip_smoke.py
+        # and the gpu tests (not on every launch).
+        lib.repro_pipelined_smem_bytes.argtypes = [i] * 7
         lib.repro_pipelined_smem_bytes.restype = ctypes.c_longlong
+        lib.repro_pipelined_bands.argtypes, lib.repro_pipelined_bands.restype = [i] * 4, i
     for fn in ("repro_taps_len", "repro_max_size"):
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = [], i
     lib.repro_error_string.argtypes, lib.repro_error_string.restype = [i], ctypes.c_char_p
@@ -511,18 +538,27 @@ def _check_grid(n: int, bh: int, bw: int, gh: int, gw: int, radius: int, nms: bo
 
 
 def _pipelined_smem(x: torch.Tensor, bh: int, bw: int, spec: OperatorSpec, depth: int,
-                    rgb: bool, nms: bool, variant: str, directions: int, acc: str) -> int:
+                    rgb: bool, nms: bool) -> int:
     """K2's footprint for this call; raises when it exceeds ``SMEM_MAX``
     (never a lower depth, never K1 in K2's place)."""
     smem = pipelined_smem_bytes(bh, bw, spec.radius, depth, x.element_size(), 3 if rgb else 1,
-                                nms, variant, directions, acc)
+                                nms)
     if smem > SMEM_MAX:
         raise ValueError(
             f"pipeline_depth={depth} with tile {bh}x{bw} needs {smem} B of shared memory "
-            f"(ring, strip, row-pass sink{', NMS buffers' if nms else ''}); a CTA may use "
+            f"(ring, offsets, window{' with its NMS halo' if nms else ''}); a CTA may use "
             f"at most {SMEM_MAX} B"
         )
     return smem
+
+
+def tma_route(x: torch.Tensor, w: int, rgb: bool) -> bool:
+    """Whether K2 copies this tensor's windows by TMA boxes: gray frames
+    whose base and row pitch are 16-byte aligned (the tensor map's rule;
+    RGB rows would split pixels across boxes that start on 16 bytes). Else
+    K2 takes 16-byte ``cp.async``. The shape decides; both routes give the
+    same bits."""
+    return not rgb and x.data_ptr() % 16 == 0 and (w * x.element_size()) % 16 == 0
 
 
 def _geometry(x: torch.Tensor, rgb: bool, n: int, h: int, w: int, bh: int, bw: int,
@@ -579,8 +615,8 @@ def edge_cuda(
     ``instance``: ``"auto"`` runs K1's compile-time instance where
     :func:`const_taps_instance` says it applies and the run-time-taps
     instance elsewhere; ``"runtime"`` forces the run-time-taps instance (to
-    hold the two against each other). Both give the same bits. K2 has one
-    instance and ignores it.
+    hold the two against each other). Both give the same bits, on K1 and
+    on K2.
 
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
@@ -595,7 +631,7 @@ def edge_cuda(
             x, spec=spec, variant=variant, directions=directions, padding=padding,
             block_h=block_h, block_w=block_w, rgb=rgb, out_components=out_components,
             out_nms=out_nms, out_mag=out_mag, with_max=with_max, precision=precision,
-            pipeline_depth=pipeline_depth)
+            pipeline_depth=pipeline_depth, instance=instance)
     _check_out_mag(out_nms, out_mag)
     _check_launch(x, "edge_cuda", spec, variant, directions, padding)
     acc_int = _check_precision(x, spec, rgb, precision)
@@ -674,50 +710,64 @@ def edge_pipelined_cuda(
     with_max: bool = False,
     precision: str = "f32",
     pipeline_depth: int = 2,
+    instance: str = "auto",
 ):
-    """Launch K2 (``csrc/edge_pipelined.cu``), the DMA-ring kernel, with a
-    ring of ``pipeline_depth`` (2..8) input windows.
+    """Launch K2 (``csrc/edge_pipelined.cu``), the prefetching kernel, with
+    a ring of ``pipeline_depth`` (2..8) input windows.
 
-    Arguments and outputs are :func:`edge_cuda`'s, bit for bit. One CTA per
-    (image, tile row) walks its tiles in order, ``pipeline_depth - 1``
-    window copies ahead of its compute. Raises ``ValueError`` naming the
-    bytes when the ring, the row-pass sink and the NMS buffers exceed
-    ``SMEM_MAX`` (:func:`pipelined_smem_bytes`): it never lowers the depth
-    and never launches K1 instead. Launches on PyTorch's current stream and
-    does not synchronise. ``edge_pipelined_cuda.launches`` counts the
-    launches and ``edge_pipelined_cuda.int_launches`` those on the integer
-    lane.
+    Arguments and outputs are :func:`edge_cuda`'s, bit for bit, and so is
+    ``instance``: K2 runs K1's walk on either instance. A persistent grid
+    (as many CTAs as fit on the SMs) takes the batch's tiles in raster
+    order (:func:`pipelined_tiles`); each CTA keeps its next
+    ``pipeline_depth`` windows copied ahead of the one it walks, by TMA
+    where :func:`tma_route` says so and by 16-byte ``cp.async`` elsewhere.
+    Raises ``ValueError`` naming the bytes when the ring, the offsets and
+    the window exceed ``SMEM_MAX`` (:func:`pipelined_smem_bytes`): it never
+    lowers the depth and never launches K1 instead; a tensor map that cannot
+    be encoded raises too. Launches on PyTorch's current stream and does not
+    synchronise. ``edge_pipelined_cuda.launches`` counts the launches,
+    ``int_launches`` those on the integer lane, ``const_launches`` those on
+    the compile-time instance, ``tma_launches`` and ``cp_async_launches``
+    those on each copy route.
     """
     if not (isinstance(pipeline_depth, int) and pipeline_depth in PIPELINE_DEPTHS):
         raise ValueError(f"K2 takes a ring depth of 2..8, got {pipeline_depth!r}")
+    _check_instance(instance)
     _check_out_mag(out_nms, out_mag)
     _check_launch(x, "edge_pipelined_cuda", spec, variant, directions, padding)
     acc_int = _check_precision(x, spec, rgb, precision)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
-    if n * gh >= 2**31:
-        raise ValueError(f"{n * gh} tile rows exceed the CUDA grid limit")
-    _pipelined_smem(x, bh, bw, spec, pipeline_depth, rgb, out_nms, variant, directions,
-                    precision)
+    if n * gh * gw >= 2**31:
+        raise ValueError(f"{n * gh * gw} tiles exceed the persistent grid's tile index")
+    _pipelined_smem(x, bh, bw, spec, pipeline_depth, rgb, out_nms)
     outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
                           with_max)
     if n > 0 and h > 0 and w > 0:
+        const = instance == "auto" and const_taps_instance(spec, variant, directions)
+        tma = tma_route(x, w, rgb)
         lib = _lib("edge_pipelined")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.repro_pipelined_launch(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
-                int(acc_int), pipeline_depth, *ptrs, stream,
+                int(const), int(acc_int), pipeline_depth, int(tma), *ptrs, stream,
             )
         _raise_on_error(lib, "edge_pipelined", err)
         edge_pipelined_cuda.launches += 1
         edge_pipelined_cuda.int_launches += int(acc_int)
+        edge_pipelined_cuda.const_launches += int(const)
+        edge_pipelined_cuda.tma_launches += int(tma)
+        edge_pipelined_cuda.cp_async_launches += int(not tma)
     return outs
 
 
 edge_pipelined_cuda.launches = 0
 edge_pipelined_cuda.int_launches = 0
+edge_pipelined_cuda.const_launches = 0
+edge_pipelined_cuda.tma_launches = 0
+edge_pipelined_cuda.cp_async_launches = 0
 
 
 def edge_stream_cuda(

@@ -16,7 +16,8 @@ to L and must divide it, and so ``block_d`` and d_inner; a call the
 reference refuses (an ``AssertionError`` there) raises ``ValueError`` here.
 They only gate the call: each CUDA block loops over all of L itself and
 masks its ragged channel range, so ``chunk=L, block_d=d_inner`` serves any
-shape.
+shape. The kernel holds each channel's state in groups of registers across
+the threads of one warp, which takes N up to :data:`NMAX` (1,024).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes
 :func:`selective_scan_plain`. ``backend="torch"`` names the plain version
@@ -35,7 +36,7 @@ from repro_torch.kernels.dispatch import resolve_backend
 
 __all__ = ["selective_scan", "selective_scan_plain", "NMAX"]
 
-NMAX = 32                # largest state size N csrc/selective_scan.cu instantiates
+NMAX = 1024              # largest state size N csrc/selective_scan.cu instantiates
 PLAIN_CHUNK = 256        # time steps whose decay and input terms the plain version holds at once
 _DTYPES = (torch.float32, torch.bfloat16)   # what the kernel takes
 _GRID_Y = 65535          # CUDA's limit on grid y (batch)
@@ -95,7 +96,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = build.load("selective_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_selective_scan_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.repro_selective_scan_launch.argtypes = [p] * 7 + [i] * 5 + [ctypes.POINTER(i), p]
     lib.repro_selective_scan_launch.restype = i
     lib.repro_selective_scan_max_state.argtypes = []
     lib.repro_selective_scan_max_state.restype = i
@@ -122,16 +123,18 @@ def _launch(x, dt, b_mat, c_mat, a) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty_like(x)
     h_last = torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
     lib = _lib()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_selective_scan_launch(
             x.data_ptr(), dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), a32.data_ptr(),
             y.data_ptr(), h_last.data_ptr(), bsz, l, di, n, int(x.dtype == torch.bfloat16),
-            stream)
+            ctypes.byref(route), stream)
     if err != 0:
         text = lib.repro_error_string(err).decode()
         raise RuntimeError(f"selective_scan kernel launch failed: {text} (cudaError {err})")
     selective_scan.launches += 1
+    selective_scan.async_launches += int(route.value == 1)
     return y, h_last
 
 
@@ -150,7 +153,10 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     (A of any float type, read in f32); it launches on PyTorch's current
     stream and does not synchronise. Raises for a call the reference
     refuses, an input the kernel does not take, or a launch the device
-    refuses. ``selective_scan.launches`` counts the kernel's launches.
+    refuses. ``selective_scan.launches`` counts the kernel's launches and
+    ``selective_scan.async_launches`` those whose chunks were copied by
+    16-byte ``cp.async`` (every row 16-byte aligned; the others use plain
+    loads).
     """
     _check(x, dt, b_mat, c_mat, a, chunk, block_d)
     if resolve_backend(backend, x.device) == "torch":
@@ -159,3 +165,4 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
 
 
 selective_scan.launches = 0
+selective_scan.async_launches = 0

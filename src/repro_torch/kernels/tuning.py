@@ -397,27 +397,24 @@ def _spec(operator: Optional[str], size: int):
 
 
 def tile_smem_bytes(bh: int, bw: int, spec, *, depth: int = 0, layout: str = "gray",
-                    dtype: str = "float32", variant: str = "v2", directions: int = 0,
-                    precision: str = "f32", nms: bool = False) -> int:
+                    dtype: str = "float32", nms: bool = False) -> int:
     """Shared memory one CTA reserves for the tile: K1's halo window (and
-    NMS buffers) at depth 0, K2's ring, offsets, strip and sink (and NMS
-    buffers) at depths 2..8."""
+    NMS buffers) at depth 0, K2's ring, offsets and window (one wider with
+    NMS) at depths 2..8, whatever the variant, directions and lane (the
+    integer lane's window is 4 bytes an element too)."""
     if not depth:
         return window_smem_bytes(bh, bw, spec.radius, nms)
-    return pipelined_smem_bytes(
-        bh, bw, spec.radius, depth, np.dtype(dtype).itemsize, 3 if layout == "rgb" else 1,
-        nms, spec.resolve_variant(variant), spec.resolve_directions(directions), precision)
+    return pipelined_smem_bytes(bh, bw, spec.radius, depth, np.dtype(dtype).itemsize,
+                                3 if layout == "rgb" else 1, nms)
 
 
 def tile_fits(bh: int, bw: int, spec, *, depth: int = 0, layout: str = "gray",
-              dtype: str = "float32", variant: str = "v2", directions: int = 0,
-              precision: str = "f32") -> bool:
+              dtype: str = "float32") -> bool:
     """Whether a tuned ``(bh, bw, depth)`` can serve every call that looks
     it up: the key carries no ``nms``, and the stream path takes the tile
     of the depth-0 slot for K3, so the tile must fit with NMS on at its
     depth and in K1/K3's NMS window."""
-    kw = dict(layout=layout, dtype=dtype, variant=variant, directions=directions,
-              precision=precision, nms=True)
+    kw = dict(layout=layout, dtype=dtype, nms=True)
     return (tile_smem_bytes(bh, bw, spec, **kw) <= SMEM_MAX
             and tile_smem_bytes(bh, bw, spec, depth=depth, **kw) <= SMEM_MAX)
 
@@ -444,9 +441,6 @@ def legal_block_shapes(
     backend: str = "cuda",
     layout: str = "gray",
     dtype: str = "float32",
-    variant: str = "v2",
-    directions: int = 0,
-    precision: str = "f32",
     depth: int = 0,
 ) -> List[Tuple[int, int]]:
     """All ``(block_h, block_w)`` candidates legal for an ``h x w`` image at
@@ -467,8 +461,7 @@ def legal_block_shapes(
                 continue
             if (bh >= 2 * h and bh != _CAND_H[0]) or (bw >= 2 * w and bw != _CAND_W[0]):
                 continue
-            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
-                             variant=variant, directions=directions, precision=precision):
+            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype):
                 continue
             shapes.append((bh, bw))
     return shapes
@@ -525,15 +518,11 @@ def sweep(
     rows = []
     for depth in depths:
         cands = shapes if shapes is not None else legal_block_shapes(
-            h, w, operator=spec.name, backend=backend, layout=layout, dtype=dtype,
-            variant=variant, directions=directions, precision=precision, depth=depth)
+            h, w, operator=spec.name, backend=backend, layout=layout, dtype=dtype, depth=depth)
         for bh, bw in cands:
-            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
-                             variant=variant, directions=directions, precision=precision):
-                continue  # this depth's ring and NMS buffers do not fit beside this tile
-            smem = tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
-                                   variant=variant, directions=directions,
-                                   precision=precision)
+            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype):
+                continue  # this depth's ring and NMS halo do not fit beside this tile
+            smem = tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype)
             us = measure_us(_run_shape, img, spec, variant, directions, padding, backend,
                             bh, bw, precision, depth, iters=iters)
             rows.append({

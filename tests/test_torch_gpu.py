@@ -320,7 +320,7 @@ def test_depth_over_the_shared_memory_budget_raises(cuda_device):
     spec = get_operator("sobel5")
     x = torch.zeros((1, 256, 256), device=cuda_device)
     k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
-    with pytest.raises(ValueError, match=r"pipeline_depth=3 with tile 64x256 needs 295712 B"):
+    with pytest.raises(ValueError, match=r"pipeline_depth=3 with tile 64x256 needs 288128 B"):
         ekern.edge_cuda(x, spec=spec, variant="v2", directions=4, block_h=64, block_w=256,
                         pipeline_depth=3)
     with pytest.raises(ValueError, match="shared memory"):
@@ -357,23 +357,59 @@ def test_failing_k2_launch_raises_without_fallback(cuda_device, monkeypatch):
 
 def test_k2_footprint_matches_the_source(cuda_device):
     """edge.pipelined_smem_bytes, which the wrapper and the tuner size K2
-    by, equals pipelined_layout in csrc/edge_pipelined.cu."""
+    by, equals pipelined_layout in csrc/edge_pipelined.cu, and
+    edge.pipelined_bands the source's band count."""
     lib = ekern._lib("edge_pipelined")
-    for bh, bw in ((1, 1), (8, 32), (32, 64), (64, 256), (128, 128)):
+    for bh, bw in ((1, 1), (8, 32), (32, 64), (29, 96), (64, 256), (128, 128), (300, 512)):
         for radius in (1, 2, 3, 4):
-            for depth in ekern.PIPELINE_DEPTHS:
-                for in_bytes, channels in ((1, 1), (4, 1), (1, 3), (4, 3)):
-                    for nms in (False, True):
-                        for variant, code in ekern._VARIANT_CODES.items():
-                            for dirs in (2, 4):
-                                want = ekern.pipelined_smem_bytes(bh, bw, radius, depth,
-                                                                  in_bytes, channels, nms,
-                                                                  variant, dirs)
-                                got = lib.repro_pipelined_smem_bytes(
-                                    bh, bw, radius, depth, in_bytes, channels, int(nms), code,
-                                    dirs)
-                                assert got == want, (bh, bw, radius, depth, in_bytes,
-                                                     channels, nms, variant, dirs)
+            for nms in (False, True):
+                assert lib.repro_pipelined_bands(bh, bw, int(nms), 2 * radius + 1) == len(
+                    ekern.pipelined_bands(bh, bw, nms, 2 * radius + 1)), (bh, bw, radius, nms)
+                for depth in ekern.PIPELINE_DEPTHS:
+                    for in_bytes, channels in ((1, 1), (4, 1), (1, 3), (4, 3)):
+                        want = ekern.pipelined_smem_bytes(bh, bw, radius, depth, in_bytes,
+                                                          channels, nms)
+                        got = lib.repro_pipelined_smem_bytes(bh, bw, radius, depth, in_bytes,
+                                                             channels, int(nms))
+                        assert got == want, (bh, bw, radius, depth, in_bytes, channels, nms)
+
+
+def _offset(x):
+    """A contiguous copy of x whose base is one element past 16 bytes: K2
+    takes the cp.async route whatever the row pitch."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("shape", ((1, 2, 3), (2, 37, 53), (2, 29, 96), (3, 70, 260),
+                                   (5, 300, 640)),
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb", "int"))
+@pytest.mark.parametrize("depth", tuple(ekern.PIPELINE_DEPTHS))
+def test_k2_depths_routes_and_instances_equal_k1(cuda_device, depth, kind, shape):
+    """K2 at every ring depth, on f32, u8 and RGB frames and the integer
+    lane, NMS off and on, both instances and both copy routes (gray rows of
+    16 bytes take TMA, the rest and an offset copy cp.async), on batches with
+    fewer tiles than the persistent grid has CTAs (1x2x3) and with more
+    (5x300x640 on 16x64 tiles: 950), equals K1 and edge_plain bit for bit."""
+    x = _frames("u8" if kind == "int" else kind, shape, cuda_device)
+    rgb, w = kind == "rgb", shape[2]
+    spec = get_operator("sobel5")
+    tma0, cp0 = ekern.edge_pipelined_cuda.tma_launches, ekern.edge_pipelined_cuda.cp_async_launches
+    for xx in (x, _offset(x)):
+        for extra in K2_EXTRAS[:1] + K2_EXTRAS[-1:]:
+            for instance in ("auto", "runtime"):
+                kw = dict(spec=spec, variant="v2", directions=4, block_h=16, block_w=64,
+                          rgb=rgb, precision="int" if kind == "int" else "f32", **extra)
+                a = ekern.edge_cuda(xx, pipeline_depth=depth, instance=instance, **kw)
+                assert _same(a, ekern.edge_plain(xx, **kw)), (extra, instance)
+                assert _same(a, ekern.edge_cuda(xx, instance=instance, **kw)), (extra, instance)
+    aligned = not rgb and (w * x.element_size()) % 16 == 0   # TMA: gray, 16-byte rows
+    tma = ekern.edge_pipelined_cuda.tma_launches - tma0
+    cp = ekern.edge_pipelined_cuda.cp_async_launches - cp0
+    assert (tma, cp) == ((4, 4) if aligned else (0, 8))
 
 
 def test_tuned_tile_too_big_for_nms_serves_every_call(cuda_device, tmp_path, monkeypatch):
@@ -522,7 +558,8 @@ def _scan_inputs(shape, dtype, device, seed=13):
 
 @pytest.mark.parametrize("shape", [(2, 32, 16, 4), (2, 7, 24, 1), (1, 1, 200, 4),
                                    (2, 7, 200, 16), (1, 300, 24, 16), (3, 5, 5, 3),
-                                   (1, 33, 40, 32), (1, 64, 8192, 16)],
+                                   (1, 33, 40, 32), (1, 64, 8192, 16), (2, 40, 64, 33),
+                                   (1, 129, 48, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_selective_scan_cuda_equals_plain(cuda_device, shape, dtype):
@@ -544,7 +581,36 @@ def test_selective_scan_cuda_equals_plain(cuda_device, shape, dtype):
         assert bool(((y.float() - w).abs() <= ulp + K5_TOL).all())
 
 
+@pytest.mark.parametrize("l", (1, 31, 33, 64, 100, 2049))
+@pytest.mark.parametrize("n", (1, 3, 16, 17, 32))
+@pytest.mark.parametrize("bsz", (1, 4))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_selective_scan_cuda_lengths_states_and_batches(cuda_device, l, n, bsz, dtype):
+    """K5 with L from 1 to 2,049 (off the 32-step chunks), N from 1 to 32,
+    batches of 1 and 4, f32 and bf16: y and the final state against the
+    plain version, y bit for bit in f32 (the reduction keeps the plain
+    version's order for N <= 32), the copy route counted."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    shape = (bsz, l, 96, n)
+    args = _scan_inputs(shape, dtype, cuda_device, seed=l * 37 + n)
+    before = selective_scan.async_launches
+    y, h = selective_scan(*args, chunk=l, block_d=96)
+    torch.cuda.synchronize()
+    aligned = (l * n * args[0].element_size()) % 16 == 0   # B and C rows of a batch
+    assert selective_scan.async_launches - before == int(aligned)
+    wy, wh = selective_scan_plain(*args)
+    torch.testing.assert_close(h, wh, rtol=K5_TOL, atol=K5_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, wy, rtol=K5_TOL, atol=K5_TOL)
+    else:
+        w = wy.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert bool(((y.float() - w).abs() <= ulp + K5_TOL).all())
+
+
 def test_selective_scan_cuda_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import selective_scan as k5
     from repro_torch.kernels.selective_scan import selective_scan
 
     x, dt, bm, cm, a = _scan_inputs((1, 8, 16, 4), torch.float32, cuda_device)
@@ -552,7 +618,7 @@ def test_selective_scan_cuda_rejects_what_it_does_not_take(cuda_device):
         selective_scan(x.half(), dt.half(), bm.half(), cm.half(), a)
     with pytest.raises(TypeError):
         selective_scan(x, dt.bfloat16(), bm, cm, a)
-    big = _scan_inputs((1, 8, 16, 33), torch.float32, cuda_device)
+    big = _scan_inputs((1, 8, 16, k5.NMAX + 1), torch.float32, cuda_device)
     with pytest.raises(ValueError, match="state size"):
         selective_scan(*big)
     with pytest.raises(ValueError, match="must divide"):

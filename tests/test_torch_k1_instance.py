@@ -178,12 +178,14 @@ def test_edge_stream_cuda_passes_the_instance(fake_launch, instance, const):
 
 
 def test_pipelined_depths_ignore_the_instance(fake_launch, monkeypatch):
-    """K2 has one instance: edge_cuda forwards a ring depth to it unchanged."""
+    """edge_cuda forwards a ring depth to K2 unchanged, and the instance with
+    it: K2 runs K1's walk on either instance."""
     seen = {}
     monkeypatch.setattr(ekern, "edge_pipelined_cuda", lambda x, **kw: seen.update(kw) or "k2")
     out = ekern.edge_cuda(torch.zeros((1, 8, 8)), spec=get_operator("sobel5"), variant="v2",
                           directions=4, pipeline_depth=2, instance="runtime")
-    assert out == "k2" and "instance" not in seen and not fake_launch.calls
+    assert out == "k2" and seen["instance"] == "runtime" and seen["pipeline_depth"] == 2
+    assert not fake_launch.calls
 
 
 @pytest.mark.parametrize("fn", ("edge_cuda", "edge_stream_cuda"))

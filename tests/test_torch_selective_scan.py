@@ -126,4 +126,19 @@ def test_shapes_devices_and_lanes():
     ya, ha = selective_scan(x, dt, bm, cm, a)      # a CPU tensor takes the plain version
     assert torch.equal(y, ya) and torch.equal(h, ha)
     assert selective_scan.launches == before
-    assert k5.NMAX == 32
+
+
+@pytest.mark.parametrize("n", (33, 64))
+def test_plain_matches_reference_past_32_states(n):
+    """The reference's kernel has no limit on N: past the 32 states the
+    first K5 held, the plain version (the kernel's CPU lane) still matches
+    the reference kernel in interpret mode and the recurrence."""
+    arrays = _inputs((2, 24, 40, n), seed=n)
+    want = np.asarray(ref_selective_scan(*map(jnp.asarray, arrays), chunk=8, block_d=20,
+                                         interpret=True))
+    y, h = selective_scan(*_torch(arrays), chunk=8, block_d=20)
+    ny, nh = _naive(*arrays)
+    np.testing.assert_allclose(y.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(y.numpy(), ny, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(h.numpy(), nh, rtol=TOL, atol=TOL)
+    assert n <= k5.NMAX and h.shape == (2, 40, n)

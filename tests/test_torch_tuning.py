@@ -229,9 +229,7 @@ def test_legal_shapes_fit_their_depth(operator, layout, dtype, depth):
             if depth:
                 smem = ekern.pipelined_smem_bytes(bh, bw, spec.radius, depth,
                                                   np.dtype(dtype).itemsize,
-                                                  3 if layout == "rgb" else 1, nms,
-                                                  spec.resolve_variant("v2"),
-                                                  spec.resolve_directions(0))
+                                                  3 if layout == "rgb" else 1, nms)
                 assert smem <= ekern.SMEM_MAX
             assert ekern.window_smem_bytes(bh, bw, spec.radius, nms) <= ekern.SMEM_MAX
     everything = len(tuning._CAND_H) * len(tuning._CAND_W)
@@ -279,8 +277,8 @@ def test_tuning_defaults_to_the_card(tmp_path, monkeypatch):
             fn(64, 96, backend="xla")
 
 
-@pytest.mark.parametrize("dtype,entry", (("float32", (128, 256, 0)), ("float32", (64, 256, 2)),
-                                         ("uint8", (64, 256, 4))))
+@pytest.mark.parametrize("dtype,entry", (("float32", (128, 256, 0)), ("float32", (32, 512, 2)),
+                                         ("uint8", (64, 256, 8))))
 def test_tuned_tile_too_big_for_nms_is_skipped(tmp_path, monkeypatch, dtype, entry):
     """The key carries no ``nms``: a tuned tile that fits the magnitude
     lane but not the NMS footprint serves the magnitude lane and is skipped,
@@ -292,7 +290,7 @@ def test_tuned_tile_too_big_for_nms_is_skipped(tmp_path, monkeypatch, dtype, ent
     cache.record(tuning.TuneKey("cuda", dtype, "sobel5", "v2", 2048, 2048), bh, bw, 1.0,
                  depth=depth)
     cache.save()
-    kw = dict(backend="cuda", dtype=dtype, cache=cache, directions=4)
+    kw = dict(backend="cuda", dtype=dtype, cache=cache)
     assert dispatch.choose_block_shape(2048, 2048, **kw) == (bh, bw, depth, "tuned")
     with pytest.warns(RuntimeWarning, match="skipping tuned tile"):
         got = dispatch.choose_block_shape(2048, 2048, nms=True, **kw)
@@ -348,10 +346,9 @@ def test_kernel_level_depth_and_budget_checks():
         ekern.edge_plain(x, spec=spec, variant="v2", directions=4, pipeline_depth=1)
     # A 64x256 f32 tile takes a depth-2 ring and no deeper one.
     f32 = torch.zeros((1, 8, 8))
-    assert ekern._pipelined_smem(f32, 64, 256, spec, 2, False, False, "v2", 4,
-                                 "f32") <= ekern.SMEM_MAX
-    with pytest.raises(ValueError, match=r"pipeline_depth=3 with tile 64x256 needs 295712 B"):
-        ekern._pipelined_smem(f32, 64, 256, spec, 3, False, False, "v2", 4, "f32")
+    assert ekern._pipelined_smem(f32, 64, 256, spec, 2, False, False) <= ekern.SMEM_MAX
+    with pytest.raises(ValueError, match=r"pipeline_depth=3 with tile 64x256 needs 288128 B"):
+        ekern._pipelined_smem(f32, 64, 256, spec, 3, False, False)
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         ekern.edge_pipelined_cuda(x, spec=spec, variant="v2", directions=4)
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
@@ -360,14 +357,19 @@ def test_kernel_level_depth_and_budget_checks():
 
 def test_footprint_of_the_full_config():
     """sobel-hd FULL (sobel5, v2, 4 directions, 64x256 tiles): u8 frames take
-    every depth, f32 frames depth 2 only. A u8 depth-2 CTA holds two
-    68 x 264 B ring slots, 68 + 260 row/column offsets, a 20 x 260 strip and
-    3 sink planes of 20 x 256 values."""
-    fits = {(b, d): ekern.pipelined_smem_bytes(64, 256, 2, d, b, 1, False, "v2", 4)
+    every depth, f32 frames depth 2 only. A u8 depth-2 CTA holds two ring
+    slots of two TMA boxes of 68 rows x 144 B each (the window's 260 B and
+    up to 15 of lead), 9,856 B with their 128-byte alignment (the cp.async
+    layout, 68 rows of 288 B, is smaller), 68 + 260 row/column offsets, K1's
+    68 x 260 window of 4-byte values, two buffers of 16 warp maxima, an
+    mbarrier a slot and 128 B of layout. Its threads are two bands of K1's
+    256-thread CTA; with NMS one band of 288 (two would pass the 512
+    threads K2 aims at)."""
+    fits = {(b, d): ekern.pipelined_smem_bytes(64, 256, 2, d, b, 1, False)
             <= ekern.SMEM_MAX for b in (1, 4) for d in range(2, 9)}
     assert all(fits[(1, d)] for d in range(2, 9))
     assert [d for d in range(2, 9) if fits[(4, d)]] == [2]
-    assert ekern.pipelined_smem_bytes(64, 256, 2, 2, 1, 1, False, "v2", 4) == (
-        2 * 68 * 264 + 4 * 68 + 4 * 260 + 4 * 20 * 260 + 3 * 4 * 20 * 256) == 119456
-    assert ekern.sink_slots("v2", 4) == 3 and ekern.sink_slots("v2", 2) == 2
-    assert ekern.sink_slots("direct", 4) == 0 and ekern.sink_slots("v1", 4) == 2
+    assert ekern.pipelined_smem_bytes(64, 256, 2, 2, 1, 1, False) == (
+        2 * 2 * 9856 + 4 * 68 + 4 * 260 + 4 * 68 * 260 + 2 * 16 * 4 + 2 * 8 + 128) == 111728
+    assert ekern.pipelined_bands(64, 256, False) == [(0, 32), (32, 64)]
+    assert ekern.pipelined_bands(64, 256, True) == [(0, 64)]

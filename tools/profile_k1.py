@@ -119,8 +119,9 @@ def card_line() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def sass_histograms(lib: Path) -> dict:
-    """{demangled K1 function: {class: count, "total": n}} for the K = 5 instances."""
+def sass_histograms(lib: Path, keep=lambda fn: "edge_kernel" in fn and "ILi5E" in fn) -> dict:
+    """{mangled function: {class: count, "total": n}} for the kernels ``keep``
+    accepts (by default K1's K = 5 instances)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -129,7 +130,7 @@ def sass_histograms(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name, ops = m.group(1), collections.Counter()
-            if "edge_kernel" in name and "ILi5E" in name:
+            if keep(name):
                 out[name] = ops
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
@@ -144,8 +145,9 @@ def sass_histograms(lib: Path) -> dict:
     return hist
 
 
-def compile_variant(name: str, file: str, changes, scratch: Path):
-    """Build a scratch copy of csrc with one change; None if an anchor is absent."""
+def compile_variant(name: str, file: str, changes, scratch: Path, source: str = "edge"):
+    """Build a scratch copy of csrc's ``<source>.cu`` with one change; None
+    if an anchor is absent."""
     src = scratch / name
     shutil.copytree(build.CSRC, src)
     text = (src / file).read_text()
@@ -154,10 +156,10 @@ def compile_variant(name: str, file: str, changes, scratch: Path):
             return None
         text = text.replace(anchor, repl)
     (src / file).write_text(text)
-    out = scratch / f"libedge_{name}.so"
+    out = scratch / f"lib{source}_{name}.so"
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    subprocess.run([nvcc, *build.NVCC_FLAGS, "-o", str(out), str(src / "edge.cu")], check=True,
-                   capture_output=True, text=True)
+    subprocess.run([nvcc, *build.NVCC_FLAGS, "-o", str(out), str(src / f"{source}.cu")],
+                   check=True, capture_output=True, text=True)
     return out
 
 
