@@ -23,8 +23,13 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    sizes 3/5/7/9, 2 and 4 directions, every padding, gray u8/f32 and RGB
    u8/f32, at 1x1, 2x3, 37x53 and 70x270 on two tile shapes.
 2c. Holds K3 (``edge_stream_cuda``) bit-equal to ``edge_stream_plain`` with
-   masks all-0, all-1 and random, NMS on and off, on ragged shapes and at
-   4x2048x2048 u8; with an all-1 mask K3 must equal K1.
+   masks all-0, all-1, random, a clustered block (the motion shape), one
+   tile and only the last ragged tile, NMS on and off, on ragged shapes, a
+   (1, 1, 1) grid, 4x2048x2048 u8, 8x8 tiles on 4x512x512 (more tiles than
+   one chunk of K3's in-kernel scan) and caches one row into a larger
+   buffer with ``w`` odd (off 16 bytes); with an all-1 mask K3 must equal
+   K1, with an all-0 mask the caches. Both of K3's copy routes (16-byte
+   vectors and floats) must have run.
 2d. Holds K2 (``edge_cuda(pipeline_depth=d)``, K1's walk fed by a ring of
    windows copied ahead on a persistent grid) bit-equal to ``edge_plain``
    and to K1 at depths 2, 3 and 8, on both instances where K1 has two, for
@@ -86,8 +91,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    route, the integer lane of K1 and K2 at 4x2048x2048 u8 (K2's in turns
    with K1's; K1's beside its f32 lane on the same frames, timed again
    after it),
-   and K3 (at 0%, the motion run's share and 100% of tiles changed), K1
-   and K3 on both instances, with
+   and K3 (at 0%, the motion run's share and 100% of tiles changed, also
+   as device microseconds a launch under the profiler, and at 100% in
+   turns with K1's NMS lane on the same frames), K1 and K3 on both
+   instances, with
    CUDA events, beside their plain versions and their bounds on the card
    (the NMS lane's operations counted on the pixels each mask needs,
    ``nms_lane_ops``; the integer lane's ladder at the card's INT32 rate,
@@ -593,30 +600,58 @@ def phase_nms_vs_plain(rng, dev):
     check(mismatches == 0, f"K1 out_nms differs from edge_plain in {mismatches} of {cases} cases")
 
 
+def stream_masks(n: int, gh: int, gw: int, rng, dev) -> dict:
+    """Phase 2c's masks on an (n, gh, gw) tile grid: none, all and a random
+    half of the tiles changed; a clustered block (the motion run's shape:
+    a band of tile rows and columns in every frame); one tile; only the
+    last, ragged tile."""
+    def grid():
+        return np.zeros((n, gh, gw), np.int32)
+
+    block = grid()
+    block[:, gh // 3: gh // 3 + max(1, gh // 4), gw // 4: gw // 4 + max(1, gw // 2)] = 1
+    single = grid()
+    single.flat[int(rng.integers(single.size))] = 1
+    last = grid()
+    last.flat[-1] = 1
+    masks = {"0": grid(), "1": grid() + 1, "random": rng.integers(0, 2, (n, gh, gw)),
+             "block": block, "single": single, "last": last}
+    return {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in masks.items()}
+
+
 def phase_stream_vs_plain(rng, dev):
-    """Phase 2c: K3 against edge_stream_plain, and against K1 on an all-1 mask."""
+    """Phase 2c: K3 against edge_stream_plain on every mask of
+    :func:`stream_masks`, both instances, NMS on and off; against K1 on an
+    all-1 mask and against the caches on an all-0 mask. The shapes: ragged
+    ones, a (1, 1, 1) grid, the stream server's 4x2048x2048 u8 on 64x256
+    (16-byte copies), 8x8 tiles on 4x512x512 (16,384 tiles, more than one
+    chunk of the in-kernel scan), and 2x37x53 caches one row into a larger
+    buffer (off 16 bytes: scalar copies). Both copy routes must have run."""
     from repro_torch.core.filters import get_operator
     from repro_torch.kernels.edge import edge_cuda, edge_stream_cuda, edge_stream_plain
 
     t0 = time.perf_counter()
     spec = get_operator("sobel5")
+    mask_rng = np.random.default_rng(18)
     cases = mismatches = 0
-    for kind, shape, block in (("u8", (2, 37, 53), (16, 32)), ("f32", (2, 70, 270), (64, 256)),
-                               ("rgb", (2, 130, 300), (32, 128)), ("u8", (1, 1, 1), (8, 8)),
-                               ("u8", (4, 2048, 2048), (64, 256))):
+    launches, vector = edge_stream_cuda.launches, edge_stream_cuda.vector_launches
+    for kind, shape, block, offset in (
+            ("u8", (2, 37, 53), (16, 32), False), ("f32", (2, 70, 270), (64, 256), False),
+            ("rgb", (2, 130, 300), (32, 128), False), ("u8", (1, 1, 1), (8, 8), False),
+            ("u8", (4, 2048, 2048), (64, 256), False), ("u8", (4, 512, 512), (8, 8), False),
+            ("f32", (2, 37, 53), (16, 32), True)):
         x = frames(kind, shape, rng, dev)
         n, h, w = shape
         gh, gw = -(-h // block[0]), -(-w // block[1])
         prev = torch.rand((n, h, w), device=dev) * 50
         prev_max = torch.rand((n, gh, gw), device=dev) * 50
-        masks = {"0": torch.zeros((n, gh, gw), dtype=torch.int32, device=dev),
-                 "1": torch.ones((n, gh, gw), dtype=torch.int32, device=dev),
-                 "random": torch.from_numpy(rng.integers(0, 2, (n, gh, gw)).astype(np.int32)
-                                            ).to(dev)}
+        if offset:
+            prev = offset_copy(prev, w)
+            check(prev.data_ptr() % 16 != 0, "the offset caches are on 16 bytes")
         for out_nms in (False, True):
             kw = dict(spec=spec, variant="v2", directions=4, block_h=block[0],
                       block_w=block[1], rgb=kind == "rgb", out_nms=out_nms)
-            for name, mask in masks.items():
+            for name, mask in stream_masks(n, gh, gw, mask_rng, dev).items():
                 b = edge_stream_plain(x, prev, prev_max, mask, **kw)
                 for inst in ("auto", "runtime"):
                     a = edge_stream_cuda(x, prev, prev_max, mask, instance=inst, **kw)
@@ -629,11 +664,15 @@ def phase_stream_vs_plain(rng, dev):
                     if not ok:
                         mismatches += 1
                         print(f"  MISMATCH K3 {kind} {shape} block={block} nms={out_nms} "
-                              f"mask={name} {inst}")
+                              f"mask={name} {inst}{' offset caches' if offset else ''}")
     torch.cuda.synchronize()
-    print(f"K3 vs plain: {cases} cases, {mismatches} mismatches "
-          f"({time.perf_counter() - t0:.1f}s)")
+    vector = edge_stream_cuda.vector_launches - vector
+    scalar = edge_stream_cuda.launches - launches - vector
+    print(f"K3 vs plain: {cases} cases, {mismatches} mismatches, {vector} launches copied by "
+          f"16-byte vectors, {scalar} by floats ({time.perf_counter() - t0:.1f}s)")
     check(mismatches == 0, f"K3 differs from edge_stream_plain in {mismatches} of {cases} cases")
+    check(vector > 0 and scalar > 0, f"phase 2c ran one copy route only ({vector} vector, "
+          f"{scalar} scalar)")
 
 
 def k2_against(x, kw: dict, depths, fits, label: str):
@@ -662,12 +701,13 @@ def k2_against(x, kw: dict, depths, fits, label: str):
     return cases, mismatches, raised
 
 
-def offset_copy(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``x`` whose base is one element past a 16-byte
-    boundary, so that K2 copies its windows by ``cp.async`` whatever the
-    row pitch."""
-    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    y = flat[1:].view(x.shape)
+def offset_copy(x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base is ``offset`` elements into a
+    larger buffer: one element past a 16-byte boundary by default, so that
+    K2 copies its windows by ``cp.async`` whatever the row pitch; one row
+    of odd width in, so that K3 copies its caches by floats."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    y = flat[offset:].view(x.shape)
     y.copy_(x)
     return y
 
@@ -1998,16 +2038,33 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         m = mask.cpu().numpy()
         b_ms, b_by, t_bytes, t_ops, share = stream_bound(
             m, h, w, bh, bw, 1, nms_lane_ops(spec5, "v2", 4, False, m, h, w, bh, bw))
-        row = dict(ms=median_ms(lambda: edge_stream_cuda(x_next, prev, prev_max, mask, **kw)),
+
+        def k3_call(mask=mask):
+            return edge_stream_cuda(x_next, prev, prev_max, mask, **kw)
+
+        row = dict(ms=median_ms(k3_call),
+                   device_us=launch_device_us(k3_call, "stream_kernel"),
                    ms_runtime=median_ms(lambda: edge_stream_cuda(x_next, prev, prev_max, mask,
                                                                  instance="runtime", **kw)),
                    plain_ms=median_ms(lambda: edge_stream_plain(x_next, prev, prev_max, mask, **kw),
                                       reps=5, warm=1),
                    bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes, ops_ms=t_ops,
                    changed_share=share, max_abs_err=err, library_ms=None)
+        if share_label == "100%":
+            # Every tile walked: in turns with K1's NMS lane on the same frames.
+            def k1_call():
+                return edge_cuda(x_next, with_max=True, **kw)
+
+            turns = [median_ms(f) for f in (k1_call, k3_call, k3_call, k1_call)]
+            row.update(k3_ms_turns=turns[1:3], k1_nms_ms_turns=[turns[0], turns[3]],
+                       k1_nms_device_us=launch_device_us(k1_call, "edge_kernel"))
+            print(f"K3 at 100% in turns with K1's NMS lane on the same frames: {turns[1]:.4f} / "
+                  f"{turns[2]:.4f} ms against {turns[0]:.4f} / {turns[3]:.4f} ms; device "
+                  f"{row['device_us']:.1f} us against {row['k1_nms_device_us']:.1f} us a launch")
         k3[share_label] = row
         print(f"K3 at 4x{h}x{w} u8 block {bh}x{bw}, {100 * share:.2f}% of pixels in changed "
-              f"tiles ({share_label}): {row['ms']:.4f} ms (run-time taps {row['ms_runtime']:.4f} "
+              f"tiles ({share_label}): {row['ms']:.4f} ms on CUDA events, {row['device_us']:.1f} "
+              f"us a launch of device time (profiler; run-time taps {row['ms_runtime']:.4f} "
               f"ms); plain {row['plain_ms']:.3f} ms; bound "
               f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms); "
               "library: none")
@@ -2046,7 +2103,7 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
         "int_lane": {k: v for k, v in int_rows.items() if k != "K1 depth 0"},
         "int_launches": main_counts["k2_int"],
     }, {
-        "name": "K3 edge_stream (masked-grid delta-skip kernel)",
+        "name": "K3 edge_stream (persistent delta-skip kernel)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/edge_stream.cu",
         "replaces": "src/repro/kernels/edge.py:359",

@@ -750,14 +750,19 @@ __device__ __forceinline__ float block_max(float v, float* warp_max) {
   return m;
 }
 
-// (img, tile row, tile col) of this CTA; tiles are numbered like bmax's
-// (n, gh, gw) layout, so blockIdx.x also indexes bmax and the stream mask.
-__device__ __forceinline__ void tile_of(const Geom& g, long long* img, int* tr, int* tc) {
-  long long b = blockIdx.x;
+// (img, tile row, tile col) of tile b; tiles are numbered like bmax's
+// (n, gh, gw) layout, so b also indexes bmax and the stream mask.
+__device__ __forceinline__ void tile_at(const Geom& g, long long b, long long* img, int* tr,
+                                        int* tc) {
   *tc = (int)(b % g.gw);
   b /= g.gw;
   *tr = (int)(b % g.gh);
   *img = b / g.gh;
+}
+
+// The tile of this CTA (K1: one CTA per tile).
+__device__ __forceinline__ void tile_of(const Geom& g, long long* img, int* tr, int* tc) {
+  tile_at(g, blockIdx.x, img, tr, tc);
 }
 
 // The helpers every library exports beside its launch entry (one copy per

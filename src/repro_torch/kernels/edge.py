@@ -5,7 +5,9 @@
 ``csrc/edge_pipelined.cu`` (the port of ``_pipelined_kernel``: K1's walk
 fed by a ring of windows that a producer warp copies ahead, on a
 persistent grid), through ``edge_pipelined_cuda``; ``edge_stream_cuda`` launches K3,
-``csrc/edge_stream.cu`` (the port of ``_stream_kernel``). They take CUDA
+``csrc/edge_stream.cu`` (the port of ``_stream_kernel``: K1's tile body on
+the changed tiles and 16-byte copies of the cached ones, on a persistent
+grid that compacts the mask itself). They take CUDA
 tensors and raise on anything else. ``edge_plain`` and
 ``edge_stream_plain`` compute the same outputs from ``repro_torch.core``
 functions on any device; the CPU lane runs them, and the kernels are held
@@ -46,6 +48,7 @@ __all__ = [
     "pipelined_smem_bytes",
     "pipelined_bands",
     "pipelined_tiles",
+    "stream_vector_copy",
     "const_taps_instance",
     "PIPELINE_DEPTHS",
 ]
@@ -148,6 +151,16 @@ def pipelined_tiles(n_tiles: int, ctas: int) -> list:
     ctas, ...`` of the batch's ``n_tiles`` (raster order, ``(n, gh, gw)``);
     one list of tile indices per CTA."""
     return [list(range(b, n_tiles, ctas)) for b in range(ctas)]
+
+
+def stream_vector_copy(prev_primary: torch.Tensor, primary: torch.Tensor, w: int, bw: int) -> bool:
+    """Whether K3 copies the cached tiles by 16-byte vectors: both maps'
+    bases on 16 bytes (``data_ptr()``, a view's offset included) and ``w``
+    and ``bw`` multiples of 4, so that every row of every tile starts on 16
+    bytes and ends on a whole vector. Else it copies a float at a time;
+    both routes give the same bits."""
+    return (prev_primary.data_ptr() % 16 == 0 and primary.data_ptr() % 16 == 0
+            and w % 4 == 0 and bw % 4 == 0)
 
 
 def default_block_shape(h: int, w: int, size: int = 5) -> tuple:
@@ -348,7 +361,7 @@ def _lib(name: str) -> ctypes.CDLL:
     entry, extra = {
         "edge": ("repro_edge_launch", [i, i] + [p] * 5),
         "edge_pipelined": ("repro_pipelined_launch", [i, i, i, i] + [p] * 5),
-        "edge_stream": ("repro_stream_launch", [i] + [p] * 6),
+        "edge_stream": ("repro_stream_launch", [i] + [p] * 5 + [i, p, p]),
     }[name]
     launch = getattr(lib, entry)
     launch.argtypes = geometry + extra
@@ -797,9 +810,18 @@ def edge_stream_cuda(
     unflagged tiles' input windows did not change. ``instance`` as for
     :func:`edge_cuda`: K3 runs K1's tile body, either instance.
 
+    A persistent grid, as many CTAs as fit on the card, builds the list of
+    changed tiles, then of unchanged ones, from ``mask`` on the device,
+    walks the changed tiles with K1's tile body and copies the cached ones
+    in bands of whole rows, by 16-byte vectors where
+    :func:`stream_vector_copy` says so. The CTAs claim work from a counter
+    of this device and stream, so calls on one stream run one after the
+    other, as launches on a stream do.
+
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
-    device refuses. ``edge_stream_cuda.launches`` counts the launches.
+    device refuses. ``edge_stream_cuda.launches`` counts the launches and
+    ``edge_stream_cuda.vector_launches`` those that copied by vectors.
     """
     _check_instance(instance)
     _check_launch(x, "edge_stream_cuda", spec, variant, directions, padding)
@@ -816,19 +838,37 @@ def edge_stream_cuda(
     primary = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
     bmax = torch.empty((n, gh, gw), dtype=torch.float32, device=x.device)
     if n > 0 and h > 0 and w > 0:
+        const = instance == "auto" and const_taps_instance(spec, variant, directions)
+        vec = stream_vector_copy(prev_primary, primary, w, bw)
         lib = _lib("edge_stream")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.repro_stream_launch(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
-                int(instance == "auto" and const_taps_instance(spec, variant, directions)),
-                mask.data_ptr(), prev_primary.data_ptr(), prev_bmax.data_ptr(),
-                primary.data_ptr(), bmax.data_ptr(), stream,
+                int(const), mask.data_ptr(), prev_primary.data_ptr(), prev_bmax.data_ptr(),
+                primary.data_ptr(), bmax.data_ptr(), int(vec),
+                _claim_counter(x.device, stream).data_ptr(), stream,
             )
         _raise_on_error(lib, "edge_stream", err)
         edge_stream_cuda.launches += 1
+        edge_stream_cuda.vector_launches += int(vec)
     return primary, bmax
 
 
 edge_stream_cuda.launches = 0
+edge_stream_cuda.vector_launches = 0
+
+
+_claims: dict = {}
+
+
+def _claim_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """K3's work counter for launches on ``stream`` (two zeroed int64 that
+    every launch leaves zeroed: its last CTA resets them), made once per
+    device and stream by a copy from the host, never by a kernel."""
+    key = (device.index, stream)
+    counter = _claims.get(key)
+    if counter is None:
+        counter = _claims[key] = torch.zeros(2, dtype=torch.int64).to(device)
+    return counter

@@ -756,6 +756,94 @@ def test_edge_stream_cuda_instances_agree(cuda_device):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (out_nms, inst)
 
 
+def _stream_masks(n, gh, gw, device):
+    """chip_smoke.py phase 2c's masks: none, all, random, a clustered block
+    (the motion run's shape), one tile, only the last (ragged) tile."""
+    rng = np.random.default_rng(18)
+    masks = {k: v.cpu().numpy() for k, v in _masks(n, gh, gw, device).items()}
+    block = np.zeros((n, gh, gw), np.int32)
+    block[:, gh // 3: gh // 3 + max(1, gh // 4), gw // 4: gw // 4 + max(1, gw // 2)] = 1
+    single = np.zeros((n, gh, gw), np.int32)
+    single.flat[int(rng.integers(single.size))] = 1
+    last = np.zeros((n, gh, gw), np.int32)
+    last.flat[-1] = 1
+    masks.update(block=block, single=single, last=last)
+    return {k: torch.from_numpy(v.astype(np.int32)).to(device) for k, v in masks.items()}
+
+
+def _row_offset(t):
+    """A contiguous copy of (n, h, w) ``t`` one row into a larger buffer."""
+    n, h, w = t.shape
+    buf = torch.empty((n * h + 1) * w, dtype=t.dtype, device=t.device)
+    out = buf[w:].view(n, h, w)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("mask_kind", ("none", "all", "random", "block", "single", "last"))
+@pytest.mark.parametrize("case", [
+    ("u8", (2, 37, 53), (16, 32), False, 0),
+    ("u8", (4, 512, 512), (8, 8), False, 1),     # 16,384 tiles: more than one scan chunk
+    ("f32", (2, 37, 53), (16, 32), True, 0),     # caches off 16 bytes: scalar copies
+    ("u8", (2, 256, 512), (64, 256), False, 1),  # the stream server's tile: vector copies
+    ("rgb", (1, 1, 1), (8, 8), False, 0),
+], ids=("37x53", "512x512-8x8", "37x53-row-offset", "256x512-64x256", "1x1"))
+@pytest.mark.parametrize("out_nms", (False, True), ids=("mag", "nms"))
+def test_edge_stream_cuda_masks_and_copy_routes(cuda_device, out_nms, case, mask_kind):
+    """K3 on chip_smoke.py phase 2c's masks, both instances, equals its
+    plain version (K1 on an all-1 mask, the caches on an all-0 one), and
+    copies by 16-byte vectors exactly where stream_vector_copy says."""
+    kind, shape, (bh, bw), offset, vec = case
+    n, h, w = shape
+    x = _frames(kind, shape, cuda_device)
+    gh, gw = -(-h // bh), -(-w // bw)
+    prev = torch.rand((n, h, w), device=cuda_device) * 50
+    if offset:
+        prev = _row_offset(prev)
+        assert prev.data_ptr() % 16 != 0
+    prev_max = torch.rand((n, gh, gw), device=cuda_device) * 50
+    mask = _stream_masks(n, gh, gw, cuda_device)[mask_kind]
+    kw = dict(spec=get_operator("sobel5"), variant="v2", directions=4, block_h=bh, block_w=bw,
+              rgb=kind == "rgb", out_nms=out_nms)
+    want = ekern.edge_stream_plain(x, prev, prev_max, mask, **kw)
+    for inst in ("auto", "runtime"):
+        before = (ekern.edge_stream_cuda.launches, ekern.edge_stream_cuda.vector_launches)
+        got = ekern.edge_stream_cuda(x, prev, prev_max, mask, instance=inst, **kw)
+        assert (ekern.edge_stream_cuda.launches - before[0],
+                ekern.edge_stream_cuda.vector_launches - before[1]) == (1, vec)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), inst
+        if mask_kind == "all":
+            k1 = ekern.edge_cuda(x, with_max=True, instance=inst, **kw)
+            assert torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1])
+        if mask_kind == "none":
+            assert torch.equal(got[0], prev) and torch.equal(got[1], prev_max)
+
+
+def test_edge_stream_cuda_on_two_streams_at_once(cuda_device):
+    """Two streams' K3 launches overlap, each claiming from its own counter,
+    and each equals its plain version; so do the launches after them."""
+    kind, shape, (bh, bw) = "u8", (4, 512, 512), (8, 8)
+    n, h, w = shape
+    gh, gw = -(-h // bh), -(-w // bw)
+    x = _frames(kind, shape, cuda_device)
+    kw = dict(spec=get_operator("sobel5"), variant="v2", directions=4, block_h=bh, block_w=bw,
+              out_nms=True)
+    masks = _stream_masks(n, gh, gw, cuda_device)
+    prev = torch.rand((n, h, w), device=cuda_device) * 50
+    prev_max = torch.rand((n, gh, gw), device=cuda_device) * 50
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        got = []
+        for stream, name in zip(streams, ("random", "block")):
+            with torch.cuda.stream(stream):
+                got.append((name, ekern.edge_stream_cuda(x, prev, prev_max, masks[name], **kw)))
+        torch.cuda.synchronize()
+        for name, (primary, bmax) in got:
+            want = ekern.edge_stream_plain(x, prev, prev_max, masks[name], **kw)
+            assert torch.equal(primary, want[0]) and torch.equal(bmax, want[1]), name
+
+
 @pytest.mark.parametrize("out_nms", (False, True), ids=["plain", "nms"])
 @pytest.mark.parametrize("kind", ("u8", "f32", "int"))
 def test_edge_cuda_tiles_wider_than_one_cta_pass(cuda_device, kind, out_nms):
