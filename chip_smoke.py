@@ -48,6 +48,17 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    the f32 plain lane for every int-eligible operator x variant x
    directions x padding on u8 gray at the phase-2 sizes, and at
    4x2048x2048 u8.
+2f. Holds K1 and K2 with stencil plans (``plan=``: the pre-stages fused
+   into the same launch) bit-equal to ``edge_plain(plan=)``, K2 also to K1,
+   on both of K1's instances where it has two, at K2 depths 2, 3 and 8: the
+   CPU tests' plans (``plan_battery``: ``canny5``, ``blur_sobel5`` and
+   custom plans covering every stage kind) x padding x gray u8/f32 and RGB
+   u8/f32 at the phase-2b sizes and 237x413 on two tiles, NMS on (thin
+   map, components, un-thinned magnitude, per-tile max) and off (magnitude
+   or components, per-tile max); the integer lane of the integer plans;
+   ``canny5`` and ``blur_sobel5`` at 4x2048x2048 u8 and f32 on the 64x256
+   tile at every ring depth, where each depth whose footprint exceeds
+   ``SMEM_MAX`` must raise. ``edge.pipelined_smem_bytes(plan=)`` must equal the source's.
 3. Drives the facade, ``repro_torch.api.edge_detect`` with the default
    ``EdgeConfig()``, on a 1080p RGB u8 batch and an NTHW gray u8 stack; each
    must equal ``backend="torch"`` on the same device, must agree with
@@ -67,6 +78,15 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    rows of a second sweep of the same candidates; then ``edge_detect`` with no tile must report ``"tuned"``
    and launch the kernel of the recorded depth, and again with the depth
    pinned to 2 (its own tuned slot, K2). Every output equals the torch lane.
+3e. The stencil-plan slice's main path, the sobel-hd FULL config at
+   4x2048x2048 through ``edge_detect``: ``plan="canny5", hysteresis=True``
+   on u8 and f32 frames, ``plan="blur_sobel5"`` (normalized) on both,
+   ``("dilate3", "sobel5", "nms")`` on u8 under ``precision="auto"`` (K1's
+   integer lane) and ``canny5`` with ``pipeline_depth=2`` on u8 (K2). Counts
+   are set to 0 just before each call and read just after: each must be one
+   K1 (or K2) launch with pre-stages, equal to the torch lane on the card;
+   each prints its shared-memory footprint. Small inputs must match
+   digests of the JAX reference's plan outputs (``PLAN_GOLDEN``).
 4. Serves sobel-hd at full size (2048x2048 f32 frames, 4 per request, 8
    requests) through ``repro_torch.launch.serve`` in-process, with the
    launch counts set to 0 just before and read just after; the last answer
@@ -101,7 +121,14 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    ``int_lane_bound``), with a library yardstick for K1 and K2 (cuDNN
    ``F.conv2d`` of the 4-direction bank, which covers the components only
    and is used nowhere in the port; no single PyTorch call computes the
-   NMS lane or K3), and prints one JSON line of them. K4 joins it: CUDA-event
+   NMS lane or K3), and prints one JSON line of them. The plan lanes join
+   K1's and K2's entries: ``canny5`` (thin map and maxima, as the facade
+   asks) and ``blur_sobel5`` on K1, ``canny5`` on K2 at the depths that
+   fit, at 4x2048x2048 u8 and f32 in turns with K1's NMS lane on the same
+   frames, beside the plain version and the bound (the ladder's and NMS's
+   operations plus each pre-stage's, ``plan_pre_ops``), with
+   ``blur_sobel5``'s yardstick one cuDNN ``F.conv2d`` of the composed 9x9
+   bank (components only, used nowhere in the port). K4 joins it: CUDA-event
    medians at (1, 32, 2048, 64) causal f32 and at the LM server's prefill
    shapes (1, 32, S in 8/16/32/64, 64), in turns with
    ``F.scaled_dot_product_attention(is_causal=True)`` (the yardstick, used
@@ -186,6 +213,7 @@ F32_OPS_PER_S = 33.5e12      # 67 TFLOP/s f32 counts an FMA as 2; --fmad=false r
 TF32_FLOPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet)
 SIZES = ((1, 1), (2, 3), (37, 53), (237, 413))
 NMS_SIZES = ((1, 1), (2, 3), (37, 53), (70, 270))
+PLAN_SIZES = NMS_SIZES + ((237, 413),)   # phase 2f: 2b's sizes and phase 2's largest
 KINDS = ("u8", "f32", "rgb", "rgb_f32")
 PADDINGS = ("reflect", "edge", "zero")
 OPERATORS = ("sobel5", "sobel3", "scharr3", "prewitt3", "sobel7", "sep9")
@@ -215,6 +243,33 @@ GOLDEN = {
         "peak": "d28b75112bbb3bfd0c5ad2b6817c0137f7e3f9e3b58778b68a20eb871d45c73c",
     },
 }
+
+
+# sha256 of the JAX reference's plan outputs, repro.api.edge_detect(...,
+# EdgeConfig(backend="xla", plan=..., with_max=True[, hysteresis=True])), on
+# the _golden_inputs() frames; tests/test_torch_plans.py recomputes them.
+PLAN_GOLDEN = {
+    ("canny5", "rgb_u8"): {
+        "magnitude": "0044eada257688e758cdd3230fd111d968779373c197f511b21b22a23bb9a156",
+        "peak": "e23a7749ed37423ca4d698b5cb1320f19e5afea740437a1151f81ade6a34d4ff",
+        "edges": "7e63f4ae2d4adcb07aac5af7e01388e7390baa9548cea4ea2d205ab2d35f7e1f",
+    },
+    ("canny5", "gray_f32"): {
+        "magnitude": "60d09457ad35eaef262e6e03d642e8e3fe049d86275dbd932b3060a4e4ef27ea",
+        "peak": "d5b62f53d5845e91d7be89d668a2bb376fd8346aec71b44c81c56fe20a0a412b",
+        "edges": "756b4f367d7b739bdd8484c138649b3e9c08710be12a4d4075749a45935dd5b8",
+    },
+    ("blur_sobel5", "rgb_u8"): {
+        "magnitude": "6e88b1b99240ee3384dd991b8a87232f02d6ca265dcc4d9066a4c63e7d3d7225",
+        "peak": "e23a7749ed37423ca4d698b5cb1320f19e5afea740437a1151f81ade6a34d4ff",
+    },
+    ("blur_sobel5", "gray_f32"): {
+        "magnitude": "93308c2f9f8d0b36a334d682386e0502eaea7ae62711f62ffd6c16faa5190c1f",
+        "peak": "d5b62f53d5845e91d7be89d668a2bb376fd8346aec71b44c81c56fe20a0a412b",
+    },
+}
+# Plans of the battery the integer lane takes (integer taps).
+INT_PLANS = ("erode_abs_sobel3", "dilate_sobel5_nms", "box3_erode_sobel3_nms", "cross3_sobel5")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -265,14 +320,73 @@ def separable9():
     return get_operator("sep9")
 
 
+def plan_battery() -> dict:
+    """The CPU tests' plans (tests/test_torch_plans.py), built in the port:
+    the built-ins, two pre-stages in a row, window max and min, abs,
+    square, an integer separable and a dense linear stage, 3x3 and
+    2-direction gradients, with and without NMS."""
+    from repro_torch.core import filters as F
+
+    one = np.ones(3, np.float32)
+    box3 = F.linear_stage("box3", F.OperatorSpec(
+        name="box3", size=3, directions=(1,), variants=("direct", "separable"),
+        taps=F._tupleize(np.outer(one, one)[None]),
+        sep=((F._tupleize(one), F._tupleize(one)),)))
+    cross = np.array([[0, 1, 0], [1, 4, 1], [0, 1, 0]], np.float32)
+    cross3 = F.linear_stage("cross3", F.OperatorSpec(
+        name="cross3", size=3, directions=(1,), variants=("direct",),
+        taps=F._tupleize(cross[None]), sep=(None,)))
+    absf, square = F.pointwise_stage("abs", "abs"), F.pointwise_stage("square", "square")
+    return {
+        "canny5": F.get_plan("canny5"),
+        "blur_sobel5": F.get_plan("blur_sobel5"),
+        "g3_dilate_sobel5_nms": F.make_plan("g3d", ("gaussian3", "dilate3", "sobel5", "nms")),
+        "erode_abs_sobel3": F.make_plan("ea", ("erode3", absf, "sobel3")),
+        "square_g3_scharr3_nms": F.make_plan("sq", (square, "gaussian3", "scharr3", "nms")),
+        "dilate_sobel5_nms": F.make_plan("dil", ("dilate3", "sobel5", "nms")),
+        "box3_erode_sobel3_nms": F.make_plan("box", (box3, "erode3", "sobel3", "nms")),
+        "cross3_sobel5": F.make_plan("cross", (cross3, "sobel5")),
+    }
+
+
+def mul_add(taps) -> int:
+    """Multiplies and adds of one correlation with ``taps``: zero taps
+    skipped, ±1 taps need no multiply."""
+    nz = [float(t) for t in np.ravel(taps) if t != 0.0]
+    return sum(1 for t in nz if abs(t) != 1.0) + max(0, len(nz) - 1)
+
+
+def stage_ops(stage) -> int:
+    """f32 operations of one pre-stage per pixel of its output plane: a
+    linear stage's products and sums (both passes of a separable one), a
+    window's compares (2r per pass), abs 1, the fenced square 2."""
+    if stage.kind == "linear":
+        fac = stage.operator.sep_factors(0)
+        if fac is not None:
+            return mul_add(fac[1]) + mul_add(fac[0])
+        return mul_add(stage.operator.bank(1)[0])
+    if stage.kind == "window_reduce":
+        return 2 * 2 * stage.radius
+    return 1 if stage.op == "abs" else 2
+
+
+def plan_pre_ops(plan, n: int, h: int, w: int, nms: bool) -> int:
+    """The pre-stages' operations of one call on ``n`` frames of ``h x w``:
+    each stage over its output plane, the frame extended by the radii still
+    to come (and NMS's ring), once a frame (Gaussian5: 18 a pixel)."""
+    pad = 1 if nms else 0
+    remaining = plan.linear_reach
+    total = 0
+    for stage in plan.pre_stages:
+        remaining -= stage.radius
+        total += n * (h + 2 * (remaining + pad)) * (w + 2 * (remaining + pad)) * stage_ops(stage)
+    return total
+
+
 def kernel_ops_per_pixel(spec, variant: str, directions: int, rgb: bool) -> int:
     """f32 multiplies, adds and square roots K1's arithmetic needs per output
     pixel, each distinct row pass counted once (the least work of the
     ladder, not what the simple kernel recomputes). ±1 taps need no multiply."""
-    def mul_add(taps):
-        nz = [float(t) for t in np.ravel(taps) if t != 0.0]
-        return sum(1 for t in nz if abs(t) != 1.0) + max(0, len(nz) - 1)
-
     from repro_torch.kernels.edge import _sym_plan
 
     ops = 5 if rgb else 0   # luma: 3 multiplies, 2 adds
@@ -370,15 +484,19 @@ def int_lane_bound(n_px: int, in_bytes_px: int, out_bytes: int, spec, variant: s
             t_bytes * 1e3, t_ops * 1e3, int_px)
 
 
-def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bool):
-    """K2's ring depths whose footprint fits a CTA's shared memory."""
+def fitting_depths(bh: int, bw: int, spec, in_bytes: int, channels: int, nms: bool,
+                   plan=None):
+    """K2's ring depths whose footprint (with ``plan``, its composed window
+    and pre-stage plane) fits a CTA's shared memory."""
     from repro_torch.kernels.edge import PIPELINE_DEPTHS, SMEM_MAX, pipelined_smem_bytes
 
     return [d for d in PIPELINE_DEPTHS
-            if pipelined_smem_bytes(bh, bw, spec.radius, d, in_bytes, channels, nms) <= SMEM_MAX]
+            if pipelined_smem_bytes(bh, bw, spec.radius, d, in_bytes, channels, nms,
+                                    plan=plan) <= SMEM_MAX]
 
 
-COUNTS = ("k1", "k1_int", "k2", "k2_int", "k2_tma", "k2_cp_async", "k3", "k4", "k5")
+COUNTS = ("k1", "k1_int", "k1_plan", "k2", "k2_int", "k2_plan", "k2_tma", "k2_cp_async", "k3",
+          "k4", "k5")
 
 
 def reset_counts():
@@ -391,6 +509,7 @@ def reset_counts():
                selective_scan):
         fn.launches = 0
     edge_cuda.int_launches = edge_pipelined_cuda.int_launches = 0
+    edge_cuda.plan_launches = edge_pipelined_cuda.plan_launches = 0
     edge_pipelined_cuda.tma_launches = edge_pipelined_cuda.cp_async_launches = 0
 
 
@@ -400,7 +519,9 @@ def read_counts() -> dict:
     from repro_torch.kernels.selective_scan import selective_scan
 
     return dict(k1=edge_cuda.launches, k1_int=edge_cuda.int_launches,
+                k1_plan=edge_cuda.plan_launches,
                 k2=edge_pipelined_cuda.launches, k2_int=edge_pipelined_cuda.int_launches,
+                k2_plan=edge_pipelined_cuda.plan_launches,
                 k2_tma=edge_pipelined_cuda.tma_launches,
                 k2_cp_async=edge_pipelined_cuda.cp_async_launches,
                 k3=edge_stream_cuda.launches, k4=flash_attention.launches,
@@ -675,14 +796,15 @@ def phase_stream_vs_plain(rng, dev):
           f"{scalar} scalar)")
 
 
-def k2_against(x, kw: dict, depths, fits, label: str):
+def k2_against(x, kw: dict, depths, fits, label: str, want=None):
     """K2 at each of ``depths`` on ``x``, on each instance K1 has for the
-    call: bit-equal to ``edge_plain`` and to K1 where the depth fits, a
-    ``ValueError`` where it does not. Returns ``(cases, mismatches,
-    raised)``."""
+    call: bit-equal to ``edge_plain`` (``want``, when the caller has it)
+    and to K1 where the depth fits, a ``ValueError`` where it does not.
+    Returns ``(cases, mismatches, raised)``."""
     from repro_torch.kernels.edge import edge_cuda, edge_plain
 
-    want, k1 = edge_plain(x, **kw), edge_cuda(x, **kw)
+    want = edge_plain(x, **kw) if want is None else want
+    k1 = edge_cuda(x, **kw)
     cases = mismatches = raised = 0
     for depth in depths:
         if depth not in fits:
@@ -773,12 +895,13 @@ def phase_k2_vs_plain(rng, dev):
 def k2_footprints_agree():
     """``edge.pipelined_smem_bytes`` against the source's own
     ``pipelined_layout`` (``repro_pipelined_smem_bytes``) over tiles,
-    radii, depths, input types, layouts and NMS, and ``edge.pipelined_bands``
+    radii, depths, input types, layouts and NMS, with plans too
+    (``repro_pipelined_plan_smem_bytes``), and ``edge.pipelined_bands``
     against ``repro_pipelined_bands``."""
     import itertools
 
     from repro_torch.kernels.edge import (PIPELINE_DEPTHS, _lib, pipelined_bands,
-                                          pipelined_smem_bytes)
+                                          pipelined_smem_bytes, pre_plane_words)
 
     lib = _lib("edge_pipelined")
     tiles = ((1, 1), (8, 32), (32, 64), (29, 96), (64, 256), (128, 128), (300, 512), (16, 1000))
@@ -787,6 +910,16 @@ def k2_footprints_agree():
             tiles, (1, 2, 3, 4), PIPELINE_DEPTHS, (1, 4), (1, 3), (False, True)):
         want = pipelined_smem_bytes(bh, bw, r, d, nb, ch, nms)
         got = lib.repro_pipelined_smem_bytes(bh, bw, r, d, nb, ch, int(nms))
+        cases += 1
+        bad += int(got != want)
+    battery = plan_battery()
+    for (bh, bw), name, d, nb, ch, nms in itertools.product(
+            tiles, ("canny5", "blur_sobel5", "erode_abs_sobel3", "square_g3_scharr3_nms"),
+            PIPELINE_DEPTHS, (1, 4), (1, 3), (False, True)):
+        plan = battery[name]
+        want = pipelined_smem_bytes(bh, bw, plan.gradient.radius, d, nb, ch, nms, plan=plan)
+        got = lib.repro_pipelined_plan_smem_bytes(bh, bw, plan.linear_reach, d, nb, ch, int(nms),
+                                                  pre_plane_words(bh, bw, plan, nms))
         cases += 1
         bad += int(got != want)
     for (bh, bw), nms, size in itertools.product(tiles + ((320, 32), (305, 32)), (False, True),
@@ -847,6 +980,142 @@ def phase_int_lane(rng, dev, full):
     print(f"int lane (K1, K2) vs f32 plain lane: {cases} cases, {mismatches} mismatches "
           f"({time.perf_counter() - t0:.1f}s)")
     check(mismatches == 0, f"the integer lane differs from f32 in {mismatches} of {cases} cases")
+
+
+def phase_plans_vs_plain(rng, dev, full):
+    """Phase 2f: K1 and K2 with stencil plans against ``edge_plain(plan=)``
+    (K2 also against K1), the integer lane of the integer plans, and the
+    built-in plans at 4x2048x2048 on the FULL tile, where every ring depth
+    over ``SMEM_MAX`` must raise."""
+    from repro_torch.kernels.edge import (PIPELINE_DEPTHS, edge_cuda, edge_pipelined_cuda,
+                                          edge_plain)
+
+    t0 = time.perf_counter()
+    battery = plan_battery()
+    results = []  # (cases, mismatches, raised) of each k2_against
+    k1_cases = k1_bad = 0
+    k1_plan0, k2_plan0 = edge_cuda.plan_launches, edge_pipelined_cuda.plan_launches
+    for shape in PLAN_SIZES:
+        inputs = {k: frames(k, (2,) + shape, rng, dev) for k in KINDS}
+        for name, plan in battery.items():
+            spec = plan.gradient
+            variant, d = spec.resolve_variant("auto"), spec.resolve_directions(0)
+            lanes = LANE_OUTPUTS[2:] if plan.nms else LANE_OUTPUTS[:2]
+            for padding in PADDINGS:
+                for kind, x in inputs.items():
+                    rgb = kind.startswith("rgb")
+                    for extra in lanes:
+                        for bh, bw in ((16, 32), (64, 256)):
+                            kw = dict(spec=spec, plan=plan, variant=variant, directions=d,
+                                      padding=padding, block_h=bh, block_w=bw, rgb=rgb, **extra)
+                            label = f"{shape} {name} {padding} {kind} {bh}x{bw} {sorted(extra)}"
+                            fits = fitting_depths(bh, bw, spec, x.element_size(), 3 if rgb else 1,
+                                                  plan.nms, plan=plan)
+                            want = edge_plain(x, **kw)
+                            results.append(k2_against(x, kw, K2_DEPTHS, fits, label, want))
+                            for inst in ("runtime",) if len(instances(spec, variant, d)) > 1 else ():
+                                k1_cases += 1
+                                if not _same(edge_cuda(x, instance=inst, **kw), want):
+                                    k1_bad += 1
+                                    print(f"  MISMATCH K1 {label} {inst}")
+                            if name in INT_PLANS and kind == "u8":
+                                for depth in [0] + [k for k in K2_DEPTHS if k in fits]:
+                                    k1_cases += 1
+                                    got = edge_cuda(x, precision="int", pipeline_depth=depth, **kw)
+                                    if not _same(got, want):
+                                        k1_bad += 1
+                                        print(f"  MISMATCH int {label} depth={depth}")
+    for kind, x in full.items():
+        for name in ("canny5", "blur_sobel5"):
+            plan = battery[name]
+            spec = plan.gradient
+            for extra in (LANE_OUTPUTS[2:] if plan.nms else LANE_OUTPUTS[:2]):
+                kw = dict(spec=spec, plan=plan, variant="v2", directions=4, block_h=64,
+                          block_w=256, **extra)
+                fits = fitting_depths(64, 256, spec, x.element_size(), 1, plan.nms, plan=plan)
+                results.append(k2_against(x, kw, PIPELINE_DEPTHS, fits,
+                                          f"4x2048x2048 {kind} {name} {sorted(extra)}"))
+                print(f"  4x2048x2048 {kind} {name} 64x256 {sorted(extra)}: K2 depths that fit "
+                      f"{fits}")
+    torch.cuda.synchronize()
+    cases, mismatches, raised = map(sum, zip(*results))
+    k1_plan = edge_cuda.plan_launches - k1_plan0
+    k2_plan = edge_pipelined_cuda.plan_launches - k2_plan0
+    print(f"plans (K1, K2) vs plain: {cases} K1/K2 cases and {k1_cases} run-time-instance and "
+          f"integer-lane cases, {mismatches + k1_bad} mismatches; {raised} over-budget depths "
+          f"raised; {k1_plan} K1 and {k2_plan} K2 launches ran pre-stages "
+          f"({time.perf_counter() - t0:.1f}s)")
+    check(mismatches + k1_bad == 0,
+          f"plans differ from edge_plain in {mismatches + k1_bad} of {cases + k1_cases} cases")
+    check(raised > 0, "no over-budget plan depth was tried")
+    check(k1_plan > 0 and k2_plan > 0, "the plan launches were not counted")
+
+
+def phase_plan_facade(full_inputs, dev):
+    """Phase 3e, the stencil-plan slice's main path: ``edge_detect`` with a
+    plan on the sobel-hd FULL config at 4x2048x2048; each call must be one
+    K1 (or K2) launch with pre-stages and equal the torch lane. Returns the
+    summed counts of these calls."""
+    from repro_torch.api import EdgeConfig, edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.core.filters import make_plan
+    from repro_torch.kernels.edge import (SMEM_MAX, _tile_threads, pipelined_smem_bytes,
+                                          window_smem_bytes)
+
+    t0 = time.perf_counter()
+    for (plan, name), fields in PLAN_GOLDEN.items():
+        arr = golden_inputs()[name]
+        res = edge_detect(arr, EdgeConfig(plan=plan, with_max=True,
+                                          hysteresis=plan == "canny5"))
+        for field, want in fields.items():
+            got = digest(getattr(res, field))
+            check(got == want, f"{plan} {name} {field} digest {got} != JAX reference {want}")
+    print("plan facade: small inputs equal the JAX reference's digests (canny5, blur_sobel5)")
+    full = get_config("sobel-hd")
+    dilate = make_plan("dilate3_sobel5_nms", ("dilate3", "sobel5", "nms"))
+    calls = (
+        ("canny5 + hysteresis", "u8", dict(plan="canny5", hysteresis=True), "k1"),
+        ("canny5 + hysteresis", "f32", dict(plan="canny5", hysteresis=True), "k1"),
+        ("blur_sobel5, normalized", "u8", dict(plan="blur_sobel5"), "k1"),
+        ("blur_sobel5, normalized", "f32", dict(plan="blur_sobel5"), "k1"),
+        ("dilate3 -> sobel5 -> nms, precision auto", "u8", dict(plan=dilate, hysteresis=True),
+         "k1_int"),
+        ("canny5 + hysteresis, pipeline_depth=2", "u8",
+         dict(plan="canny5", hysteresis=True, pipeline_depth=2), "k2"),
+    )
+    total = dict.fromkeys(COUNTS, 0)
+    for label, kind, kw, lane in calls:
+        x = full_inputs[kind]
+        cfg = full.edge_config(with_max=True, **kw)
+        reset_counts()
+        res = edge_detect(x, cfg)
+        counts = read_counts()
+        rc = cfg.resolved()
+        k2 = lane == "k2"
+        want = dict(k1=int(not k2), k1_plan=int(not k2), k1_int=int(lane == "k1_int"),
+                    k2=int(k2), k2_plan=int(k2), k2_int=0)
+        check(all(counts[k] == v for k, v in want.items()),
+              f"edge_detect({label}) on {kind} launched {counts}, not one {lane} with pre-stages")
+        ref = edge_detect(x, cfg.replace(backend="torch"))
+        for f in ("magnitude", "peak", "thin", "edges"):
+            a, b = getattr(res, f), getattr(ref, f)
+            check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                  f"edge_detect({label}) on {kind}: {f} differs from the torch lane")
+        check(bool(torch.isfinite(res.magnitude).all()), f"edge_detect({label}): non-finite")
+        if k2:
+            smem = pipelined_smem_bytes(rc.block_h, rc.block_w, 2, cfg.pipeline_depth,
+                                        x.element_size(), 1, rc.nms, plan=rc.plan)
+            where = f"K2 depth {cfg.pipeline_depth}"
+        else:
+            smem = window_smem_bytes(rc.block_h, rc.block_w, 2, rc.nms, plan=rc.plan)
+            where = f"K1, {_tile_threads(rc.block_w, rc.nms)} threads"
+        for k, v in counts.items():
+            total[k] += v
+        print(f"plan facade {label} on 4x{full.image_h}x{full.image_w} {kind}: {where}, "
+              f"{smem} B of shared memory a CTA (limit {SMEM_MAX}); launches {counts}; equal "
+              "to the torch lane")
+    print(f"plan facade: {time.perf_counter() - t0:.1f}s")
+    return total
 
 
 def phase_facade(rng, dev):
@@ -2118,6 +2387,94 @@ def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_lau
     }]
 
 
+def composed_bank(plan) -> np.ndarray:
+    """The (D, K, K) correlation bank of a plan of one linear pre-stage and a
+    gradient: each direction's taps convolved with the pre-stage's (K = 9 for
+    blur_sobel5), the taps one conv2d needs to compute the same components."""
+    g = plan.pre_stages[0].operator.bank(1)[0].astype(np.float64)
+    bank = plan.gradient.bank(4).astype(np.float64)
+    kg, kd = g.shape[0], bank.shape[-1]
+    out = np.zeros((bank.shape[0], kg + kd - 1, kg + kd - 1))
+    for i in range(kd):
+        for j in range(kd):
+            out[:, i:i + kg, j:j + kg] += bank[:, i:i + 1, j:j + 1] * g
+    return out.astype(np.float32)
+
+
+def phase_plan_timing(full_inputs, dev, plan_counts):
+    """Phase 5, the plan lanes: ``canny5`` (thin map and maxima) and
+    ``blur_sobel5`` (magnitude and maxima) on K1 and ``canny5`` on K2 at the
+    depths that fit, at 4x2048x2048 u8 and f32 on the 64x256 tile, each in
+    turns with K1's NMS lane on the same frames (nms, plan, plan, nms),
+    beside the plain version and the bound; one cuDNN conv2d of the composed
+    9x9 bank as ``blur_sobel5``'s yardstick. Returns K1's and K2's rows."""
+    from repro_torch.core.filters import get_operator, get_plan
+    from repro_torch.kernels.edge import edge_cuda, edge_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    spec5 = get_operator("sobel5")
+    canny, blur = get_plan("canny5"), get_plan("blur_sobel5")
+    bank9 = torch.from_numpy(composed_bank(blur)).to(dev)[:, None]
+    base = dict(spec=spec5, variant="v2", directions=4, block_h=64, block_w=256, with_max=True)
+    k1_rows, k2_rows = {}, {}
+    for kind, x in full_inputs.items():
+        n, h, w = x.shape
+        n_px = n * h * w
+        gh, gw = -(-h // 64), -(-w // 256)
+        out_bytes = n_px * 4 + n * gh * gw * 4
+        ones = np.ones((n, gh, gw), bool)
+
+        def nms_lane():
+            return edge_cuda(x, out_nms=True, **base)
+
+        calls = {"canny5": dict(plan=canny, out_nms=True), "blur_sobel5": dict(plan=blur)}
+        for name, pkw in calls.items():
+            plan = pkw["plan"]
+            if plan.nms:
+                ops = nms_lane_ops(spec5, "v2", 4, False, ones, h, w, 64, 256)
+            else:
+                ops = kernel_ops_per_pixel(spec5, "v2", 4, False) * n_px
+            ops += plan_pre_ops(plan, n, h, w, plan.nms)
+            b_ms, b_by, t_bytes, t_ops = bound(n_px, x.element_size(), out_bytes, ops / n_px)
+            want = edge_plain(x, **base, **pkw)
+            plain_ms = median_ms(lambda: edge_plain(x, **base, **pkw), reps=5, warm=1)
+            library_ms = None
+            if name == "blur_sobel5":
+                def conv9():
+                    xp = F.pad(x.float()[:, None], (4, 4, 4, 4), mode="reflect")
+                    return F.conv2d(xp, bank9)
+                library_ms = median_ms(conv9)
+            for depth in [0] + fitting_depths(64, 256, spec5, x.element_size(), 1, plan.nms,
+                                              plan=plan):
+                if depth and name != "canny5":
+                    continue
+
+                def call(depth=depth):
+                    return edge_cuda(x, pipeline_depth=depth, **base, **pkw)
+
+                got = call()
+                check(_same(got, want), f"{name} {kind} depth {depth} differs at the timing shape")
+                turns = [median_ms(f) for f in (nms_lane, call, call, nms_lane)]
+                row = dict(ms=turns[1], ms_turns=turns[1:3], k1_nms_ms_turns=[turns[0], turns[3]],
+                           device_us=launch_device_us(
+                               call, "pipelined_kernel" if depth else "edge_kernel"),
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes,
+                           ops_ms=t_ops, ops_per_px=ops / n_px, library_ms=library_ms,
+                           max_abs_err=float((got[0] - want[0]).abs().max()), shape=[n, h, w])
+                where = f"K2 depth {depth}" if depth else "K1"
+                (k2_rows if depth else k1_rows)[f"{name} {kind}" + (f" depth {depth}" if depth
+                                                                    else "")] = row
+                print(f"{name} on {where} at 4x{h}x{w} {kind} block 64x256: {turns[1]:.4f} / "
+                      f"{turns[2]:.4f} ms in turns with K1's NMS lane {turns[0]:.4f} / "
+                      f"{turns[3]:.4f} ms; {row['device_us']:.1f} us a launch of device time; "
+                      f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} (bytes "
+                      f"{t_bytes:.4f} ms, {ops / n_px:.2f} ops/px {t_ops:.4f} ms); library "
+                      + (f"cuDNN conv2d of the composed 9x9 bank {library_ms:.4f} ms"
+                         if library_ms is not None else "none"))
+    return dict(plans=k1_rows, launches_plan_facade=plan_counts["k1_plan"]), dict(
+        plans=k2_rows, launches_plan_facade=plan_counts["k2_plan"])
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2146,12 +2503,16 @@ def main() -> None:
     timed("2c K3 vs plain", phase_stream_vs_plain, rng, dev)
     full_inputs = timed("2d K2 vs plain", phase_k2_vs_plain, rng, dev)
     timed("2e int lane", phase_int_lane, rng, dev, full_inputs)
+    timed("2f plans vs plain", phase_plans_vs_plain, rng, dev, full_inputs)
     timed("3 facade", phase_facade, rng, dev)
     timed("3b facade nms", phase_nms_facade, rng, dev)
     main_counts = timed("3c depth and lane", phase_depth_facade, full_inputs, dev)
     tuned_counts, _rows, best = timed("3d tuned facade", phase_tuned_facade, full_inputs, dev)
     for k, v in tuned_counts.items():
         main_counts[k] += v
+    plan_counts = timed("3e plan facade", phase_plan_facade, full_inputs, dev)
+    check(plan_counts["k1_plan"] >= 1 and plan_counts["k2_plan"] >= 1,
+          f"the plan slice's main path did not launch K1 and K2 with pre-stages: {plan_counts}")
     check(main_counts["k2"] >= 1 and main_counts["k1_int"] >= 1 and main_counts["k2_int"] >= 1,
           f"this slice's main path did not launch K2 and both integer lanes: {main_counts}")
     server_launches, edges_launches = timed("4 servers", phase_server, dev)
@@ -2173,6 +2534,9 @@ def main() -> None:
     print(f"[phases 8-9b: {time.perf_counter() - t_ssm:.1f}s]")
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
+    k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)
+    kernels[0].update(k1_plans)
+    kernels[1].update(k2_plans)
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
     kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")

@@ -21,9 +21,13 @@ One call::
 ``edge_detect`` and ``edge_detect_stream`` run on the CUDA device unless
 ``device`` says otherwise; ``device="cpu"`` runs the plain PyTorch version.
 :class:`EdgeConfig` has the reference's fields and defaults
-(``repro.api.EdgeConfig``); the options whose engine is not ported yet
-(``plan``, ``shard``) raise ``NotImplementedError`` naming their ROADMAP
-item. With no explicit tile, the tuning cache (``REPRO_TUNE_CACHE``,
+(``repro.api.EdgeConfig``); ``shard``, whose engine is not ported yet,
+raises ``NotImplementedError`` naming its ROADMAP item. A stencil plan
+runs as one fused launch::
+
+    result = edge_detect(frames, EdgeConfig(plan="canny5", hysteresis=True))
+
+With no explicit tile, the tuning cache (``REPRO_TUNE_CACHE``,
 ``repro_torch.kernels.tuning``) picks the tile and ring depth.
 
 Input layout is auto-detected (``HW`` / ``HWC`` / ``NHW`` / ``NHWC`` /
@@ -38,7 +42,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.filters import OperatorSpec, SobelParams, get_operator
+from repro_torch.core.filters import OperatorSpec, SobelParams, get_operator, resolve_plan
 from repro_torch.core.nms import DEFAULT_HIGH, DEFAULT_LOW
 
 __all__ = [
@@ -77,7 +81,14 @@ class EdgeConfig:
     The fields and defaults of ``repro.api.EdgeConfig``:
       operator:   registered operator name (``sobel5`` | ``sobel3`` |
                   ``scharr3`` | ``prewitt3`` | ``sobel7`` | custom).
-      plan:       multi-stage stencil plan — not ported yet.
+      plan:       multi-stage stencil plan: a registered plan name
+                  (``canny5`` | ``blur_sobel5``) or a
+                  :class:`~repro_torch.core.filters.StencilPlan`. It
+                  overrides ``operator`` (the resolved config pins it to
+                  the plan's gradient stage), composes the halo from every
+                  stage radius and, when it ends in an ``nms`` stage,
+                  forces ``nms=True``. The chain runs as one K1 or K2
+                  launch on ``cuda``.
       directions: direction count; 0 = the operator's maximum.
       variant:    ``direct``/``separable``/``v1``/``v2``; ``auto`` = the
                   operator's best. Unsupported ladder variants coerce down.
@@ -188,16 +199,34 @@ class EdgeConfig:
                 )
         if low is not None and high is not None and low > high:
             raise ValueError(f"low={low} must not exceed high={high}")
-        if self.plan is not None:
-            raise NotImplementedError(
-                "EdgeConfig.plan is not ported yet: ROADMAP queue 1 item 5 "
-                "(stencil plans)"
-            )
-        spec = get_operator(self.operator, self.params)
+        plan = resolve_plan(self.plan)
+        if plan is not None:
+            spec = plan.gradient
+            if spec is None:
+                raise ValueError(
+                    f"plan {plan.name!r} has no gradient stage; the edge "
+                    "engine emits direction components (append a gradient "
+                    "operator stage)"
+                )
+            if (self.nms or hysteresis) and not plan.nms:
+                raise ValueError(
+                    f"plan gate 'nms-stage': plan {plan.name!r} has no "
+                    "trailing 'nms' stage but nms/hysteresis was requested; "
+                    "the plan is the single source of truth — append 'nms' "
+                    "to its stages"
+                )
+            operator = spec.name
+            nms = plan.nms or hysteresis
+        else:
+            spec = get_operator(self.operator, self.params)
+            operator = self.operator
+            nms = self.nms or hysteresis
         return self.replace(
+            plan=plan,
+            operator=operator,
             directions=spec.resolve_directions(self.directions),
             variant=spec.resolve_variant(self.variant),
-            nms=self.nms or hysteresis,
+            nms=nms,
             hysteresis=hysteresis,
             low=low,
             high=high,
@@ -205,6 +234,9 @@ class EdgeConfig:
 
     @property
     def spec(self) -> OperatorSpec:
+        plan = resolve_plan(self.plan)
+        if plan is not None and plan.gradient is not None:
+            return plan.gradient
         return get_operator(self.operator, self.params)
 
 

@@ -1,6 +1,7 @@
 """Multi-directional edge filters and the declarative operator registry.
 
-The operator half of ``repro.core.filters``, without JAX. Paper §3.1–§3.2
+``repro.core.filters`` without JAX: the operator registry and the
+stencil-plan layer. Paper §3.1–§3.2
 (Eqs. 3, 5, 10, 18): the 5x5 filters are parameterized by
 ``SobelParams(a, b, m, n)``; the paper's (and OpenCV's) weights are
 ``a=1, b=2, m=6, n=4``.
@@ -14,14 +15,23 @@ the Sobel 5x5 family) the K_d± data behind the RG-v1/RG-v2 variants. The
 taps are to this system what weights are to a model: :func:`carry_operator`
 builds a spec from another implementation's arrays, so both packages can be
 shown to run the same operator.
+
+A :class:`StencilPlan` chains single-plane pre-stages (smoothing,
+morphology, pointwise maps) ahead of one gradient operator and an optional
+NMS stage; its composed reach is the one halo every layer below derives
+from, so ``canny5`` (Gaussian5 -> sobel5 -> NMS) runs as one kernel launch
+with a 2 + 2 + 1 pixel halo. :func:`carry_plan` builds a plan from another
+implementation's stage fields and operator arrays.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "SobelParams",
@@ -48,6 +58,23 @@ __all__ = [
     "SOBEL3_GY",
     "SOBEL3_GD",
     "SOBEL3_GDT",
+    "Stage",
+    "StencilPlan",
+    "linear_stage",
+    "pointwise_stage",
+    "window_stage",
+    "plan_identity",
+    "register_pointwise",
+    "get_pointwise",
+    "register_stage",
+    "get_stage",
+    "list_stages",
+    "make_plan",
+    "register_plan",
+    "get_plan",
+    "list_plans",
+    "resolve_plan",
+    "carry_plan",
 ]
 
 LADDER = ("direct", "separable", "v1", "v2")
@@ -482,3 +509,390 @@ register_operator(
 register_operator(
     "sobel7", make_separable_spec("sobel7", _SOBEL7_SMOOTH, _SOBEL7_DERIV)
 )
+
+
+# ---------------------------------------------------------------------------
+# Stages and StencilPlans: the declarative multi-stage stencil layer
+# ---------------------------------------------------------------------------
+#
+# A plan is an ordered, frozen sequence of stages; its reach (the sum of the
+# stage radii, +1 for a trailing NMS stage) is the one halo number that
+# kernels.tiling.window_radius and the fused kernels' windows derive from.
+# Every rejection names its gate (`plan gate 'unknown-stage'`,
+# `'frozen-stage'`, `'window-radius'`, `'nms-last'`, ...), in the reference's
+# words, so tests and callers can pin the failing invariant.
+
+_STAGE_KINDS = ("linear", "pointwise", "window_reduce", "nms")
+_WINDOW_OPS = ("max", "min")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One step of a :class:`StencilPlan`.
+
+    Kinds:
+      linear:        correlation with ``operator``'s taps. A single-direction
+                     spec (``directions=(1,)``) is a smoothing pre-stage; a
+                     multi-direction spec is the plan's gradient stage.
+      pointwise:     shape-preserving map; ``op`` names a registered
+                     pointwise fn (:func:`register_pointwise`). Radius 0.
+      window_reduce: separable max/min over a ``(2r+1)``-square window
+                     (dilate/erode); ``op`` in ``max | min``.
+      nms:           non-maximum suppression (radius 1, last stage only).
+
+    ``radius`` is the stage's halo; for a linear stage it must equal the
+    operator's radius (use :func:`linear_stage`).
+    """
+
+    name: str
+    kind: str
+    operator: Optional[OperatorSpec] = None
+    op: Optional[str] = None
+    radius: int = 0
+
+    def __post_init__(self):
+        if self.kind not in _STAGE_KINDS:
+            raise ValueError(
+                f"plan gate 'stage-kind': stage {self.name!r} has unknown "
+                f"kind {self.kind!r}; expected one of {_STAGE_KINDS}"
+            )
+        if self.kind == "linear":
+            if self.operator is None:
+                raise ValueError(
+                    f"plan gate 'stage-kind': linear stage {self.name!r} "
+                    "needs an OperatorSpec"
+                )
+            if self.radius != self.operator.radius:
+                raise ValueError(
+                    f"plan gate 'stage-radius': linear stage {self.name!r} "
+                    f"declares radius {self.radius} but its operator has "
+                    f"radius {self.operator.radius}"
+                )
+        elif self.kind == "pointwise":
+            if self.radius != 0:
+                raise ValueError(
+                    f"plan gate 'stage-radius': pointwise stage "
+                    f"{self.name!r} must have radius 0, got {self.radius}"
+                )
+            if self.op not in _POINTWISE_FNS:
+                raise ValueError(
+                    f"plan gate 'unknown-pointwise': stage {self.name!r} "
+                    f"names pointwise fn {self.op!r}; registered: "
+                    f"{sorted(_POINTWISE_FNS)}"
+                )
+        elif self.kind == "window_reduce":
+            if self.op not in _WINDOW_OPS:
+                raise ValueError(
+                    f"plan gate 'window-op': window-reduce stage "
+                    f"{self.name!r} needs op in {_WINDOW_OPS}, got {self.op!r}"
+                )
+            if self.radius < 1:
+                raise ValueError(
+                    f"plan gate 'window-radius': window-reduce stage "
+                    f"{self.name!r} must have radius >= 1, got {self.radius} "
+                    "(a zero-radius window reduces nothing)"
+                )
+        elif self.kind == "nms":
+            if self.radius != 1:
+                raise ValueError(
+                    f"plan gate 'stage-radius': the NMS stage reaches "
+                    f"exactly 1 pixel, got radius {self.radius}"
+                )
+
+    @property
+    def single_plane(self) -> bool:
+        """True when the stage maps one plane to one plane (a pre-stage)."""
+        if self.kind == "linear":
+            return max(self.operator.directions) == 1
+        return self.kind in ("pointwise", "window_reduce")
+
+
+def linear_stage(name: str, operator: OperatorSpec) -> Stage:
+    return Stage(name=name, kind="linear", operator=operator, radius=operator.radius)
+
+
+def pointwise_stage(name: str, fn: str) -> Stage:
+    return Stage(name=name, kind="pointwise", op=fn, radius=0)
+
+
+def window_stage(name: str, op: str, radius: int) -> Stage:
+    return Stage(name=name, kind="window_reduce", op=op, radius=radius)
+
+
+def _stage_is_frozen(stage) -> bool:
+    params = getattr(type(stage), "__dataclass_params__", None)
+    return params is not None and bool(params.frozen)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """An ordered, frozen sequence of stages fused into one kernel launch.
+
+    Zero or more single-plane pre-stages, then at most one multi-direction
+    linear gradient stage, then optionally the NMS stage, which must be
+    last. ``linear_reach`` is the sum of the non-NMS stage radii;
+    ``reach`` adds NMS's +1. A plan is hashable, like an
+    :class:`OperatorSpec`.
+    """
+
+    name: str
+    stages: Tuple[Stage, ...]
+
+    def __post_init__(self):
+        if not self.stages:
+            raise ValueError(f"plan gate 'empty-plan': plan {self.name!r} has no stages")
+        for i, stage in enumerate(self.stages):
+            if not _stage_is_frozen(stage):
+                raise ValueError(
+                    f"plan gate 'frozen-stage': stage "
+                    f"{getattr(stage, 'name', stage)!r} of plan "
+                    f"{self.name!r} is not a frozen dataclass — plans must "
+                    "be hashable to cross jit boundaries"
+                )
+            if not isinstance(stage, Stage):
+                raise ValueError(
+                    f"plan gate 'stage-kind': plan {self.name!r} got a "
+                    f"non-Stage entry {stage!r}"
+                )
+            if stage.kind == "nms" and i != len(self.stages) - 1:
+                raise ValueError(
+                    f"plan gate 'nms-last': plan {self.name!r} places the "
+                    f"NMS stage at position {i}; NMS consumes the gradient "
+                    "components and must be the last stage"
+                )
+        body = self.body
+        for stage in body[:-1]:
+            if not stage.single_plane:
+                raise ValueError(
+                    f"plan gate 'gradient-last': plan {self.name!r} places "
+                    f"multi-direction stage {stage.name!r} before the end; "
+                    "only the final non-NMS stage may produce direction "
+                    "components"
+                )
+        if self.nms and (not body or body[-1].single_plane):
+            raise ValueError(
+                f"plan gate 'nms-gradient': plan {self.name!r} has an "
+                "NMS stage but no multi-direction gradient stage to "
+                "feed it"
+            )
+
+    @property
+    def nms(self) -> bool:
+        return self.stages[-1].kind == "nms"
+
+    @property
+    def body(self) -> Tuple[Stage, ...]:
+        """All stages except a trailing NMS stage."""
+        return self.stages[:-1] if self.nms else self.stages
+
+    @property
+    def gradient(self) -> Optional[OperatorSpec]:
+        """The multi-direction operator of the final body stage, if any."""
+        body = self.body
+        if body and not body[-1].single_plane:
+            return body[-1].operator
+        return None
+
+    @property
+    def pre_stages(self) -> Tuple[Stage, ...]:
+        """Single-plane stages ahead of the gradient (or the whole body)."""
+        body = self.body
+        return body[:-1] if self.gradient is not None else body
+
+    @property
+    def linear_reach(self) -> int:
+        """Sum of the non-NMS stage radii: the composed correlation radius."""
+        return sum(s.radius for s in self.body)
+
+    @property
+    def reach(self) -> int:
+        """Total halo reach including NMS's +1 neighbourhood."""
+        return self.linear_reach + (1 if self.nms else 0)
+
+    @property
+    def single_operator(self) -> bool:
+        """True when the plan is exactly one gradient stage (+ maybe NMS):
+        it then runs the single-operator path unchanged."""
+        return not self.pre_stages and self.gradient is not None
+
+
+def plan_identity(plan: StencilPlan) -> str:
+    """Stable cache identity: the plan's name and a hash of its stage names,
+    kinds and radii (the tuning key's plan segment). The reference's
+    strings exactly, so a cache file keys the same plan in both packages."""
+    sig = "|".join(f"{s.name}:{s.kind}:{s.radius}" for s in plan.stages)
+    return f"{plan.name}.{hashlib.sha1(sig.encode()).hexdigest()[:8]}"
+
+
+# -- pointwise registry -----------------------------------------------------
+
+# name -> (fn, int_bound): ``fn`` is exact in both lanes (each op rounded on
+# its own in f32, plain in integers); ``int_bound`` maps an input magnitude
+# bound to the output's for the integer-lane proof, or None when the fn has
+# no integer form.
+_POINTWISE_FNS: Dict[str, tuple] = {}
+
+
+def register_pointwise(name, fn, *, int_bound=None, overwrite: bool = False):
+    if name in _POINTWISE_FNS and not overwrite:
+        raise ValueError(f"pointwise fn {name!r} already registered")
+    _POINTWISE_FNS[name] = (fn, int_bound)
+
+
+def get_pointwise(name):
+    if name not in _POINTWISE_FNS:
+        raise ValueError(
+            f"plan gate 'unknown-pointwise': unknown pointwise fn {name!r}; "
+            f"registered: {sorted(_POINTWISE_FNS)}"
+        )
+    return _POINTWISE_FNS[name]
+
+
+def _square_fenced(x: torch.Tensor) -> torch.Tensor:
+    """``max(x * x, 0)``: the product rounded on its own, as the
+    reference's fence against FMA contraction leaves it."""
+    return torch.maximum(x * x, x.new_zeros(()))
+
+
+register_pointwise("abs", torch.abs, int_bound=lambda m: m)
+register_pointwise("square", _square_fenced, int_bound=lambda m: m * m)
+
+
+# -- stage registry ---------------------------------------------------------
+
+_STAGE_REGISTRY: Dict[str, Stage] = {}
+
+
+def register_stage(name: str, stage: Stage, *, overwrite: bool = False) -> None:
+    if name in _STAGE_REGISTRY and not overwrite:
+        raise ValueError(f"stage {name!r} already registered")
+    if stage.kind == "linear":
+        _check_sep_reconstructs(stage.operator)
+    _STAGE_REGISTRY[name] = stage
+
+
+def _unknown_stage(ref) -> ValueError:
+    return ValueError(
+        f"plan gate 'unknown-stage': unknown stage {ref!r}; registered "
+        f"stages: {sorted(_STAGE_REGISTRY)}; registered operators (usable "
+        f"as gradient stages): {list_operators()}"
+    )
+
+
+def get_stage(name: str) -> Stage:
+    if name not in _STAGE_REGISTRY:
+        raise _unknown_stage(name)
+    return _STAGE_REGISTRY[name]
+
+
+def list_stages() -> Tuple[str, ...]:
+    return tuple(sorted(_STAGE_REGISTRY))
+
+
+def _gaussian_stage(name: str, g) -> Stage:
+    """Separable binomial smoothing. The normalized taps are dyadic, so every
+    tap and every outer-product entry is exact in f32."""
+    g = np.asarray(g, np.float32)
+    g = (g / np.float32(g.sum())).astype(np.float32)
+    k = np.outer(g, g).astype(np.float32)
+    spec = OperatorSpec(
+        name=name,
+        size=int(g.shape[0]),
+        directions=(1,),
+        variants=("direct", "separable"),
+        taps=_tupleize(k[None]),
+        sep=((_tupleize(g), _tupleize(g)),),
+    )
+    return linear_stage(name, spec)
+
+
+register_stage("gaussian3", _gaussian_stage("gaussian3", (1.0, 2.0, 1.0)))
+register_stage("gaussian5", _gaussian_stage("gaussian5", (1.0, 4.0, 6.0, 4.0, 1.0)))
+register_stage("dilate3", window_stage("dilate3", "max", 1))
+register_stage("erode3", window_stage("erode3", "min", 1))
+register_stage("nms", Stage(name="nms", kind="nms", radius=1))
+
+
+# -- plan registry ----------------------------------------------------------
+
+def _resolve_stage_ref(ref):
+    """A plan entry: a Stage, a registered stage name, a registered operator
+    name (a gradient stage) or an OperatorSpec. Anything else is left to
+    StencilPlan's 'frozen-stage' / 'stage-kind' gates."""
+    if isinstance(ref, Stage):
+        return ref
+    if isinstance(ref, OperatorSpec):
+        return linear_stage(ref.name, ref)
+    if isinstance(ref, str):
+        if ref in _STAGE_REGISTRY:
+            return _STAGE_REGISTRY[ref]
+        if ref in _OPERATOR_BUILDERS:
+            return linear_stage(ref, get_operator(ref))
+        raise _unknown_stage(ref)
+    return ref
+
+
+def make_plan(name: str, stages) -> StencilPlan:
+    return StencilPlan(name=name, stages=tuple(_resolve_stage_ref(s) for s in stages))
+
+
+_PLAN_REGISTRY: Dict[str, StencilPlan] = {}
+
+
+def register_plan(name: str, stages, *, overwrite: bool = False) -> StencilPlan:
+    if name in _PLAN_REGISTRY and not overwrite:
+        raise ValueError(f"plan {name!r} already registered")
+    plan = stages if isinstance(stages, StencilPlan) else make_plan(name, stages)
+    _PLAN_REGISTRY[name] = plan
+    return plan
+
+
+def get_plan(name: str) -> StencilPlan:
+    if name not in _PLAN_REGISTRY:
+        raise ValueError(
+            f"plan gate 'unknown-plan': unknown plan {name!r}; registered: "
+            f"{sorted(_PLAN_REGISTRY)}"
+        )
+    return _PLAN_REGISTRY[name]
+
+
+def list_plans() -> Tuple[str, ...]:
+    return tuple(sorted(_PLAN_REGISTRY))
+
+
+def resolve_plan(plan) -> Optional[StencilPlan]:
+    """``None`` | plan name | StencilPlan -> StencilPlan or None."""
+    if plan is None:
+        return None
+    if isinstance(plan, StencilPlan):
+        return plan
+    if isinstance(plan, str):
+        return get_plan(plan)
+    raise TypeError(
+        f"plan must be a StencilPlan or a registered plan name, got "
+        f"{type(plan).__name__}"
+    )
+
+
+def carry_plan(name: str, stages: Sequence[dict]) -> StencilPlan:
+    """Build this package's plan from another implementation's stages.
+
+    Each entry of ``stages`` holds one stage's fields: ``name``, ``kind``,
+    ``radius``, ``op`` (or None) and ``operator``, None or the keyword
+    arguments of :func:`carry_operator` (its ``name`` included). The plan's
+    gates run as for any plan.
+    """
+    out = []
+    for st in stages:
+        op = st.get("operator")
+        spec = None if op is None else carry_operator(**op)
+        out.append(Stage(name=str(st["name"]), kind=str(st["kind"]), operator=spec,
+                         op=st.get("op"), radius=int(st["radius"])))
+    return StencilPlan(name=name, stages=tuple(out))
+
+
+# The built-in plans: the Canny front half (blur -> 4-direction gradient ->
+# NMS; hysteresis links the thin map afterwards) and its no-NMS sibling.
+# canny5's reach is 2 + 2 + 1 = 5.
+register_plan("canny5", ("gaussian5", "sobel5", "nms"))
+register_plan("blur_sobel5", ("gaussian5", "sobel5"))

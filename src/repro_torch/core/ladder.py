@@ -7,6 +7,11 @@ in i16/i32 and convert to f32 only at the magnitude/NMS boundary, and the
 result is bit-identical to the f32 lane (f32 holds every integer up to
 2^24 exactly).
 
+A stencil plan chains the bound through its pre-stages first
+(:func:`plan_input_bound`) and then applies the operator proof to its
+gradient stage with the chained bound (:func:`plan_int_eligible`,
+:func:`plan_accum_dtype`).
+
 This module is the single source of those budgets for the port: the
 dispatcher (``kernels.dispatch.resolve_precision``) gates
 ``EdgeConfig.precision`` on them, and the kernels and the plain ladder pick
@@ -34,6 +39,9 @@ __all__ = [
     "tap_accumulation_bounds",
     "accum_dtype",
     "int_lane_eligible",
+    "plan_input_bound",
+    "plan_int_eligible",
+    "plan_accum_dtype",
 ]
 
 # Exact-representation ceilings for the dtype ladder.
@@ -103,16 +111,9 @@ def int_lane_eligible(
     the f32 roundings bit for bit. ``input_dtype`` may be a numpy or a
     torch dtype.
     """
-    if rgb:
-        return False, (
-            "RGB input needs the fractional BT.601 luma, whose fenced f32 "
-            "rounding has no bit-exact fixed-point equivalent"
-        )
-    if input_dtype is not None and _dtype_name(input_dtype) != "uint8":
-        return False, (
-            f"input dtype {_dtype_name(input_dtype)} is not uint8 — the "
-            "integer bound only covers [0, 255] integer frames"
-        )
+    ok, reason = _lane_input_gates(rgb, input_dtype)
+    if not ok:
+        return ok, reason
     b = tap_accumulation_bounds(spec, input_max=input_max)
     if not b["integer_taps"]:
         return False, f"operator {spec.name!r} has fractional taps"
@@ -126,3 +127,111 @@ def int_lane_eligible(
             f"accumulation bound {b['worst']:.0f} exceeds i32"
         )
     return True, ""
+
+
+def _lane_input_gates(rgb: bool, input_dtype) -> Tuple[bool, str]:
+    """The RGB and dtype gates of the integer lane, in the reference's words."""
+    if rgb:
+        return False, (
+            "RGB input needs the fractional BT.601 luma, whose fenced f32 "
+            "rounding has no bit-exact fixed-point equivalent"
+        )
+    if input_dtype is not None and _dtype_name(input_dtype) != "uint8":
+        return False, (
+            f"input dtype {_dtype_name(input_dtype)} is not uint8 — the "
+            "integer bound only covers [0, 255] integer frames"
+        )
+    return True, ""
+
+
+def plan_input_bound(plan, *, input_max: int = 255):
+    """(bound, reason): the gradient stage's input magnitude bound after the
+    plan's pre-stages, or (None, reason) when a pre-stage leaves the
+    integer lane; ``reason`` names the failing gate.
+
+    Window max/min selects an input value (bound kept); an integer-tap
+    linear stage multiplies the bound by ``sum|taps|``; a fractional-tap
+    stage (the normalized Gaussians) has no exact integer form; a pointwise
+    fn carries its own registered bound transform (``abs`` keeps it,
+    ``square`` squares it).
+    """
+    from repro_torch.core import filters as F
+
+    m = float(input_max)
+    for stage in plan.pre_stages:
+        if stage.kind == "window_reduce":
+            continue
+        if stage.kind == "linear":
+            bank = stage.operator.bank(1)
+            if not np.all(bank == np.round(bank)):
+                return None, (
+                    f"plan gate 'integer-taps': stage {stage.name!r} has "
+                    "fractional taps (no exact integer form)"
+                )
+            m = m * float(np.abs(bank[0]).sum())
+        elif stage.kind == "pointwise":
+            _fn, bound = F.get_pointwise(stage.op)
+            if bound is None:
+                return None, (
+                    f"plan gate 'integer-taps': pointwise stage "
+                    f"{stage.name!r} has no integer bound transform"
+                )
+            m = float(bound(m))
+        if m > F32_EXACT_INT:
+            return None, (
+                f"plan gate 'integer-taps': bound {m:.0f} after stage "
+                f"{stage.name!r} exceeds f32's exact integer range (2^24)"
+            )
+    return m, ""
+
+
+def plan_int_eligible(
+    plan, *, rgb: bool, input_dtype=None, input_max: int = 255
+) -> Tuple[bool, str]:
+    """Plan-level (eligible, reason) for the exact integer lane; a plan of
+    one gradient stage reduces to :func:`int_lane_eligible`."""
+    spec = plan.gradient
+    if spec is None:
+        return False, (
+            f"plan {plan.name!r} has no gradient stage; the integer lane "
+            "covers gradient plans only"
+        )
+    if not plan.pre_stages:
+        return int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype, input_max=input_max)
+    ok, reason = _lane_input_gates(rgb, input_dtype)
+    if not ok:
+        return ok, reason
+    m, reason = plan_input_bound(plan, input_max=input_max)
+    if m is None:
+        return False, reason
+    b = tap_accumulation_bounds(spec, input_max=m)
+    if not b["integer_taps"]:
+        return False, f"operator {spec.name!r} has fractional taps"
+    if not b["f32_exact"]:
+        return False, (
+            f"accumulation bound {b['worst']:.0f} exceeds f32's exact "
+            "integer range (2^24); the f32 lane itself rounds"
+        )
+    if not b["fits_i32"]:
+        return False, f"accumulation bound {b['worst']:.0f} exceeds i32"
+    return True, ""
+
+
+def plan_accum_dtype(plan, *, input_max: int = 255) -> Optional[str]:
+    """Narrowest exact integer accumulation dtype for the whole plan."""
+    spec = plan.gradient
+    if spec is None:
+        return None
+    if not plan.pre_stages:
+        return accum_dtype(spec, input_max=input_max)
+    m, _reason = plan_input_bound(plan, input_max=input_max)
+    if m is None:
+        return None
+    b = tap_accumulation_bounds(spec, input_max=m)
+    if not b["integer_taps"] or not b["f32_exact"]:
+        return None
+    if b["fits_i16"]:
+        return "int16"
+    if b["fits_i32"]:
+        return "int32"
+    return None

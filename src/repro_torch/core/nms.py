@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.sobel import _pad, magnitude, spec_components, to_lane
+from repro_torch.core.sobel import _pad, magnitude, plan_components, spec_components, to_lane
 
 __all__ = [
     "DEFAULT_LOW",
@@ -129,20 +129,27 @@ def thin_map(
     directions: int,
     padding: str = "reflect",
     precision: str = "f32",
+    plan=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...], torch.Tensor]:
     """Gray ``(..., H, W)`` -> ``(thin, center components, center
     magnitude)``; the magnitude is the un-thinned one, the peak's source.
 
-    The image is padded by ``spec.radius + 1`` and the ladder runs on the
-    ``(H+2, W+2)`` extended output, so the NMS neighbourhood exists at the
-    border. ``precision="int"`` runs the ladder in the integer dtype
+    The image is padded by the linear reach + 1 (``spec.radius + 1``, or
+    ``plan.linear_reach + 1`` when ``plan`` chains pre-stages) and the
+    ladder (``plan_components`` with a plan) runs on the ``(H+2, W+2)``
+    extended output, so the NMS neighbourhood exists at the border.
+    ``precision="int"`` runs the ladder in the integer dtype
     ``core.ladder`` proves for u8 ``gray`` and casts the components to f32
     before the magnitude and the sector, which stay f32: bit-identical to
     the f32 lane.
     """
     h, w = gray.shape[-2], gray.shape[-1]
-    xp, _, _ = _pad(to_lane(gray, spec, precision), spec.radius + 1, padding)
-    comps_ext = spec_components(xp, spec, h + 2, w + 2, variant, directions)
+    reach = plan.linear_reach if plan is not None else spec.radius
+    xp, _, _ = _pad(to_lane(gray, spec, precision, plan=plan), reach + 1, padding)
+    if plan is not None:
+        comps_ext = plan_components(xp, plan, h + 2, w + 2, variant, directions)
+    else:
+        comps_ext = spec_components(xp, spec, h + 2, w + 2, variant, directions)
     if precision == "int":
         comps_ext = tuple(c.to(torch.float32) for c in comps_ext)
     mag_ext = magnitude(comps_ext)

@@ -31,6 +31,7 @@ __all__ = [
     "sobel",
     "sobel_components",
     "spec_components",
+    "plan_components",
     "magnitude",
     "VARIANTS",
 ]
@@ -177,6 +178,70 @@ def spec_components(
     return (gx, gy, gd, gdt)
 
 
+# ---------------------------------------------------------------------------
+# StencilPlan chaining: single-plane pre-stages on shrinking extents, then the
+# gradient stage through the ladder above (repro.core.sobel.plan_components).
+# ---------------------------------------------------------------------------
+
+def _window_reduce(x: torch.Tensor, r: int, mode: str, out_h: int, out_w: int) -> torch.Tensor:
+    """Separable ``(2r+1)``-square max/min (dilate/erode): a horizontal then
+    a vertical pass, each folding its slices left to right with the
+    NaN-propagating ``torch.maximum``/``torch.minimum``."""
+    op = torch.maximum if mode == "max" else torch.minimum
+    acc = None
+    for t in range(2 * r + 1):
+        s = x[..., t:t + out_w]
+        acc = s if acc is None else op(acc, s)
+    x = acc
+    acc = None
+    for t in range(2 * r + 1):
+        s = x[..., t:t + out_h, :]
+        acc = s if acc is None else op(acc, s)
+    return acc
+
+
+def _stage_apply(x: torch.Tensor, stage, out_h: int, out_w: int) -> torch.Tensor:
+    """Apply one single-plane stage to ``x`` (extent ``out + 2 * radius``)."""
+    if stage.kind == "linear":
+        spec = stage.operator
+        fac = spec.sep_factors(0)
+        if fac is not None:
+            col, row = fac
+            return _vpass(_hpass(x, row, out_w), col, out_h)
+        return _correlate2d(x, spec.bank(1)[0], out_h, out_w)
+    if stage.kind == "window_reduce":
+        return _window_reduce(x, stage.radius, stage.op, out_h, out_w)
+    if stage.kind == "pointwise":
+        fn, _bound = F.get_pointwise(stage.op)
+        return fn(x)
+    raise ValueError(f"stage {stage.name!r} (kind {stage.kind!r}) is not a "
+                     "single-plane stage")
+
+
+def plan_components(ext: torch.Tensor, plan, h: int, w: int, variant: str,
+                    directions: int) -> Tuple[torch.Tensor, ...]:
+    """Direction components of ``plan`` on ``ext``, the input extended by
+    ``plan.linear_reach`` on each side (``(h + 2R, w + 2R)``).
+
+    The input is extended once, by the composed reach, and each pre-stage
+    consumes its own radius off that margin: stage ``k``'s output extent
+    is ``h + 2 * (the radii still to come)``, so near the border a blurred
+    value is the blur of the extended input, never an extension of the
+    blurred plane. After the last pre-stage the plane is extended by the
+    gradient's radius and :func:`spec_components` finishes the chain. A
+    plan without a gradient returns its last plane as a 1-tuple.
+    """
+    cur = ext
+    remaining = plan.linear_reach
+    for stage in plan.pre_stages:
+        remaining -= stage.radius
+        cur = _stage_apply(cur, stage, h + 2 * remaining, w + 2 * remaining)
+    spec = plan.gradient
+    if spec is None:
+        return (cur,)
+    return spec_components(cur, spec, h, w, variant, directions)
+
+
 def _pad(image: torch.Tensor, r: int, padding: str) -> Tuple[torch.Tensor, int, int]:
     """Boundary-extend the last two dims by ``r`` under ``padding``.
 
@@ -206,12 +271,19 @@ def sobel_components(
     padding: str = "reflect",
     operator: "str | None" = None,
     precision: str = "f32",
+    plan=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Per-direction gradient images ``(G_x, G_y[, G_d, G_dt])`` in f32.
 
     ``operator`` names any registered operator; when omitted, ``size``
     picks the Sobel operator of that size. ``directions`` of 0 means the
     operator's maximum.
+
+    ``plan`` (a :class:`~repro_torch.core.filters.StencilPlan` or a
+    registered plan name) chains the plan's pre-stages ahead of its
+    gradient stage with one pad of ``plan.linear_reach``
+    (:func:`plan_components`). It overrides ``operator``/``size`` and must
+    carry a gradient stage.
 
     ``precision="int"`` runs the exact integer lane: the uint8 image is cast
     to the i16/i32 dtype ``core.ladder.accum_dtype`` proves, the ladder
@@ -223,30 +295,50 @@ def sobel_components(
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if precision not in ("f32", "int"):
         raise ValueError(f"unknown precision {precision!r}; expected 'f32' or 'int'")
-    spec = F.get_operator(operator or F.operator_for_size(size), params)
+    if plan is not None:
+        plan = F.resolve_plan(plan)
+        spec = plan.gradient
+        if spec is None:
+            raise ValueError(
+                f"plan {plan.name!r} has no gradient stage; "
+                "sobel_components returns direction components"
+            )
+        reach = plan.linear_reach
+    else:
+        spec = F.get_operator(operator or F.operator_for_size(size), params)
+        reach = spec.radius
     directions = spec.resolve_directions(directions)
     variant = spec.resolve_variant(variant)
     image = torch.as_tensor(image)
-    x = to_lane(image, spec, precision)
-    xp, h, w = _pad(x, spec.radius, padding)
-    comps = spec_components(xp, spec, h, w, variant, directions)
+    x = to_lane(image, spec, precision, plan=plan)
+    xp, h, w = _pad(x, reach, padding)
+    if plan is not None:
+        comps = plan_components(xp, plan, h, w, variant, directions)
+    else:
+        comps = spec_components(xp, spec, h, w, variant, directions)
     if precision == "int":
         comps = tuple(c.to(torch.float32) for c in comps)
     return comps
 
 
-def to_lane(gray: torch.Tensor, spec: F.OperatorSpec, precision: str) -> torch.Tensor:
+def to_lane(gray: torch.Tensor, spec: F.OperatorSpec, precision: str,
+            plan=None) -> torch.Tensor:
     """``gray`` in the lane's ladder dtype: f32, or for ``precision="int"``
-    the integer dtype ``core.ladder.accum_dtype`` licenses (after checking
-    that the lane covers this input and operator)."""
+    the integer dtype ``core.ladder.accum_dtype`` (``plan_accum_dtype``
+    with a plan) licenses, after checking that the lane covers this input,
+    operator and plan."""
     if precision != "int":
         return gray.to(torch.float32)
     from repro_torch.core import ladder
 
-    ok, reason = ladder.int_lane_eligible(spec, rgb=False, input_dtype=gray.dtype)
+    if plan is not None:
+        ok, reason = ladder.plan_int_eligible(plan, rgb=False, input_dtype=gray.dtype)
+    else:
+        ok, reason = ladder.int_lane_eligible(spec, rgb=False, input_dtype=gray.dtype)
     if not ok:
         raise ValueError(f"precision='int' unavailable: {reason}")
-    return gray.to(getattr(torch, ladder.accum_dtype(spec)))
+    acc = ladder.plan_accum_dtype(plan) if plan is not None else ladder.accum_dtype(spec)
+    return gray.to(getattr(torch, acc))
 
 
 def magnitude(components: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -274,6 +366,7 @@ def sobel(
     return_components: bool = False,
     operator: "str | None" = None,
     precision: str = "f32",
+    plan=None,
 ):
     """Multi-directional edge magnitude ``G`` (paper Eq. 4).
 
@@ -289,6 +382,8 @@ def sobel(
       operator: registered operator name (overrides ``size``).
       precision: ``f32``, or ``int`` for the exact integer lane (u8 input,
         integer taps; bit-identical to ``f32``).
+      plan: a stencil plan (or its registered name) whose pre-stages run
+        ahead of its gradient stage (see :func:`sobel_components`).
     """
     comps = sobel_components(
         image,
@@ -299,6 +394,7 @@ def sobel(
         padding=padding,
         operator=operator,
         precision=precision,
+        plan=plan,
     )
     g = magnitude(comps)
     if return_components:

@@ -64,6 +64,13 @@
 //     twice), so that a CTA alone on its SM still has up to 16 warps.
 //   * The per-tile maxima and every output keep K1's layout; the integer
 //     lane (acc_int) stages an int32 window as K1 does.
+//   * A stencil plan: the ring holds windows of the plan's composed reach,
+//     and after the conversion all bands run the pre-stages on the window
+//     (edge_tile.cuh, run_pre_stages) into one plane beside it and back
+//     before they walk the last plane, in the same launch. At 64x256 with
+//     NMS canny5's window and plane take 152 KB, so its ring fits u8 frames
+//     at depths 2 and 3 and no f32 depth; a depth that does not fit is
+//     refused, never lowered.
 //
 // Shared memory: pipelined_layout() below, mirrored by
 // repro_torch/kernels/edge.py::pipelined_smem_bytes (chip_smoke.py and the
@@ -103,18 +110,21 @@ __host__ __device__ inline size_t align_to(size_t b, size_t a) { return (b + a -
 
 // Byte offsets of K2's dynamic shared memory, and the sizes they derive from.
 struct Layout {
-  int eh, ew;        // the window, K1's: (bh + 2 R_in) x (bw + 2 R_in)
+  int eh, ew;        // the window, K1's: (bh + 2 R_in) x (bw + 2 R_in), R_in the reach (+1 NMS)
   int row_stride;    // cp.async route: bytes per slot row, a window row and its lead
   int box_w, box_h;  // TMA route (gray): box_w elements (16-byte units) x box_h
   int chunks;        //   rows, chunks x row_boxes boxes a window (up to 15
   int row_boxes;     //   bytes of lead included), chunk-major, each box_stride
   int box_stride;    //   bytes (128-aligned) after the last
   int slot_bytes;    // bytes per ring slot: the larger route, 128-aligned
-  size_t rowoff, coloff, win, warp_max, bars, layout, total;
+  size_t rowoff, coloff, win, plane, warp_max, bars, layout, total;
 };
 
+// radius: the window's reach without NMS (the operator's radius, or a plan's
+// composed reach); plane_words: the pre-stage plane (pre_plane_words).
 __host__ __device__ inline Layout pipelined_layout(int bh, int bw, int radius, int depth,
-                                                   int in_bytes, int channels, int nms) {
+                                                   int in_bytes, int channels, int nms,
+                                                   int plane_words = 0) {
   Layout L;
   const int r_in = radius + nms;
   L.eh = bh + 2 * r_in;
@@ -133,7 +143,8 @@ __host__ __device__ inline Layout pipelined_layout(int bh, int bw, int radius, i
   L.rowoff = (size_t)depth * L.slot_bytes;
   L.coloff = align_to(L.rowoff + 4 * (size_t)L.eh, 16);
   L.win = align_to(L.coloff + 4 * (size_t)L.ew, 16);
-  L.warp_max = align_to(L.win + 4 * (size_t)L.eh * L.ew, 16);
+  L.plane = align_to(L.win + 4 * (size_t)L.eh * L.ew, 16);
+  L.warp_max = align_to(L.plane + 4 * (size_t)plane_words, 16);
   L.bars = L.warp_max + 2 * (K2_MAX_THREADS / 32) * sizeof(float);
   L.layout = align_to(L.bars + (size_t)depth * sizeof(uint64_t), 16);
   L.total = L.layout + 128;  // this struct, for the threads to read back
@@ -394,13 +405,13 @@ __device__ __forceinline__ float walk_tile(const P& tp, const Geom& g, const Win
   return tmax;
 }
 
-template <int K, typename T, typename A, typename P>
+template <int K, typename T, typename A, typename P, bool kPre>
 __global__ void __launch_bounds__(k2_consumers(K), 1)
 pipelined_kernel(const T* __restrict__ x, const Geom g, const int depth, const int bands,
                  const int tma, const long long ntiles, float* __restrict__ out_primary,
                  float* __restrict__ out_comps, float* __restrict__ out_mag,
                  float* __restrict__ out_bmax, const __grid_constant__ TapsT<A> taps,
-                 const __grid_constant__ CUtensorMap map) {
+                 const __grid_constant__ CUtensorMap map, const __grid_constant__ PreT<A> pre) {
   extern __shared__ __align__(128) unsigned char smem[];
   static_assert(sizeof(Layout) <= 128, "pipelined_layout reserves 128 bytes for the layout");
   // The layout goes to shared memory and is read back where it is used,
@@ -408,8 +419,9 @@ pipelined_kernel(const T* __restrict__ x, const Geom g, const int depth, const i
   Layout* sl;
   uint64_t* full;
   {
-    const Layout L = pipelined_layout(g.bh, g.bw, K / 2, depth, (int)sizeof(T),
-                                      g.rgb ? 3 : 1, g.nms);
+    const Layout L = pipelined_layout(g.bh, g.bw, kPre ? (int)pre.reach : K / 2, depth,
+                                      (int)sizeof(T), g.rgb ? 3 : 1, g.nms,
+                                      kPre ? pre_plane_words(pre, g.bh, g.bw, g.nms) : 0);
     sl = reinterpret_cast<Layout*>(smem + L.layout);
     full = reinterpret_cast<uint64_t*>(smem + L.bars);
     if (threadIdx.x == 0) {
@@ -422,7 +434,9 @@ pipelined_kernel(const T* __restrict__ x, const Geom g, const int depth, const i
   const Layout& L = *sl;
   const P tp = P::make(taps, g);
   const int ch = g.rgb ? 3 : 1;
-  const int r_in = K / 2 + g.nms;
+  const int r_in = (kPre ? (int)pre.reach : K / 2) + g.nms;
+  const int mh = g.bh + 2 * g.nms, mw = g.bw + 2 * g.nms;
+  const int ew = mw + 2 * (K / 2);  // the walk's window: the last plane
   const int tt = tile_threads(g.bw, g.nms);
   const int band = threadIdx.x / tt, bt = threadIdx.x - band * tt;
   const int rows_per_band = cdiv(g.bh, bands);
@@ -430,6 +444,7 @@ pipelined_kernel(const T* __restrict__ x, const Geom g, const int depth, const i
   int* rowoff = reinterpret_cast<int*>(smem + L.rowoff);
   int* coloff = reinterpret_cast<int*>(smem + L.coloff);
   A* win = reinterpret_cast<A*>(smem + L.win);
+  A* plane = reinterpret_cast<A*>(smem + L.plane);
   float* warp_max = reinterpret_cast<float*>(smem + L.warp_max);
   constexpr int WM = K2_MAX_THREADS / 32;
   auto post_max = [&](long long tile, int i) {  // tile's max, from warp_max[i & 1]
@@ -459,7 +474,11 @@ pipelined_kernel(const T* __restrict__ x, const Geom g, const int depth, const i
     __syncthreads();  // the window is in, and nobody reads the slot again
     const long long next = t + (long long)depth * gridDim.x;
     if (next < ntiles) fill_slot<T>(x, g, L, tma, &map, next, slot, &full[s]);
-    float tmax = walk_tile<K, A>(tp, g, w, win, L.ew, band, bt, tt, rows_per_band, out_primary,
+    const A* src = win;
+    if constexpr (kPre) {
+      if (run_pre_stages<A>(pre, win, plane, mh, mw)) src = plane;
+    }
+    float tmax = walk_tile<K, A>(tp, g, w, src, ew, band, bt, tt, rows_per_band, out_primary,
                                  out_comps, out_mag, out_bmax != nullptr);
     if (out_bmax != nullptr) {
 #pragma unroll
@@ -519,14 +538,19 @@ static cudaError_t encode_map(CUtensorMap* map, const void* x, int n, const Geom
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int K, typename T, typename A, typename P>
-static cudaError_t launch(const void* x, int n, const Geom& g, int depth, int tma,
-                          float* primary, float* comps, float* mag, float* bmax,
-                          const TapsT<A>& taps, cudaStream_t stream) {
-  const Layout L = pipelined_layout(g.bh, g.bw, K / 2, depth, (int)sizeof(T), g.rgb ? 3 : 1,
-                                    g.nms);
+// Kernel parameters stay within the 4 KB every CUDA 12 toolkit takes.
+static_assert(sizeof(Taps) + sizeof(Pre) + sizeof(CUtensorMap) + sizeof(Geom) + 64 +
+                      6 * sizeof(void*) <= 4096,
+              "K2's parameters exceed 4 KB");
+
+template <int K, typename T, typename A, typename P, bool kPre>
+static cudaError_t launch_pre(const void* x, int n, const Geom& g, int depth, int tma,
+                              float* primary, float* comps, float* mag, float* bmax,
+                              const TapsT<A>& taps, const PreT<A>& pre, cudaStream_t stream) {
+  const Layout L = pipelined_layout(g.bh, g.bw, (int)pre.reach, depth, (int)sizeof(T),
+                                    g.rgb ? 3 : 1, g.nms, pre_plane_words(pre, g.bh, g.bw, g.nms));
   if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
-  const auto kernel = pipelined_kernel<K, T, A, P>;
+  const auto kernel = pipelined_kernel<K, T, A, P, kPre>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
@@ -549,8 +573,21 @@ static cudaError_t launch(const void* x, int n, const Geom& g, int depth, int tm
     if ((e = encode_map<T>(&map, x, n, g, L)) != cudaSuccess) return e;
   }
   kernel<<<(unsigned)ctas, threads, L.total, stream>>>((const T*)x, g, depth, bands, tma, ntiles,
-                                                       primary, comps, mag, bmax, taps, map);
+                                                       primary, comps, mag, bmax, taps, map, pre);
   return cudaGetLastError();
+}
+
+// A plan with pre-stages runs the instance that has them compiled in, as K1.
+template <int K, typename T, typename A, typename P>
+static cudaError_t launch(const void* x, int n, const Geom& g, int depth, int tma,
+                          float* primary, float* comps, float* mag, float* bmax,
+                          const TapsT<A>& taps, const PreT<A>& pre, cudaStream_t stream) {
+  if ((int)pre.n > 0)
+    return launch_pre<K, T, A, P, true>(x, n, g, depth, tma, primary, comps, mag, bmax, taps,
+                                        pre, stream);
+  if ((int)pre.reach != K / 2) return cudaErrorInvalidValue;
+  return launch_pre<K, T, A, P, false>(x, n, g, depth, tma, primary, comps, mag, bmax, taps, pre,
+                                       stream);
 }
 
 // One accumulator type: the compile-time instance (sobel5, v2, 2 or 4
@@ -558,25 +595,37 @@ static cudaError_t launch(const void* x, int n, const Geom& g, int depth, int tm
 template <typename T, typename A>
 static cudaError_t launch_lane(const void* x, int n, const Geom& g, int size, int const_taps,
                                int depth, int tma, float* primary, float* comps, float* mag,
-                               float* bmax, const TapsT<A>& taps, cudaStream_t s) {
+                               float* bmax, const TapsT<A>& taps, const PreT<A>& pre,
+                               cudaStream_t s) {
+  if ((int)pre.n < 0 || (int)pre.n > MAX_PRE || (int)pre.reach < size / 2)
+    return cudaErrorInvalidValue;
   if (const_taps) {
     if (size != 5 || g.variant != V_V2) return cudaErrorInvalidValue;
     if (g.dirs == 4)
       return launch<5, T, A, Sobel5Default<4>>(x, n, g, depth, tma, primary, comps, mag, bmax,
-                                               taps, s);
+                                               taps, pre, s);
     if (g.dirs == 2)
       return launch<5, T, A, Sobel5Default<2>>(x, n, g, depth, tma, primary, comps, mag, bmax,
-                                               taps, s);
+                                               taps, pre, s);
     return cudaErrorInvalidValue;
   }
   REPRO_SWITCH_SIZE(size, (launch<KS, T, A, RtTaps<A>>(x, n, g, depth, tma, primary, comps, mag,
-                                                       bmax, taps, s)))
+                                                       bmax, taps, pre, s)))
 }
 
 // K2's dynamic shared memory in bytes, as pipelined_layout computes it.
 extern "C" long long repro_pipelined_smem_bytes(int bh, int bw, int radius, int depth,
                                                 int in_bytes, int channels, int nms) {
   return (long long)pipelined_layout(bh, bw, radius, depth, in_bytes, channels, nms).total;
+}
+
+// The same with a plan: radius is its composed reach, plane_words its
+// pre-stage plane (pre_plane_words).
+extern "C" long long repro_pipelined_plan_smem_bytes(int bh, int bw, int radius, int depth,
+                                                     int in_bytes, int channels, int nms,
+                                                     int plane_words) {
+  return (long long)pipelined_layout(bh, bw, radius, depth, in_bytes, channels, nms, plane_words)
+      .total;
 }
 
 // K2's bands of consumer threads for a tile, as pipelined_bands computes it.
@@ -589,27 +638,30 @@ extern "C" int repro_pipelined_bands(int bh, int bw, int nms, int size) {
 // TMA boxes, which needs gray input with a 16-byte aligned base and row
 // pitch, else cudaErrorInvalidValue; 0: 16-byte cp.async). Returns the
 // launch's cudaError_t, or the tensor map's encode failure as
-// cudaErrorInvalidValue / cudaErrorNotSupported.
+// cudaErrorInvalidValue / cudaErrorNotSupported. pre_host as for
+// repro_edge_launch: a plan's pre-stages, run on each converted window.
 extern "C" int repro_pipelined_launch(const void* x, int in_u8, int rgb, int n, int h, int w,
                                       int bh, int bw, int size, int variant, int dirs,
                                       int padding, int nms, float tan_pi8, const float* taps_host,
                                       int const_taps, int acc_int, int depth, int tma,
                                       float* primary, float* comps, float* mag, float* bmax,
-                                      void* stream) {
+                                      void* stream, const float* pre_host) {
   if (depth < 2 || depth > 8) return (int)cudaErrorInvalidValue;
   Taps t;
   memcpy(&t, taps_host, sizeof(Taps));
+  Pre pre;
+  memcpy(&pre, pre_host, sizeof(Pre));
   cudaStream_t s = (cudaStream_t)stream;
   const Geom g = {rgb, h, w, bh, bw, (h + bh - 1) / bh, (w + bw - 1) / bw,
                   variant, dirs, padding, nms, tan_pi8};
   if (acc_int) {
     if (!in_u8 || rgb) return (int)cudaErrorInvalidValue;
     return (int)launch_lane<uint8_t, int32_t>(x, n, g, size, const_taps, depth, tma, primary,
-                                              comps, mag, bmax, int_taps(t), s);
+                                              comps, mag, bmax, int_taps(t), int_pre(pre), s);
   }
   if (in_u8)
     return (int)launch_lane<uint8_t, float>(x, n, g, size, const_taps, depth, tma, primary, comps,
-                                            mag, bmax, t, s);
+                                            mag, bmax, t, pre, s);
   return (int)launch_lane<float, float>(x, n, g, size, const_taps, depth, tma, primary, comps,
-                                        mag, bmax, t, s);
+                                        mag, bmax, t, pre, s);
 }

@@ -48,6 +48,18 @@
 // magnitude of the boundary-extended image, as core/nms.thin_map computes
 // it.
 //
+// A stencil plan (core/filters.StencilPlan) runs its pre-stages on the tile
+// before the walk (run_pre_stages): the window is staged at the plan's
+// composed reach (its radii summed, + 1 with NMS), and each pre-stage --
+// a separable or dense linear stage, a window max or min, abs or the fenced
+// square -- consumes its own radius off that margin into a second plane,
+// the next stage back into the window's buffer, so the border of a blurred
+// plane is the blur of the extended input (core/sobel.plan_components),
+// never an extension of the blurred plane. A linear or window stage is a
+// column walk with a register ring of its K rows, in the f32 operations and
+// order of the plain lane (hpass, vsum, corr2d); abs and square run in
+// place. The walk then reads the last plane as its window.
+//
 // Compiled with --fmad=false (every product and sum rounded on its own) and
 // without --use_fast_math (sqrtf stays IEEE).
 
@@ -101,6 +113,47 @@ struct Geom {
   float tan_pi8;  // f32 rounding of tan(pi/8), from core/nms.TAN_PI8_F32
 };
 
+// A plan's pre-stages, packed by repro_torch/kernels/edge.py::_pack_pre in
+// this field order, all of the accumulator type W like TapsT (codes and
+// sizes are small integers, exact either way). Without a plan n = 0 and
+// reach is the operator's radius.
+#define MAX_PRE 4
+enum { PRE_SEP = 0, PRE_DENSE = 1, PRE_MAX = 2, PRE_MIN = 3, PRE_ABS = 4, PRE_SQUARE = 5 };
+template <typename W>
+struct PreT {
+  W n;                           // pre-stages, 0 .. MAX_PRE
+  W reach;                       // composed linear reach: the window's radius without NMS
+  W kind[MAX_PRE];               // PRE_* code of each stage
+  W size[MAX_PRE];               // 2 r + 1 (1 for abs and square)
+  W taps[MAX_PRE][KMAX * KMAX];  // PRE_SEP: row factor at [0, K), column at [KMAX, KMAX + K);
+                                 // PRE_DENSE: K x K taps at row pitch KMAX
+};
+using Pre = PreT<float>;
+static_assert(sizeof(PreT<int32_t>) == sizeof(Pre), "int pre-stages mirror the f32 layout");
+
+inline PreT<int32_t> int_pre(const Pre& p) {
+  PreT<int32_t> out;
+  const float* src = reinterpret_cast<const float*>(&p);
+  int32_t* dst = reinterpret_cast<int32_t*>(&out);
+  for (size_t i = 0; i < sizeof(Pre) / sizeof(float); ++i) dst[i] = (int32_t)src[i];
+  return out;
+}
+
+// 4-byte words of the plane beside the window: the output of the first
+// pre-stage with a radius, the largest plane a stage writes there (later
+// stages alternate with the window's buffer, each output smaller than the
+// last). 0 without one. kernels/edge.py::pre_plane_words mirrors it.
+template <typename W>
+__host__ __device__ inline int pre_plane_words(const PreT<W>& p, int bh, int bw, int nms) {
+  int rem = (int)p.reach;
+  for (int s = 0; s < (int)p.n; ++s) {
+    const int r = ((int)p.size[s] - 1) / 2;
+    rem -= r;
+    if (r > 0) return (bh + 2 * nms + 2 * rem) * (bw + 2 * nms + 2 * rem);
+  }
+  return 0;
+}
+
 // The ladder runs in an accumulator type A: float, or int32_t on the exact
 // integer lane (u8 gray input x integer taps, core/ladder.py), with taps of
 // the same type; +-1 taps never multiply.
@@ -123,6 +176,15 @@ __device__ __forceinline__ float to_f32(int32_t x) { return __int2float_rn(x); }
 __device__ __forceinline__ float maxp(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
+
+// NaN-propagating min, like torch.minimum; the integer lane's max and min.
+__device__ __forceinline__ float minp(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float pre_max(float a, float b) { return maxp(a, b); }
+__device__ __forceinline__ float pre_min(float a, float b) { return minp(a, b); }
+__device__ __forceinline__ int32_t pre_max(int32_t a, int32_t b) { return a > b ? a : b; }
+__device__ __forceinline__ int32_t pre_min(int32_t a, int32_t b) { return a < b ? a : b; }
 
 // A stencil source: src(i, j) is the ladder input at row i, column j of the
 // stencil whose top-left corner the source was made for, in a shared-memory
@@ -683,6 +745,94 @@ struct EmitNms {
   }
 };
 
+// max/min of v(0) .. v(K - 1), folded left to right (core/sobel._window_reduce).
+template <int K, typename A, typename V>
+__device__ __forceinline__ A fold_window(bool is_max, const V& v) {
+  A acc = v(0);
+#pragma unroll
+  for (int t = 1; t < K; ++t) acc = is_max ? pre_max(acc, v(t)) : pre_min(acc, v(t));
+  return acc;
+}
+
+// Pre-stage s of width KP (core/sobel._stage_apply): `in` is (oh + KP - 1) x
+// (ow + KP - 1) at row pitch iw, `out` oh x ow at pitch ow. Each thread walks
+// columns of the output: a linear stage's horizontal pass (or a window's
+// row max/min) into a ring of KP rows, the vertical pass from the ring; a
+// dense stage correlates per pixel. Not inlined: one copy per width and
+// accumulator type serves every instance.
+template <int KP, typename A>
+__device__ __noinline__ void pre_stage(const PreT<A>& pre, int s, const A* in, int iw, A* out,
+                                       int oh, int ow) {
+  const int kind = (int)pre.kind[s];
+  const A* taps = pre.taps[s];
+  const bool is_max = kind == PRE_MAX;
+  for (int j = threadIdx.x; j < ow; j += blockDim.x) {
+    if (kind == PRE_DENSE) {
+#pragma unroll 1
+      for (int y = 0; y < oh; ++y) out[y * ow + j] = corr2d<KP, A>(taps, PtrSrc<A>{in + y * iw + j, iw});
+      continue;
+    }
+    A ring[KP];
+#pragma unroll
+    for (int t = 0; t < KP; ++t) ring[t] = 0;
+#pragma unroll 1
+    for (int r = 0; r < oh + KP - 1; ++r) {
+#pragma unroll
+      for (int t = 0; t < KP - 1; ++t) ring[t] = ring[t + 1];
+      const PtrSrc<A> src{in + r * iw + j, iw};
+      ring[KP - 1] = kind == PRE_SEP
+                         ? hpass<KP, A>(taps, src, 0)
+                         : fold_window<KP, A>(is_max, [&](int t) { return src(0, t); });
+      if (r >= KP - 1) {
+        out[(r - KP + 1) * ow + j] =
+            kind == PRE_SEP ? vsum<KP, A>(taps + KMAX, ring)
+                            : fold_window<KP, A>(is_max, [&](int t) { return ring[t]; });
+      }
+    }
+  }
+}
+
+// core/filters' pointwise fns: abs, and the fenced square max(x * x, 0).
+__device__ __forceinline__ float pre_point(int kind, float v) {
+  return kind == PRE_ABS ? fabsf(v) : maxp(v * v, 0.0f);
+}
+__device__ __forceinline__ int32_t pre_point(int kind, int32_t v) {
+  return kind == PRE_ABS ? (v < 0 ? -v : v) : v * v;
+}
+
+// The plan's pre-stages on a tile whose window `win` is (mh + 2 reach) x
+// (mw + 2 reach); `plane` holds pre_plane_words() more. Every thread of the
+// CTA calls it once the window is in; returns whether the last plane,
+// (mh + 2 R) x (mw + 2 R) for the gradient's radius R, is in `plane` (else
+// in `win`). The caller offsets its own shared-memory pointer by that, so
+// that the walk's loads stay shared-memory loads.
+template <typename A>
+__device__ bool run_pre_stages(const PreT<A>& pre, A* win, A* plane, int mh, int mw) {
+  A* cur = win;
+  int rem = (int)pre.reach;
+  for (int s = 0; s < (int)pre.n; ++s) {
+    const int kp = (int)pre.size[s];
+    const int iw = mw + 2 * rem, ih = mh + 2 * rem;
+    rem -= kp / 2;
+    const int kind = (int)pre.kind[s];
+    if (kind == PRE_ABS || kind == PRE_SQUARE) {
+      for (int q = threadIdx.x; q < ih * iw; q += blockDim.x) cur[q] = pre_point(kind, cur[q]);
+    } else {
+      A* dst = cur == win ? plane : win;
+      const int oh = mh + 2 * rem, ow = mw + 2 * rem;
+      switch (kp) {
+        case 3: pre_stage<3, A>(pre, s, cur, iw, dst, oh, ow); break;
+        case 5: pre_stage<5, A>(pre, s, cur, iw, dst, oh, ow); break;
+        case 7: pre_stage<7, A>(pre, s, cur, iw, dst, oh, ow); break;
+        default: pre_stage<9, A>(pre, s, cur, iw, dst, oh, ow); break;
+      }
+      cur = dst;
+    }
+    __syncthreads();
+  }
+  return cur != win;
+}
+
 // The outputs of tile (img, tr, tc); every thread of the CTA (tile_threads
 // of them) calls it. Without NMS: out_primary gets the magnitude and
 // out_comps the components (either may be null). With NMS: out_primary gets
@@ -691,21 +841,30 @@ struct EmitNms {
 // magnitude over its in-image pixels (0 where it has none); meaningful only
 // when need_max. A is the ladder's accumulator: float, or int32_t for u8
 // gray input on the integer lane (the window is then staged as int32); P is
-// the tap policy (Sobel5Default or RtTaps).
-template <int K, typename T, typename A, typename P>
+// the tap policy (Sobel5Default or RtTaps). kPre (K1's and K2's plan
+// instances) runs a plan's pre-stages `pre`: the window is then staged at
+// the composed reach and the pre-stages run before the walk, their plane
+// after the window in smem (pre_plane_words). Without kPre the tile is the
+// operator alone and no pre-stage code is compiled in.
+template <int K, typename T, typename A, typename P, bool kPre = false>
 __device__ float edge_tile(const P& tp, const Geom& g, const T* __restrict__ x, long long img,
                            int tr, int tc, float* smem, float* __restrict__ out_primary,
                            float* __restrict__ out_comps, float* __restrict__ out_mag,
-                           bool need_max) {
+                           bool need_max, const PreT<A>* pre = nullptr) {
   static_assert(sizeof(A) == sizeof(float), "tile_smem_bytes sizes the window in 4-byte words");
   constexpr int R = K / 2;
-  const int halo = R + g.nms;
+  int reach = R;
+  if constexpr (kPre) reach = (int)pre->reach;
+  const int halo = reach + g.nms;
   const int mh = g.bh + 2 * g.nms, mw = g.bw + 2 * g.nms;
-  const int eh = mh + 2 * R, ew = mw + 2 * R;
+  const int eh = mh + 2 * reach, ew0 = mw + 2 * reach, ew = mw + 2 * R;
   const T* xi = x + (size_t)img * g.h * g.w * (g.rgb ? 3 : 1);
   A* win = reinterpret_cast<A*>(smem);
-  stage_window<T, A>(g, xi, tr * g.bh - halo, tc * g.bw - halo, eh, ew, win);
+  stage_window<T, A>(g, xi, tr * g.bh - halo, tc * g.bw - halo, eh, ew0, win);
   __syncthreads();
+  if constexpr (kPre) {
+    if (run_pre_stages<A>(*pre, win, win + eh * ew0, mh, mw)) win += eh * ew0;
+  }
 
   if (!g.nms) {
     float tmax = 0.0f;
@@ -770,6 +929,8 @@ __device__ __forceinline__ void tile_of(const Geom& g, long long* img, int* tr, 
 extern "C" int repro_taps_len(void) { return (int)(sizeof(Taps) / sizeof(float)); }
 
 extern "C" int repro_max_size(void) { return KMAX; }
+
+extern "C" int repro_pre_len(void) { return (int)(sizeof(Pre) / sizeof(float)); }
 
 // The compile-time instance's taps in the packed Taps layout (the fields it
 // reads; every other field 0), for edge.py to hold against _pack_taps.

@@ -21,7 +21,12 @@ magnitude (or the components, or with ``nms`` the thin map) and the
 per-tile maxima of the un-thinned magnitude; the
 per-image peak is the max of the tile maxima; hysteresis links the
 assembled thin map (a global fixpoint, so never inside the kernel); the
-normalize epilogue scales by ``255 / max(peak, 1e-8)``.
+normalize epilogue scales by ``255 / max(peak, 1e-8)``. A stencil plan
+(``EdgeConfig.plan``) takes the same funnel: the lane through
+``core.ladder.plan_int_eligible``, the tile from the plan's own cache slot
+(``filters.plan_identity``) or a default sized by its composed reach, and
+one K1 or K2 launch that runs its pre-stages ahead of the gradient; the
+stream path refuses plans with pre-stages, as the reference does.
 
 :func:`edge_stream` is one frame step of the streaming detector: a per-tile
 change test against the previous frame (:func:`stream_delta`), one K3
@@ -41,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import ladder
 from repro_torch.core import nms as core_nms
-from repro_torch.core.filters import get_operator
+from repro_torch.core.filters import get_operator, plan_identity
 from repro_torch.core.sobel import magnitude
 from repro_torch.kernels import edge as ekern
 from repro_torch.kernels import tuning
@@ -67,7 +72,6 @@ BACKENDS = ("auto", "cuda", "torch")
 
 # EdgeConfig fields whose engine is not ported yet -> their ROADMAP item.
 _UNPORTED = (
-    ("plan", "queue 1 item 5 (stencil plans)"),
     ("shard", "queue 1 item 10 (multi-GPU halo sharding)"),
 )
 
@@ -99,21 +103,28 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     return b
 
 
-def resolve_precision(precision: str, backend: str, *, spec, rgb: bool, input_dtype) -> str:
+def resolve_precision(precision: str, backend: str, *, spec, rgb: bool, input_dtype,
+                      plan=None) -> str:
     """Resolve ``EdgeConfig.precision`` to the lane that runs: f32 | int.
 
     The reference's table, with ``cuda`` for ``pallas-tpu`` and ``torch``
     for ``xla``: explicit ``"int"`` runs on either backend but raises, with
-    the first failing gate of ``core.ladder.int_lane_eligible``, when the
-    exactness proof does not cover the workload (fractional taps, RGB
-    input, non-u8 frames); ``"auto"`` takes the integer lane for eligible
-    workloads on ``cuda`` only and stays f32 on ``torch``. ``input_dtype``
-    is the dtype the kernel sees.
+    the first failing gate of ``core.ladder.int_lane_eligible`` (with a
+    ``plan``, of the ``plan_int_eligible`` chain), when the exactness proof
+    does not cover the workload (fractional taps, RGB input, non-u8
+    frames); ``"auto"`` takes the integer lane for eligible workloads on
+    ``cuda`` only and stays f32 on ``torch``. ``input_dtype`` is the dtype
+    the kernel sees.
     """
+    def eligible():
+        if plan is not None:
+            return ladder.plan_int_eligible(plan, rgb=rgb, input_dtype=input_dtype)
+        return ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype)
+
     if precision == "f32":
         return "f32"
     if precision == "int":
-        ok, reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype)
+        ok, reason = eligible()
         if not ok:
             raise ValueError(f"precision='int' unavailable: {reason}")
         return "int"
@@ -123,7 +134,7 @@ def resolve_precision(precision: str, backend: str, *, spec, rgb: bool, input_dt
         )
     if backend == "torch":
         return "f32"
-    ok, _reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=input_dtype)
+    ok, _reason = eligible()
     return "int" if ok else "f32"
 
 
@@ -143,6 +154,7 @@ def choose_block_shape(
     precision: str = "f32",
     pipeline_depth: Optional[int] = None,
     nms: bool = False,
+    plan=None,
 ) -> Tuple[int, int, int, str]:
     """Resolve ``(block_h, block_w, depth, source)`` as the reference does.
 
@@ -156,16 +168,21 @@ def choose_block_shape(
     tuned or default tile.
 
     The key carries no ``nms``, so on ``cuda`` a tuned tile whose
-    footprint for this call (``nms`` and the depth) exceeds
+    footprint for this call (``nms``, the depth and the plan) exceeds
     ``SMEM_MAX`` is skipped with a warning, like a corrupt entry: a cache
     entry never turns a call that works into an error.
+
+    ``plan`` (a resolved stencil plan) keys its own slot,
+    ``filters.plan_identity(plan)`` in place of ``-``, and sizes the
+    default tile by its composed reach (``2 * plan.linear_reach + 1``).
     """
     if block_h and block_w:
         return block_h, block_w, pipeline_depth or 0, "explicit"
     cache = cache if cache is not None else tuning.get_default_cache()
-    spec = get_operator(operator)
+    spec = plan.gradient if plan is not None else get_operator(operator)
     key = tuning.TuneKey(backend, dtype, operator, variant, h, w, padding, layout, 1, "1x1x1",
-                         precision, pipeline_depth or 0, "-")
+                         precision, pipeline_depth or 0,
+                         plan_identity(plan) if plan is not None else "-")
     hit = cache.lookup(key)
     if hit is not None:
         bh, bw, depth = hit
@@ -173,7 +190,7 @@ def choose_block_shape(
             depth = pipeline_depth
         bh, bw = block_h or bh, block_w or bw
         smem = tuning.tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
-                                      nms=nms)
+                                      nms=nms, plan=plan)
         if backend != "cuda" or smem <= ekern.SMEM_MAX:
             return bh, bw, depth, "tuned"
         warnings.warn(
@@ -181,7 +198,8 @@ def choose_block_shape(
             f"nms={nms} it needs {smem} B of shared memory, above {ekern.SMEM_MAX} B",
             RuntimeWarning, stacklevel=2,
         )
-    dbh, dbw = ekern.default_block_shape(h, w, spec.size)
+    size = 2 * plan.linear_reach + 1 if plan is not None else spec.size
+    dbh, dbw = ekern.default_block_shape(h, w, size)
     return block_h or dbh, block_w or dbw, pipeline_depth or 0, "default"
 
 
@@ -258,20 +276,20 @@ def edge(
     need_peak = config.normalize or config.with_max or config.hysteresis
     # The lane is resolved once, against the dtype the kernel sees.
     precision = resolve_precision(config.precision, backend, spec=spec, rgb=rgb,
-                                  input_dtype=x.dtype)
+                                  input_dtype=x.dtype, plan=config.plan)
     bh, bw, depth, _source = choose_block_shape(
         h, w, operator=config.operator, variant=config.variant,
         dtype=_kernel_dtype_name(x), backend=backend, padding=config.padding,
         layout="rgb" if rgb else "gray", block_h=config.block_h, block_w=config.block_w,
         cache=tuning_cache, precision=precision, pipeline_depth=config.pipeline_depth,
-        nms=config.nms,
+        nms=config.nms, plan=config.plan,
     )
     run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
     out = run(
         x, spec=spec, variant=config.variant, directions=config.directions,
         padding=config.padding, block_h=bh, block_w=bw, rgb=rgb,
         out_components=need_comps, out_nms=config.nms, with_max=need_peak,
-        precision=precision, pipeline_depth=depth,
+        precision=precision, pipeline_depth=depth, plan=config.plan,
     )
     outs = list(out) if isinstance(out, tuple) else [out]
     bmax = outs.pop() if need_peak else None
@@ -401,7 +419,8 @@ def stream_delta(
             diff = diff.any(dim=-1)
         blocks = ekern._block_max(diff.to(torch.float32), bh, bw) > 0
         config = config.resolved()
-        r_in = window_radius(config.spec.radius, config.nms)
+        reach = config.plan.linear_reach if config.plan is not None else config.spec.radius
+        r_in = window_radius(reach, config.nms)
         th, tw = window_shape(h, w, bh, bw, r_in, align=ALIGN_INTERPRET)
         changed = _dilate_blocks(
             blocks,
@@ -460,6 +479,14 @@ def _stream_epilogue(
 
 
 def _check_stream_config(config: "EdgeConfig") -> None:
+    if config.plan is not None and config.plan.pre_stages:
+        # K3 runs one stage on the changed tiles; a single-operator plan
+        # (gradient [+ nms]) resolves to its plain operator and runs.
+        raise ValueError(
+            f"streaming runs the single-stage masked kernel; plan "
+            f"{config.plan.name!r} has pre-stages and is not supported on "
+            "the stream path (use edge_detect for fused multi-stage plans)"
+        )
     if config.shard is not None:
         raise ValueError(
             "streaming is single-device per stream group for now; drop "

@@ -7,7 +7,10 @@ fed by a ring of windows that a producer warp copies ahead, on a
 persistent grid), through ``edge_pipelined_cuda``; ``edge_stream_cuda`` launches K3,
 ``csrc/edge_stream.cu`` (the port of ``_stream_kernel``: K1's tile body on
 the changed tiles and 16-byte copies of the cached ones, on a persistent
-grid that compacts the mask itself). They take CUDA
+grid that compacts the mask itself). K1 and K2 take a stencil ``plan``
+too: its pre-stages run on the tile in shared memory ahead of the
+gradient, in the same launch (the reference's ``_emit_outputs`` with
+``plan=``). They take CUDA
 tensors and raise on anything else. ``edge_plain`` and
 ``edge_stream_plain`` compute the same outputs from ``repro_torch.core``
 functions on any device; the CPU lane runs them, and the kernels are held
@@ -31,9 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import ladder
-from repro_torch.core.filters import OperatorSpec, get_operator
+from repro_torch.core.filters import OperatorSpec, get_operator, resolve_plan
 from repro_torch.core.nms import TAN_PI8_F32, thin_map
-from repro_torch.core.sobel import _pad, magnitude, spec_components, to_lane
+from repro_torch.core.sobel import _pad, magnitude, plan_components, spec_components, to_lane
 from repro_torch.kernels.tiling import PAD_MODES, luma, window_radius
 
 __all__ = [
@@ -46,6 +49,8 @@ __all__ = [
     "kernel_dtype",
     "window_smem_bytes",
     "pipelined_smem_bytes",
+    "pre_plane_words",
+    "kernel_plan",
     "pipelined_bands",
     "pipelined_tiles",
     "stream_vector_copy",
@@ -62,19 +67,94 @@ PIPELINE_DEPTHS = range(2, 9)  # K2's ring depths; 0 means K1
 K2_CONSUMERS = 512       # K2's threads a CTA aims at (csrc/edge_pipelined.cu)
 K2_CONSUMERS_WIDE = 384  # the same for operator sizes 7 and 9
 K2_MAX_THREADS = 512     # K2's largest CTA
+MAX_PRE = 4              # pre-stages K1 and K2 take (csrc/edge_tile.cuh, PreT)
+# Pre-stage codes of csrc/edge_tile.cuh: a separable or dense linear stage, a
+# window max or min, a pointwise abs or square.
+_PRE_SEP, _PRE_DENSE, _PRE_MAX, _PRE_MIN, _PRE_ABS, _PRE_SQUARE = range(6)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False) -> int:
+def kernel_plan(plan, out_nms: bool):
+    """The plan K1, K2 and the plain version run, after the reference's
+    checks: ``None`` for no plan and for a single-operator plan (the
+    operator path, unchanged); raises for a plan without a gradient stage
+    and for ``out_nms`` other than ``plan.nms``."""
+    plan = resolve_plan(plan)
+    if plan is None:
+        return None
+    if plan.gradient is None:
+        raise ValueError(
+            f"plan {plan.name!r} has no gradient stage; the edge kernel "
+            "emits direction components"
+        )
+    if out_nms != plan.nms:
+        raise ValueError(
+            f"plan {plan.name!r} {'ends in' if plan.nms else 'has no'} "
+            f"NMS stage but out_nms={out_nms}; the plan is the single "
+            "source of truth — pass out_nms=plan.nms"
+        )
+    return None if plan.single_operator else plan
+
+
+def _plan_spec(spec, plan):
+    """The gradient operator of a call: ``plan.gradient`` with a plan (a
+    ``spec`` passed beside it must be that operator)."""
+    if plan is None:
+        if spec is None:
+            raise ValueError("pass spec= (or a plan with a gradient stage)")
+        return spec
+    if spec is not None and spec != plan.gradient:
+        raise ValueError(
+            f"spec {spec.name!r} is not the gradient stage of plan {plan.name!r}"
+        )
+    return plan.gradient
+
+
+def _fused(plan):
+    """The plan with pre-stages, or None (no plan, or one operator)."""
+    plan = resolve_plan(plan)
+    return plan if plan is not None and plan.pre_stages else None
+
+
+def pre_plane_words(block_h: int, block_w: int, plan, nms: bool = False) -> int:
+    """4-byte words of the plane K1 and K2 keep beside the window for a
+    plan's pre-stages (``csrc/edge_tile.cuh``, ``pre_plane_words``): the
+    output of the first pre-stage with a radius, ``(bh + pad2 + 2 rem) x
+    (bw + pad2 + 2 rem)``, ``pad2`` 2 with NMS, ``rem`` the radii still to
+    come. Later stages alternate between the window and this plane (each
+    output is smaller than the one before); pointwise stages run in place.
+    0 without a plan or when every pre-stage is pointwise."""
+    plan = _fused(plan)
+    if plan is None:
+        return 0
+    pad2 = 2 if nms else 0
+    remaining = plan.linear_reach
+    for stage in plan.pre_stages:
+        remaining -= stage.radius
+        if stage.radius > 0:
+            return (block_h + pad2 + 2 * remaining) * (block_w + pad2 + 2 * remaining)
+    return 0
+
+
+def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False,
+                      plan=None) -> int:
     """The shared-memory footprint a tile is held to for K1 and K3: the f32
     halo window (``csrc/edge_tile.cuh``, ``tile_smem_bytes``, what K1 and K3
     allocate), and with NMS also the f32 magnitude of the ``(block + 2)``
     inner tile and a sector byte per output pixel. K1 and K3 keep those two
     in registers; the bound still counts them, so that the tiles legal for
-    an NMS call did not change."""
+    an NMS call did not change. A ``plan`` with pre-stages is held to what
+    K1 allocates for it: the window at its composed reach
+    (``plan.linear_reach`` in place of ``radius``) and its plane
+    (:func:`pre_plane_words`), with no NMS buffers."""
+    fused = _fused(plan)
+    if fused is not None:
+        halo = window_radius(fused.linear_reach, nms)
+        return 4 * ((block_h + 2 * halo) * (block_w + 2 * halo)
+                    + pre_plane_words(block_h, block_w, fused, nms))
     halo = window_radius(radius, nms)
     smem = 4 * (block_h + 2 * halo) * (block_w + 2 * halo)
     if nms:
@@ -94,7 +174,7 @@ def _tile_threads(bw: int, nms: bool) -> int:
 
 
 def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: int,
-                         channels: int, nms: bool) -> int:
+                         channels: int, nms: bool, plan=None) -> int:
     """Dynamic shared memory of one K2 CTA (``csrc/edge_pipelined.cu``,
     ``pipelined_layout``), for the window of ``eh x ew = (bh + 2 R_in) x
     (bw + 2 R_in)`` (``R_in`` = radius, + 1 with NMS):
@@ -108,13 +188,19 @@ def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: in
         to 15 B of lead, each box's bytes rounded up to 128;
       * an int32 byte offset per window row and per window column;
       * K1's window, ``eh x ew`` 4-byte values (f32, or int32 on the
-        integer lane);
+        integer lane), and with a ``plan`` its pre-stage plane
+        (:func:`pre_plane_words`); a plan with pre-stages also widens the
+        window to its composed reach (``plan.linear_reach`` in place of
+        ``radius``);
       * two buffers of warp maxima (``K2_MAX_THREADS / 32`` f32 each) and an
         mbarrier (8 B) per slot;
       * 128 B for the layout itself, which the kernel keeps in shared memory;
 
     each part but the barriers starting on 16 B.
     """
+    fused = _fused(plan)
+    if fused is not None:
+        radius = fused.linear_reach
     r_in = radius + int(bool(nms))
     eh, ew = bh + 2 * r_in, bw + 2 * r_in
     slot = eh * _round_up(ew * channels * in_bytes + 15, 16)
@@ -130,6 +216,7 @@ def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: in
     off = _align16(off + 4 * eh)
     off = _align16(off + 4 * ew)
     off = _align16(off + 4 * eh * ew)
+    off = _align16(off + 4 * pre_plane_words(bh, bw, fused, nms))
     off = _align16(off + 2 * (K2_MAX_THREADS // 32) * 4 + depth * 8)
     return off + 128
 
@@ -221,7 +308,7 @@ def _block_max(mag: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
 def edge_plain(
     x: torch.Tensor,
     *,
-    spec: OperatorSpec,
+    spec: "OperatorSpec | None" = None,
     variant: str,
     directions: int,
     padding: str = "reflect",
@@ -234,6 +321,7 @@ def edge_plain(
     with_max: bool = False,
     precision: str = "f32",
     pipeline_depth: int = 0,
+    plan=None,
 ):
     """The plain PyTorch version of :func:`edge_cuda`, of K1 and K2 alike:
     same arguments, same outputs, on any device.
@@ -244,10 +332,15 @@ def edge_plain(
     max is taken over the same ``block_h x block_w`` tiles. A ring depth
     changes where K2 keeps its input, not the values, so ``pipeline_depth``
     is checked and otherwise ignored, as the reference's XLA lane does.
+    ``plan`` chains the plan's pre-stages ahead of the gradient on the
+    image extended once by the composed reach (``core.sobel.
+    plan_components``), with the checks of :func:`kernel_plan`.
     """
     _check_out_mag(out_nms, out_mag)
     _check_depth(pipeline_depth)
-    _check_precision(x, spec, rgb, precision)
+    plan = kernel_plan(plan, out_nms)
+    spec = _plan_spec(spec, plan)
+    _check_precision(x, spec, rgb, precision, plan)
     n, h, w = _dims(x, rgb)
     bh, bw, _gh, _gw = _grid(h, w, block_h, block_w)
     if precision == "int":
@@ -256,15 +349,19 @@ def edge_plain(
         gray = luma(x) if rgb else x.to(torch.float32)
     if out_nms:
         thin, comps, mag = thin_map(gray, spec, variant=variant, directions=directions,
-                                    padding=padding, precision=precision)
+                                    padding=padding, precision=precision, plan=plan)
         outs = [thin]
         if out_components:
             outs.append(torch.stack(comps, dim=1))
         if out_mag:
             outs.append(mag.contiguous())
     else:
-        xp, _, _ = _pad(to_lane(gray, spec, precision), spec.radius, padding)
-        comps = spec_components(xp, spec, h, w, variant, directions)
+        reach = plan.linear_reach if plan is not None else spec.radius
+        xp, _, _ = _pad(to_lane(gray, spec, precision, plan=plan), reach, padding)
+        if plan is not None:
+            comps = plan_components(xp, plan, h, w, variant, directions)
+        else:
+            comps = spec_components(xp, spec, h, w, variant, directions)
         if precision == "int":
             comps = tuple(c.to(torch.float32) for c in comps)
         mag = magnitude(comps) if (with_max or not out_components) else None
@@ -312,15 +409,20 @@ def _check_depth(pipeline_depth: int) -> None:
         )
 
 
-def _check_precision(x: torch.Tensor, spec: OperatorSpec, rgb: bool, precision: str) -> bool:
+def _check_precision(x: torch.Tensor, spec: OperatorSpec, rgb: bool, precision: str,
+                     plan=None) -> bool:
     """True for the integer lane, after checking that it covers ``x``
-    (``core.ladder.int_lane_eligible``); False for f32."""
+    (``core.ladder.int_lane_eligible``, or ``plan_int_eligible`` for a
+    plan); False for f32."""
     if precision not in ("f32", "int"):
         # "auto" is a dispatch-level policy (kernels.dispatch.resolve_precision).
         raise ValueError(f"unknown precision {precision!r}; expected 'f32' or 'int'")
     if precision == "f32":
         return False
-    ok, reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=x.dtype)
+    if plan is not None:
+        ok, reason = ladder.plan_int_eligible(plan, rgb=rgb, input_dtype=x.dtype)
+    else:
+        ok, reason = ladder.int_lane_eligible(spec, rgb=rgb, input_dtype=x.dtype)
     if not ok:
         raise ValueError(f"precision='int' unavailable: {reason}")
     return True
@@ -354,13 +456,14 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geometry = [p, i, i, i, i, i, i, i, i, i, i, i, i, f, p]
-    # repro_edge_launch: const_taps, acc_int, 4 outputs + stream;
-    # repro_pipelined_launch: acc_int, depth, 4 outputs + stream;
+    # repro_edge_launch: const_taps, acc_int, 4 outputs, stream, pre-stages;
+    # repro_pipelined_launch: const_taps, acc_int, depth, tma, 4 outputs,
+    # stream, pre-stages;
     # repro_stream_launch: const_taps, mask, 2 caches, 2 outputs + stream.
     # Each returns a cudaError_t as int.
     entry, extra = {
-        "edge": ("repro_edge_launch", [i, i] + [p] * 5),
-        "edge_pipelined": ("repro_pipelined_launch", [i, i, i, i] + [p] * 5),
+        "edge": ("repro_edge_launch", [i, i] + [p] * 6),
+        "edge_pipelined": ("repro_pipelined_launch", [i, i, i, i] + [p] * 6),
         "edge_stream": ("repro_stream_launch", [i] + [p] * 5 + [i, p, p]),
     }[name]
     launch = getattr(lib, entry)
@@ -372,9 +475,15 @@ def _lib(name: str) -> ctypes.CDLL:
         # and the gpu tests (not on every launch).
         lib.repro_pipelined_smem_bytes.argtypes = [i] * 7
         lib.repro_pipelined_smem_bytes.restype = ctypes.c_longlong
+        lib.repro_pipelined_plan_smem_bytes.argtypes = [i] * 8
+        lib.repro_pipelined_plan_smem_bytes.restype = ctypes.c_longlong
         lib.repro_pipelined_bands.argtypes, lib.repro_pipelined_bands.restype = [i] * 4, i
     for fn in ("repro_taps_len", "repro_max_size"):
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = [], i
+    if name != "edge_stream":
+        lib.repro_pre_len.argtypes, lib.repro_pre_len.restype = [], i
+        if lib.repro_pre_len() != _pre_len():
+            raise RuntimeError(f"csrc/{name}.cu's PreT layout differs from _pack_pre")
     lib.repro_error_string.argtypes, lib.repro_error_string.restype = [i], ctypes.c_char_p
     if lib.repro_max_size() != KMAX:
         raise RuntimeError(f"csrc/{name}.cu and kernels/edge.py disagree on KMAX")
@@ -478,6 +587,69 @@ def _pack_taps(spec: OperatorSpec) -> np.ndarray:
     return flat
 
 
+def _pre_len() -> int:
+    """Length of the packed ``PreT`` (csrc/edge_tile.cuh): the count, the
+    composed reach, a code and a size per stage, a ``KMAX x KMAX`` tap
+    block per stage."""
+    return 2 + 2 * MAX_PRE + MAX_PRE * KMAX * KMAX
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_pre(plan, spec: OperatorSpec) -> np.ndarray:
+    """The flat f32 ``PreT`` of ``csrc/edge_tile.cuh``: how many pre-stages
+    K1 and K2 run, the composed linear reach (the window's radius without
+    NMS; ``spec.radius`` with no plan), and per stage its code, its size
+    ``2r + 1`` and its taps (a separable linear stage: the row factor at
+    ``[0, K)`` and the column factor at ``[KMAX, KMAX + K)``; a dense one:
+    its ``K x K`` taps at row pitch ``KMAX``)."""
+    flat = np.zeros(_pre_len(), np.float32)
+    kinds = flat[2:2 + MAX_PRE]
+    sizes = flat[2 + MAX_PRE:2 + 2 * MAX_PRE]
+    taps = flat[2 + 2 * MAX_PRE:].reshape(MAX_PRE, KMAX, KMAX)
+    plan = _fused(plan)
+    flat[1] = plan.linear_reach if plan is not None else spec.radius
+    for s_, stage in enumerate(plan.pre_stages if plan is not None else ()):
+        _check_kernel_stage(plan, stage, s_)
+        k = 2 * stage.radius + 1
+        sizes[s_] = k
+        if stage.kind == "linear":
+            fac = stage.operator.sep_factors(0)
+            if fac is not None:
+                kinds[s_] = _PRE_SEP
+                taps[s_, 0, :k], taps[s_, 1, :k] = fac[1], fac[0]
+            else:
+                kinds[s_] = _PRE_DENSE
+                taps[s_, :k, :k] = stage.operator.bank(1)[0]
+        elif stage.kind == "window_reduce":
+            kinds[s_] = _PRE_MAX if stage.op == "max" else _PRE_MIN
+        else:
+            kinds[s_] = {"abs": _PRE_ABS, "square": _PRE_SQUARE}[stage.op]
+        flat[0] = s_ + 1
+    flat.setflags(write=False)
+    return flat
+
+
+def _check_kernel_stage(plan, stage, index: int) -> None:
+    """What K1 and K2 refuse in a plan (no quiet retreat to the plain
+    version): more than ``MAX_PRE`` pre-stages, a stage wider than
+    ``KMAX``, a pointwise fn other than ``abs`` and ``square``."""
+    if index >= MAX_PRE:
+        raise ValueError(
+            f"plan gate 'kernel-stage': plan {plan.name!r} has "
+            f"{len(plan.pre_stages)} pre-stages; the kernels take at most {MAX_PRE}"
+        )
+    if 2 * stage.radius + 1 > KMAX:
+        raise ValueError(
+            f"plan gate 'kernel-stage': stage {stage.name!r} of plan {plan.name!r} is "
+            f"{2 * stage.radius + 1} wide; the kernels take stages up to {KMAX}"
+        )
+    if stage.kind == "pointwise" and stage.op not in ("abs", "square"):
+        raise ValueError(
+            f"plan gate 'kernel-stage': pointwise fn {stage.op!r} of plan {plan.name!r} "
+            "has no kernel form; the kernels take 'abs' and 'square'"
+        )
+
+
 @functools.lru_cache(maxsize=1)
 def _default_taps() -> np.ndarray:
     """The packed taps of the default operator, sobel5 at ``SobelParams()``."""
@@ -539,27 +711,31 @@ def _check_launch(x: torch.Tensor, fn: str, spec: OperatorSpec, variant: str,
         raise ValueError(f"unknown padding {padding!r}; expected one of {PAD_MODES}")
 
 
-def _check_grid(n: int, bh: int, bw: int, gh: int, gw: int, radius: int, nms: bool) -> None:
-    smem = window_smem_bytes(bh, bw, radius, nms)
+def _check_grid(n: int, bh: int, bw: int, gh: int, gw: int, radius: int, nms: bool,
+                plan=None) -> None:
+    smem = window_smem_bytes(bh, bw, radius, nms, plan=plan)
     if smem > SMEM_MAX:
         raise ValueError(
             f"tile {bh}x{bw} needs {smem} B of shared memory for its halo "
-            f"window{' and NMS buffers' if nms else ''}; a CTA may use at most {SMEM_MAX} B"
+            f"window{' and NMS buffers' if nms else ''}"
+            f"{' and pre-stage plane' if _fused(plan) else ''}; a CTA may use at most "
+            f"{SMEM_MAX} B"
         )
     if n * gh * gw >= 2**31:
         raise ValueError(f"{n * gh * gw} tiles exceed the CUDA grid limit")
 
 
 def _pipelined_smem(x: torch.Tensor, bh: int, bw: int, spec: OperatorSpec, depth: int,
-                    rgb: bool, nms: bool) -> int:
+                    rgb: bool, nms: bool, plan=None) -> int:
     """K2's footprint for this call; raises when it exceeds ``SMEM_MAX``
     (never a lower depth, never K1 in K2's place)."""
     smem = pipelined_smem_bytes(bh, bw, spec.radius, depth, x.element_size(), 3 if rgb else 1,
-                                nms)
+                                nms, plan=plan)
     if smem > SMEM_MAX:
         raise ValueError(
             f"pipeline_depth={depth} with tile {bh}x{bw} needs {smem} B of shared memory "
-            f"(ring, offsets, window{' with its NMS halo' if nms else ''}); a CTA may use "
+            f"(ring, offsets, window{' with its NMS halo' if nms else ''}"
+            f"{', pre-stage plane' if _fused(plan) else ''}); a CTA may use "
             f"at most {SMEM_MAX} B"
         )
     return smem
@@ -590,7 +766,7 @@ def _ptr(t: "torch.Tensor | None"):
 def edge_cuda(
     x: torch.Tensor,
     *,
-    spec: OperatorSpec,
+    spec: "OperatorSpec | None" = None,
     variant: str,
     directions: int,
     padding: str = "reflect",
@@ -604,6 +780,7 @@ def edge_cuda(
     precision: str = "f32",
     pipeline_depth: int = 0,
     instance: str = "auto",
+    plan=None,
 ):
     """Launch K1 (``csrc/edge.cu``) on a contiguous CUDA tensor, or with
     ``pipeline_depth`` 2..8 K2 through :func:`edge_pipelined_cuda`.
@@ -631,11 +808,20 @@ def edge_cuda(
     hold the two against each other). Both give the same bits, on K1 and
     on K2.
 
+    ``plan`` (a stencil plan or a registered name; ``spec`` may then be
+    omitted) runs the plan's pre-stages on each tile in shared memory ahead
+    of the gradient walk, in the same launch, on the window of its composed
+    reach (:func:`kernel_plan` checks it; a single-operator plan runs the
+    operator path unchanged). ``precision="int"`` then needs
+    ``core.ladder.plan_int_eligible``. A plan the kernels cannot take
+    raises naming ``plan gate 'kernel-stage'``.
+
     Launches on PyTorch's current stream and does not synchronise. Raises
     for a CPU tensor, an input the kernel does not take, or a launch the
     device refuses. ``edge_cuda.launches`` counts K1's launches,
-    ``edge_cuda.int_launches`` those of them on the integer lane and
-    ``edge_cuda.const_launches`` those on the compile-time instance.
+    ``edge_cuda.int_launches`` those of them on the integer lane,
+    ``edge_cuda.const_launches`` those on the compile-time instance and
+    ``edge_cuda.plan_launches`` those that ran pre-stages.
     """
     _check_depth(pipeline_depth)
     _check_instance(instance)
@@ -644,13 +830,16 @@ def edge_cuda(
             x, spec=spec, variant=variant, directions=directions, padding=padding,
             block_h=block_h, block_w=block_w, rgb=rgb, out_components=out_components,
             out_nms=out_nms, out_mag=out_mag, with_max=with_max, precision=precision,
-            pipeline_depth=pipeline_depth, instance=instance)
+            pipeline_depth=pipeline_depth, instance=instance, plan=plan)
     _check_out_mag(out_nms, out_mag)
+    plan = kernel_plan(plan, out_nms)
+    spec = _plan_spec(spec, plan)
     _check_launch(x, "edge_cuda", spec, variant, directions, padding)
-    acc_int = _check_precision(x, spec, rgb, precision)
+    acc_int = _check_precision(x, spec, rgb, precision, plan)
+    pre = _pack_pre(plan, spec)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
-    _check_grid(n, bh, bw, gh, gw, spec.radius, out_nms)
+    _check_grid(n, bh, bw, gh, gw, spec.radius, out_nms, plan)
 
     outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
                           with_max)
@@ -662,18 +851,20 @@ def edge_cuda(
             err = lib.repro_edge_launch(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
-                int(const), int(acc_int), *ptrs, stream,
+                int(const), int(acc_int), *ptrs, stream, pre.ctypes.data,
             )
         _raise_on_error(lib, "edge", err)
         edge_cuda.launches += 1
         edge_cuda.int_launches += int(acc_int)
         edge_cuda.const_launches += int(const)
+        edge_cuda.plan_launches += int(plan is not None)
     return outs
 
 
 edge_cuda.launches = 0
 edge_cuda.int_launches = 0
 edge_cuda.const_launches = 0
+edge_cuda.plan_launches = 0
 
 
 def _check_instance(instance: str) -> None:
@@ -710,7 +901,7 @@ def _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag, w
 def edge_pipelined_cuda(
     x: torch.Tensor,
     *,
-    spec: OperatorSpec,
+    spec: "OperatorSpec | None" = None,
     variant: str,
     directions: int,
     padding: str = "reflect",
@@ -724,12 +915,14 @@ def edge_pipelined_cuda(
     precision: str = "f32",
     pipeline_depth: int = 2,
     instance: str = "auto",
+    plan=None,
 ):
     """Launch K2 (``csrc/edge_pipelined.cu``), the prefetching kernel, with
     a ring of ``pipeline_depth`` (2..8) input windows.
 
-    Arguments and outputs are :func:`edge_cuda`'s, bit for bit, and so is
-    ``instance``: K2 runs K1's walk on either instance. A persistent grid
+    Arguments and outputs are :func:`edge_cuda`'s, bit for bit, and so are
+    ``instance`` and ``plan``: K2 runs K1's walk on either instance, and a
+    plan's pre-stages on each converted window. A persistent grid
     (as many CTAs as fit on the SMs) takes the batch's tiles in raster
     order (:func:`pipelined_tiles`); each CTA keeps its next
     ``pipeline_depth`` windows copied ahead of the one it walks, by TMA
@@ -740,20 +933,23 @@ def edge_pipelined_cuda(
     be encoded raises too. Launches on PyTorch's current stream and does not
     synchronise. ``edge_pipelined_cuda.launches`` counts the launches,
     ``int_launches`` those on the integer lane, ``const_launches`` those on
-    the compile-time instance, ``tma_launches`` and ``cp_async_launches``
-    those on each copy route.
+    the compile-time instance, ``plan_launches`` those that ran pre-stages,
+    ``tma_launches`` and ``cp_async_launches`` those on each copy route.
     """
     if not (isinstance(pipeline_depth, int) and pipeline_depth in PIPELINE_DEPTHS):
         raise ValueError(f"K2 takes a ring depth of 2..8, got {pipeline_depth!r}")
     _check_instance(instance)
     _check_out_mag(out_nms, out_mag)
+    plan = kernel_plan(plan, out_nms)
+    spec = _plan_spec(spec, plan)
     _check_launch(x, "edge_pipelined_cuda", spec, variant, directions, padding)
-    acc_int = _check_precision(x, spec, rgb, precision)
+    acc_int = _check_precision(x, spec, rgb, precision, plan)
+    pre = _pack_pre(plan, spec)
     n, h, w = _dims(x, rgb)
     bh, bw, gh, gw = _grid(h, w, block_h, block_w)
     if n * gh * gw >= 2**31:
         raise ValueError(f"{n * gh * gw} tiles exceed the persistent grid's tile index")
-    _pipelined_smem(x, bh, bw, spec, pipeline_depth, rgb, out_nms)
+    _pipelined_smem(x, bh, bw, spec, pipeline_depth, rgb, out_nms, plan)
     outs, ptrs = _outputs(x, n, h, w, gh, gw, directions, out_components, out_nms, out_mag,
                           with_max)
     if n > 0 and h > 0 and w > 0:
@@ -766,11 +962,13 @@ def edge_pipelined_cuda(
                 *_geometry(x, rgb, n, h, w, bh, bw, spec, variant, directions, padding,
                            out_nms),
                 int(const), int(acc_int), pipeline_depth, int(tma), *ptrs, stream,
+                pre.ctypes.data,
             )
         _raise_on_error(lib, "edge_pipelined", err)
         edge_pipelined_cuda.launches += 1
         edge_pipelined_cuda.int_launches += int(acc_int)
         edge_pipelined_cuda.const_launches += int(const)
+        edge_pipelined_cuda.plan_launches += int(plan is not None)
         edge_pipelined_cuda.tma_launches += int(tma)
         edge_pipelined_cuda.cp_async_launches += int(not tma)
     return outs
@@ -779,6 +977,7 @@ def edge_pipelined_cuda(
 edge_pipelined_cuda.launches = 0
 edge_pipelined_cuda.int_launches = 0
 edge_pipelined_cuda.const_launches = 0
+edge_pipelined_cuda.plan_launches = 0
 edge_pipelined_cuda.tma_launches = 0
 edge_pipelined_cuda.cp_async_launches = 0
 

@@ -19,8 +19,9 @@ This module
 
 The key and the file are the reference's schema v6, so a file written by
 either package reads in the other; ``backend`` is ``cuda`` or ``torch``
-here, the plan slot is ``-`` (stencil plans are not ported) and
-``devices``/``mesh`` stay ``1``/``1x1x1`` (no sharding yet). Older files
+here, the plan slot is ``filters.plan_identity(plan)`` for a stencil plan
+and ``-`` for a single operator, and ``devices``/``mesh`` stay
+``1``/``1x1x1`` (no sharding yet). Older files
 migrate on load exactly as in the reference (v1 -> ... -> v6) and are
 rewritten as v6 by the next :meth:`TuningCache.save`. A TPU tuning means
 nothing on the card and is never carried across: the backends differ, so
@@ -397,24 +398,27 @@ def _spec(operator: Optional[str], size: int):
 
 
 def tile_smem_bytes(bh: int, bw: int, spec, *, depth: int = 0, layout: str = "gray",
-                    dtype: str = "float32", nms: bool = False) -> int:
+                    dtype: str = "float32", nms: bool = False, plan=None) -> int:
     """Shared memory one CTA reserves for the tile: K1's halo window (and
     NMS buffers) at depth 0, K2's ring, offsets and window (one wider with
     NMS) at depths 2..8, whatever the variant, directions and lane (the
-    integer lane's window is 4 bytes an element too)."""
+    integer lane's window is 4 bytes an element too). A ``plan`` with
+    pre-stages widens the window to its composed reach and adds the
+    pre-stage plane."""
     if not depth:
-        return window_smem_bytes(bh, bw, spec.radius, nms)
+        return window_smem_bytes(bh, bw, spec.radius, nms, plan=plan)
     return pipelined_smem_bytes(bh, bw, spec.radius, depth, np.dtype(dtype).itemsize,
-                                3 if layout == "rgb" else 1, nms)
+                                3 if layout == "rgb" else 1, nms, plan=plan)
 
 
 def tile_fits(bh: int, bw: int, spec, *, depth: int = 0, layout: str = "gray",
-              dtype: str = "float32") -> bool:
+              dtype: str = "float32", plan=None) -> bool:
     """Whether a tuned ``(bh, bw, depth)`` can serve every call that looks
     it up: the key carries no ``nms``, and the stream path takes the tile
     of the depth-0 slot for K3, so the tile must fit with NMS on at its
-    depth and in K1/K3's NMS window."""
-    kw = dict(layout=layout, dtype=dtype, nms=True)
+    depth and in K1/K3's NMS window (with ``plan``, its composed window
+    and plane)."""
+    kw = dict(layout=layout, dtype=dtype, nms=True, plan=plan)
     return (tile_smem_bytes(bh, bw, spec, **kw) <= SMEM_MAX
             and tile_smem_bytes(bh, bw, spec, depth=depth, **kw) <= SMEM_MAX)
 
@@ -442,6 +446,7 @@ def legal_block_shapes(
     layout: str = "gray",
     dtype: str = "float32",
     depth: int = 0,
+    plan=None,
 ) -> List[Tuple[int, int]]:
     """All ``(block_h, block_w)`` candidates legal for an ``h x w`` image at
     ring depth ``depth`` (0 = K1).
@@ -450,10 +455,11 @@ def legal_block_shapes(
     not wastefully larger than the image (keep only the smallest candidate
     past twice its size), :func:`tile_fits` (the NMS footprints within
     ``SMEM_MAX``), and on the ``cuda`` backend a width that is a multiple
-    of the 32-thread warp. ``operator`` (registry name) overrides ``size``.
+    of the 32-thread warp. ``operator`` (registry name) overrides ``size``;
+    ``plan`` overrides both, and its composed window and plane must fit.
     """
     _check_backend(backend, timed=False)
-    spec = _spec(operator, size)
+    spec = plan.gradient if plan is not None else _spec(operator, size)
     shapes = []
     for bh in _CAND_H:
         for bw in _CAND_W:
@@ -461,20 +467,36 @@ def legal_block_shapes(
                 continue
             if (bh >= 2 * h and bh != _CAND_H[0]) or (bw >= 2 * w and bw != _CAND_W[0]):
                 continue
-            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype):
+            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype, plan=plan):
                 continue
             shapes.append((bh, bw))
     return shapes
 
 
 def _run_shape(img, spec, variant, directions, padding, backend, bh, bw, precision="f32",
-               depth=0):
+               depth=0, plan=None):
     from repro_torch.kernels.edge import edge_cuda, edge_plain
 
     run = edge_cuda if backend == "cuda" else edge_plain
     return run(img, spec=spec, variant=variant, directions=directions, padding=padding,
                block_h=bh, block_w=bw, rgb=img.ndim == 4, precision=precision,
-               pipeline_depth=depth)
+               pipeline_depth=depth, plan=plan,
+               out_nms=plan.nms if plan is not None else False)
+
+
+def _timed_spec(plan, operator, size, what: str):
+    """``(plan, spec)``: the resolved plan (or None) and the operator it
+    times, its gradient stage."""
+    from repro_torch.core.filters import resolve_plan
+
+    plan = resolve_plan(plan)
+    if plan is None:
+        return None, _spec(operator, size)
+    if plan.gradient is None:
+        raise ValueError(
+            f"plan {plan.name!r} has no gradient stage; the edge kernel {what} needs one"
+        )
+    return plan, plan.gradient
 
 
 def sweep(
@@ -495,6 +517,7 @@ def sweep(
     precision: str = "f32",
     depths: Sequence[int] = (0,),
     batch: int = 1,
+    plan=None,
 ) -> List[Dict]:
     """Time every candidate tile at every depth on a random ``(batch, h, w)``
     frame (``(batch, h, w, 3)`` for ``layout="rgb"``) made from ``seed``.
@@ -505,10 +528,12 @@ def sweep(
     lane it timed. The ``cuda`` backend (the default) times the kernels on
     the card and raises where there is none; ``torch`` times their plain
     versions on the CPU. ``precision="int"`` times the integer lane; pass
-    ``dtype="uint8"`` with it.
+    ``dtype="uint8"`` with it. ``plan`` (a stencil plan or a registered
+    name) overrides ``operator``/``size`` and times the fused plan, with
+    NMS when the plan ends in it.
     """
     _check_backend(backend)
-    spec = _spec(operator, size)
+    plan, spec = _timed_spec(plan, operator, size, "sweep")
     variant = spec.resolve_variant(variant)
     directions = spec.resolve_directions(directions)
     device = torch.device("cuda" if backend == "cuda" else "cpu")
@@ -518,20 +543,23 @@ def sweep(
     rows = []
     for depth in depths:
         cands = shapes if shapes is not None else legal_block_shapes(
-            h, w, operator=spec.name, backend=backend, layout=layout, dtype=dtype, depth=depth)
+            h, w, operator=spec.name, backend=backend, layout=layout, dtype=dtype, depth=depth,
+            plan=plan)
         for bh, bw in cands:
-            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype):
+            if not tile_fits(bh, bw, spec, depth=depth, layout=layout, dtype=dtype, plan=plan):
                 continue  # this depth's ring and NMS halo do not fit beside this tile
-            smem = tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype)
+            smem = tile_smem_bytes(bh, bw, spec, depth=depth, layout=layout, dtype=dtype,
+                                   nms=plan is not None and plan.nms, plan=plan)
             us = measure_us(_run_shape, img, spec, variant, directions, padding, backend,
-                            bh, bw, precision, depth, iters=iters)
+                            bh, bw, precision, depth, plan, iters=iters)
             rows.append({
                 "block_h": bh,
                 "block_w": bw,
                 "depth": depth,
                 "us": us,
                 "smem_bytes": smem,
-                "halo_overhead": halo_amplification(bh, bw, spec.radius),
+                "halo_overhead": halo_amplification(
+                    bh, bw, plan.reach if plan is not None else spec.radius),
                 "grid_steps": -(-h // bh) * -(-w // bw),
             })
     return rows
@@ -557,6 +585,7 @@ def autotune(
     precision: str = "f32",
     pipeline_depth: Optional[int] = None,
     batch: int = 1,
+    plan=None,
 ) -> Tuple[int, int, int]:
     """Best ``(block_h, block_w, depth)`` for the workload; cached across
     processes.
@@ -569,15 +598,21 @@ def autotune(
     depth pins the sweep and the cache slot to it. ``batch`` frames are
     timed per call (the cache key does not hold it). ``backend="cuda"``
     (the default) tunes the kernels and raises where there is no card;
-    ``backend="torch"`` tunes the plain versions on the CPU.
+    ``backend="torch"`` tunes the plain versions on the CPU. ``plan`` (a
+    stencil plan or a registered name) overrides ``operator``/``size``: the
+    sweep times the fused plan and the winner lands in the plan's slot,
+    ``filters.plan_identity(plan)``.
     """
+    from repro_torch.core.filters import plan_identity
+
     _check_backend(backend)
-    spec = _spec(operator, size)
+    plan, spec = _timed_spec(plan, operator, size, "autotune")
     # Key on the resolved variant, so the slot matches what ran.
     variant = spec.resolve_variant(variant)
     cache = cache if cache is not None else get_default_cache()
     key = TuneKey(backend, dtype, spec.name, variant, h, w, padding, layout,
-                  1, "1x1x1", precision, pipeline_depth or 0, "-")
+                  1, "1x1x1", precision, pipeline_depth or 0,
+                  plan_identity(plan) if plan is not None else "-")
     if not refresh:
         hit = cache.lookup(key)
         if hit is not None:
@@ -586,7 +621,7 @@ def autotune(
     rows = sweep(
         h, w, operator=spec.name, variant=variant, directions=directions, dtype=dtype,
         backend=backend, padding=padding, layout=layout, shapes=shapes, iters=iters,
-        precision=precision, depths=depths, batch=batch,
+        precision=precision, depths=depths, batch=batch, plan=plan,
     )
     if not rows:
         raise ValueError(f"no legal block shapes for {key.to_str()}")

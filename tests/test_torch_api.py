@@ -133,7 +133,6 @@ def test_backends_resolve_by_device():
 
 
 @pytest.mark.parametrize("override,item", (
-    (dict(plan="canny5"), "item 5"),
     (dict(shard="2x1x1"), "item 10"),
 ), ids=lambda v: str(v))
 def test_unported_options_raise(override, item):

@@ -860,3 +860,73 @@ def test_edge_cuda_tiles_wider_than_one_cta_pass(cuda_device, kind, out_nms):
         for inst in ("auto", "runtime"):
             got = ekern.edge_cuda(x, instance=inst, **kw)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), (bh, bw, inst)
+
+
+# --- stencil plans: pre-stages fused into K1 and K2 --------------------------
+
+def _plans():
+    from repro_torch.core.filters import get_plan, make_plan, pointwise_stage
+
+    return {
+        "canny5": get_plan("canny5"),
+        "blur_sobel5": get_plan("blur_sobel5"),
+        "g3_dilate_sobel5_nms": make_plan("g3d", ("gaussian3", "dilate3", "sobel5", "nms")),
+        "erode_abs_sobel3": make_plan("ea", ("erode3", pointwise_stage("abs", "abs"),
+                                             "sobel3")),
+        "square_g3_scharr3_nms": make_plan("sq", (pointwise_stage("square", "square"),
+                                                  "gaussian3", "scharr3", "nms")),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_plans()))
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb", "rgb_f32"))
+def test_plans_on_k1_and_k2_equal_plain(cuda_device, kind, name):
+    """One K1 or K2 launch with the plan's pre-stages equals edge_plain(plan=)
+    bit for bit, every padding, on two tiles and K2 depths 2 and 3."""
+    plan = _plans()[name]
+    spec = plan.gradient
+    x = _frames(kind, (2, 37, 53), cuda_device)
+    extra = (dict(out_nms=True, out_components=True, out_mag=True, with_max=True) if plan.nms
+             else dict(out_components=True, with_max=True))
+    for padding in ("reflect", "edge", "zero"):
+        for bh, bw in ((8, 32), (32, 64)):
+            kw = dict(plan=plan, variant=spec.resolve_variant("auto"),
+                      directions=spec.resolve_directions(0), padding=padding, block_h=bh,
+                      block_w=bw, rgb=kind.startswith("rgb"), **extra)
+            want = ekern.edge_plain(x, **kw)
+            for depth in (0, 2, 3):
+                k1, k2 = ekern.edge_cuda.plan_launches, ekern.edge_pipelined_cuda.plan_launches
+                got = ekern.edge_cuda(x, pipeline_depth=depth, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (padding, bh, bw, depth)
+                assert (ekern.edge_cuda.plan_launches - k1,
+                        ekern.edge_pipelined_cuda.plan_launches - k2) == (
+                    (0, 1) if depth else (1, 0))
+
+
+def test_plan_facade_is_one_launch(cuda_device):
+    x = _frames("u8", (4, 256, 512), cuda_device)
+    cfg = EdgeConfig(plan="canny5", hysteresis=True, block_h=64, block_w=256)
+    k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
+    res = edge_detect(x, cfg)
+    assert (ekern.edge_cuda.launches - k1, ekern.edge_pipelined_cuda.launches - k2) == (1, 0)
+    ref = edge_detect(x, cfg.replace(backend="torch"))
+    assert torch.equal(res.magnitude, ref.magnitude) and torch.equal(res.edges, ref.edges)
+
+
+def test_plan_footprint_matches_the_source_and_over_budget_raises(cuda_device):
+    lib = ekern._lib("edge_pipelined")
+    for plan in _plans().values():
+        for bh, bw in ((8, 32), (64, 256), (29, 96)):
+            for depth in ekern.PIPELINE_DEPTHS:
+                for in_bytes, channels in ((1, 1), (4, 1), (1, 3)):
+                    for nms in (False, True):
+                        want = ekern.pipelined_smem_bytes(bh, bw, plan.gradient.radius, depth,
+                                                          in_bytes, channels, nms, plan=plan)
+                        got = lib.repro_pipelined_plan_smem_bytes(
+                            bh, bw, plan.linear_reach, depth, in_bytes, channels, int(nms),
+                            ekern.pre_plane_words(bh, bw, plan, nms))
+                        assert got == want, (plan.name, bh, bw, depth, in_bytes, channels, nms)
+    x = _frames("f32", (1, 256, 512), cuda_device)
+    with pytest.raises(ValueError, match="pre-stage plane"):
+        ekern.edge_cuda(x, plan="canny5", variant="v2", directions=4, block_h=64,
+                        block_w=256, out_nms=True, pipeline_depth=2)
