@@ -87,6 +87,19 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    K1 (or K2) launch with pre-stages, equal to the torch lane on the card;
    each prints its shared-memory footprint. Small inputs must match
    digests of the JAX reference's plan outputs (``PLAN_GOLDEN``).
+3f. The sharded slice's main path: ``edge_detect(x, cfg, mesh=...)`` on the
+   sobel-hd FULL config over meshes 2x2x2, 1x4x2, 1x2x2 and data=8 of
+   eight logical devices on the card (``[cuda:0] * 8``, the counterpart
+   of the reference tests' 8 forced host devices): 4x2048x2048 f32, u8
+   (K1's integer lane under ``precision="auto"``), RGB u8 4x1080x1920,
+   ``nms=True, hysteresis=True``, ``canny5`` and ``pipeline_depth=2``
+   (K2). Counts are set to 0 just before each call and read just after:
+   one K1 (or K2) launch per shard, and each call equal to the
+   single-device call and to the torch lane. Each call is timed on CUDA
+   events beside the single-device call, with the split between the
+   exchange, the per-shard launches and the gather. The distinct-GPU path
+   (``cuda:0..N``) runs only where there is more than one card; the
+   script says when it did not.
 4. Serves sobel-hd at full size (2048x2048 f32 frames, 4 per request, 8
    requests) through ``repro_torch.launch.serve`` in-process, with the
    launch counts set to 0 just before and read just after; the last answer
@@ -106,6 +119,14 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 4d. The same step with hysteresis fractions that leave weak chains to link
    (``WEAK_LOW``/``WEAK_HIGH``): must equal the torch lane and take as many
    dilation steps; prints the steps and the linking loop's time.
+4e. The elastic image server on ``[cuda:0] * 8`` with ``--shard 2x2x2``:
+   ``--chaos 'loss@3;fail@step:1x2;slow@d1:40'``, then
+   ``--simulate-loss-at 3``, then ``--edges`` with the same loss, 8
+   requests of 4 FULL frames each, counts set to 0 just before each run.
+   Each run must account for every request (``unaccounted=0``), replan at
+   least once, launch K1, and answer its last request as the torch lane
+   does on the same frames; prints MPS, compute and transfer p50 and the
+   re-warm times.
 5. Times K1, K1 with ``out_nms``, K2 at every depth that fits at
    4x2048x2048 f32 and u8 in turns with K1 (K1, K2, K2, K1) with its copy
    route, the integer lane of K1 and K2 at 4x2048x2048 u8 (K2's in turns
@@ -1116,6 +1137,185 @@ def phase_plan_facade(full_inputs, dev):
               "to the torch lane")
     print(f"plan facade: {time.perf_counter() - t0:.1f}s")
     return total
+
+
+# Phase 3f's meshes on eight logical devices of the one card, and its calls.
+SHARD_MESHES = ("2x2x2", "1x4x2", "1x2x2", "8x1x1")
+RESULT_FIELDS = ("magnitude", "components", "peak", "thin", "edges")
+
+
+def logical_devices():
+    """Eight logical devices on the one card, the counterpart of the
+    reference tests' 8 forced host devices."""
+    return [torch.device("cuda:0")] * 8
+
+
+def same_result(a, b) -> bool:
+    return all((getattr(a, f) is None) == (getattr(b, f) is None)
+               and (getattr(a, f) is None or torch.equal(getattr(a, f), getattr(b, f)))
+               for f in RESULT_FIELDS)
+
+
+def shard_split_ms(x, cfg, mesh):
+    """CUDA-event medians of the three steps of one sharded call: the
+    exchange (extension, scatter, halos), the per-shard launches and the
+    gather (crop, peaks, assembly), with the tile, lane and depth the facade
+    resolves for this call."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.sharding import halo
+
+    rc = cfg.resolved()
+    rgb = x.ndim == 4
+    precision = dispatch.resolve_precision(rc.precision, "cuda", spec=rc.spec, rgb=rgb,
+                                           input_dtype=x.dtype, plan=rc.plan)
+    need_comps = rc.with_components or rc.with_orientation
+    need_peak = rc.normalize or rc.with_max or rc.hysteresis
+    compute = dispatch._shard_compute(rc, "cuda", rgb=rgb, need_comps=need_comps,
+                                      need_raw=rc.nms and need_peak, block_h=rc.block_h,
+                                      block_w=rc.block_w, precision=precision,
+                                      depth=rc.pipeline_depth or 0)
+    r = halo.exchange_radius(rc.spec, rc.nms, plan=rc.plan)
+    parts = halo.exchange(x, mesh, radius=r, padding=rc.padding, rgb=rgb)
+
+    def launches():
+        return [[[compute(b) for b in row] for row in g] for g in parts.blocks]
+
+    outs = launches()
+    return (median_ms(lambda: halo.exchange(x, mesh, radius=r, padding=rc.padding, rgb=rgb),
+                      reps=10, warm=2),
+            median_ms(launches, reps=10, warm=2),
+            median_ms(lambda: halo.gather(parts, outs, need_comps=need_comps,
+                                          need_peak=need_peak), reps=10, warm=2),
+            parts.blocks[0][0][0].shape)
+
+
+def phase_sharded_facade(full_inputs, dev):
+    """Phase 3f, the sharded facade: ``edge_detect(x, cfg, mesh=...)`` on the
+    sobel-hd FULL config over meshes of eight logical devices on the card.
+    Each call must equal the single-device call and the torch lane bit for
+    bit and launch one K1 (or K2 at a depth) per shard; each is timed
+    beside the single-device call, with the split between exchange,
+    launches and gather. Returns the summed counts and the rows."""
+    from repro_torch.api import ShardConfig, edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import halo
+
+    t0 = time.perf_counter()
+    full = get_config("sobel-hd")
+    rgb = frames("rgb", (4, 1080, 1920), np.random.default_rng(30), dev)
+    calls = (
+        ("f32", full_inputs["f32"], dict(), "k1"),
+        ("u8, auto -> integer lane", full_inputs["u8"], dict(), "k1_int"),
+        ("RGB u8 1080x1920", rgb, dict(), "k1"),
+        ("f32, nms + hysteresis", full_inputs["f32"], dict(nms=True, hysteresis=True), "k1"),
+        ("u8, canny5 + hysteresis", full_inputs["u8"], dict(plan="canny5", hysteresis=True),
+         "k1_plan"),
+        ("f32, pipeline_depth=2", full_inputs["f32"], dict(pipeline_depth=2), "k2"),
+    )
+    total = dict.fromkeys(COUNTS, 0)
+    rows = {}
+    for label, x, kw, lane in calls:
+        cfg = full.edge_config(with_max=True, **kw)
+        single = edge_detect(x, cfg)
+        plain = edge_detect(x, cfg.replace(backend="torch"))
+        check(same_result(single, plain), f"sharded facade {label}: the single-device call "
+              "differs from the torch lane")
+        ms_single = median_ms(lambda: edge_detect(x, cfg), reps=10, warm=2)
+        for spec in SHARD_MESHES:
+            shard = ShardConfig.parse(spec)
+            mesh = halo.mesh_from_config(shard, logical_devices())
+            reset_counts()
+            out = edge_detect(x, cfg.replace(shard=shard), mesh=mesh)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            kernel = "k2" if lane == "k2" else "k1"
+            other = "k1" if lane == "k2" else "k2"
+            check(counts[lane] == mesh.size and counts[kernel] == mesh.size
+                  and counts[other] == 0 and counts["k3"] == 0,
+                  f"sharded facade {label} on {spec}: launches {counts}, not one {lane} for "
+                  f"each of {mesh.size} shards")
+            check(same_result(out, single) and same_result(out, plain),
+                  f"sharded facade {label} on {spec}: differs from the single-device call or "
+                  "the torch lane")
+            for k, v in counts.items():
+                total[k] += v
+            ms = median_ms(lambda: edge_detect(x, cfg, mesh=mesh), reps=10, warm=2)
+            ex, la, ga, block = shard_split_ms(x, cfg, mesh)
+            rows[f"{label} {spec}"] = dict(ms=ms, single_ms=ms_single, exchange_ms=ex,
+                                           launches_ms=la, gather_ms=ga, shards=mesh.size,
+                                           block=list(block), launches=counts[lane])
+            if label == "f32" and spec == "2x2x2":
+                # Where one sharded call's time goes on the device, and how
+                # long the device waits for the host.
+                busy, span, k1_us = device_profile(f"one {spec} sharded call ({label})",
+                                                   lambda: edge_detect(x, cfg, mesh=mesh),
+                                                   top=8, kernel="edge_kernel")
+                rows[f"{label} {spec}"].update(device_busy_us=busy, span_us=span,
+                                               k1_device_us=k1_us)
+            print(f"sharded facade {label} on {spec} ({mesh.size} shards of "
+                  f"{'x'.join(map(str, block))}): {counts[lane]} {lane} launches; equal to "
+                  f"the single-device call and the torch lane; {ms:.4f} ms against "
+                  f"{ms_single:.4f} ms single-device ({ms / ms_single:.2f}x); exchange "
+                  f"{ex:.4f} ms, launches {la:.4f} ms, gather {ga:.4f} ms")
+    if torch.cuda.device_count() > 1:
+        devs = [torch.device(f"cuda:{i}") for i in range(torch.cuda.device_count())]
+        mesh = halo.mesh_from_config(ShardConfig(0, 1, 2), devs)
+        x = full_inputs["f32"]
+        cfg = full.edge_config(with_max=True)
+        check(same_result(edge_detect(x, cfg, mesh=mesh), edge_detect(x, cfg)),
+              f"sharded facade over {len(devs)} distinct GPUs differs from one device")
+        print(f"sharded facade over {len(devs)} distinct GPUs: equal to one device")
+    else:
+        print("the distinct-GPU path (cuda:0..N) was not run: torch.cuda.device_count() == 1")
+    print(f"sharded facade: {time.perf_counter() - t0:.1f}s")
+    return total, rows
+
+
+def phase_chaos_server(dev):
+    """Phase 4e: the image server over ``[cuda:0] * 8`` with ``--shard 2x2x2``
+    under ``--chaos 'loss@3;fail@step:1x2;slow@d1:40'``, then
+    ``--simulate-loss-at 3``, then ``--edges`` with the same loss. Each run
+    must account for every request, replan at least once, launch K1 (counts
+    set to 0 just before, read just after) and answer its last request as
+    the torch lane does on the same frames."""
+    from repro_torch.api import edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.launch import serve
+
+    full = get_config("sobel-hd")
+    base = ["--arch", "sobel-hd", "--slots", "4", "--requests", "8", "--shard", "2x2x2"]
+    runs = (
+        ("chaos", ["--chaos", "loss@3;fail@step:1x2;slow@d1:40"], {}),
+        ("simulate-loss", ["--simulate-loss-at", "3"], {}),
+        ("edges", ["--simulate-loss-at", "3", "--edges"], dict(nms=True, hysteresis=True)),
+    )
+    out = {}
+    for label, extra, kw in runs:
+        reset_counts()
+        stats = serve.main(base + extra, devices=logical_devices())
+        counts = read_counts()
+        health = stats["health"]
+        check(health.unaccounted == 0 and health.submitted == 8,
+              f"the {label} server left requests unaccounted: {health.summary()}")
+        check(health.replans >= 1, f"the {label} server never replanned: {health.summary()}")
+        check(counts["k1"] >= 1, f"the {label} server did not launch K1: {counts}")
+        last = torch.from_numpy(image_batch(full, 4, step=7)["images"]).to(dev)
+        plain = edge_detect(last, full.edge_config(with_max=True, backend="torch", **kw))
+        check(same_result(stats["result"], plain),
+              f"the {label} server's last answer differs from the torch lane")
+        out[label] = dict(launches=counts["k1"], mps=stats["mps"],
+                          compute_p50_ms=stats["compute_p50_ms"],
+                          transfer_p50_ms=stats["transfer_p50_ms"],
+                          rewarm_ms=stats["rewarm_ms"], meshes=stats["meshes"],
+                          retries=health.retries, replans=health.replans,
+                          excluded=list(health.excluded))
+        print(f"{label} server: {counts['k1']} K1 launches; MPS {stats['mps']:.1f}; compute "
+              f"p50 {stats['compute_p50_ms']:.2f} ms; transfer p50 "
+              f"{stats['transfer_p50_ms']:.2f} ms; re-warm "
+              f"{', '.join(f'{v:.1f}' for v in stats['rewarm_ms'])} ms; meshes "
+              f"{stats['meshes']}; {health.summary()}; last answer equal to the torch lane")
+    return out
 
 
 def phase_facade(rng, dev):
@@ -2511,6 +2711,8 @@ def main() -> None:
     for k, v in tuned_counts.items():
         main_counts[k] += v
     plan_counts = timed("3e plan facade", phase_plan_facade, full_inputs, dev)
+    shard_counts, shard_rows = timed("3f sharded facade", phase_sharded_facade, full_inputs,
+                                     dev)
     check(plan_counts["k1_plan"] >= 1 and plan_counts["k2_plan"] >= 1,
           f"the plan slice's main path did not launch K1 and K2 with pre-stages: {plan_counts}")
     check(main_counts["k2"] >= 1 and main_counts["k1_int"] >= 1 and main_counts["k2_int"] >= 1,
@@ -2519,6 +2721,7 @@ def main() -> None:
     runs = timed("4b stream server", phase_stream_server, dev)
     mask = timed("4c stream step", phase_step_parts, runs["motion"], dev)
     timed("4d linking", phase_linking, runs["motion"], dev)
+    chaos_runs = timed("4e chaos server", phase_chaos_server, dev)
     k4_err = timed("6 K4 vs plain", phase_k4_vs_plain, dev)
     lm = timed("7 LM server", phase_lm_server, dev)
     long_launches = timed("7b long prefill", phase_long_prefill, dev, lm.pop("params"))
@@ -2537,6 +2740,10 @@ def main() -> None:
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)
     kernels[0].update(k1_plans)
     kernels[1].update(k2_plans)
+    kernels[0].update(launches_sharded_facade=shard_counts["k1"], sharded=shard_rows,
+                      launches_chaos_server={k: v["launches"] for k, v in chaos_runs.items()},
+                      chaos_server=chaos_runs)
+    kernels[1].update(launches_sharded_facade=shard_counts["k2"])
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
     kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")

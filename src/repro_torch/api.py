@@ -21,9 +21,15 @@ One call::
 ``edge_detect`` and ``edge_detect_stream`` run on the CUDA device unless
 ``device`` says otherwise; ``device="cpu"`` runs the plain PyTorch version.
 :class:`EdgeConfig` has the reference's fields and defaults
-(``repro.api.EdgeConfig``); ``shard``, whose engine is not ported yet,
-raises ``NotImplementedError`` naming its ROADMAP item. A stencil plan
-runs as one fused launch::
+(``repro.api.EdgeConfig``). ``shard`` spreads a call over an image mesh
+(batch groups and a spatial grid with halo exchange, bit-exact with one
+device)::
+
+    result = edge_detect(frames, EdgeConfig(shard=ShardConfig(2, 2, 2)))
+    mesh = make_image_mesh([torch.device("cuda:0")] * 8, rows=2, cols=2)
+    result = edge_detect(frames, mesh=mesh)      # a mesh overrides shard
+
+A stencil plan runs as one fused launch::
 
     result = edge_detect(frames, EdgeConfig(plan="canny5", hysteresis=True))
 
@@ -44,10 +50,12 @@ import torch
 
 from repro_torch.core.filters import OperatorSpec, SobelParams, get_operator, resolve_plan
 from repro_torch.core.nms import DEFAULT_HIGH, DEFAULT_LOW
+from repro_torch.sharding.halo import ShardConfig
 
 __all__ = [
     "EdgeConfig",
     "EdgeResult",
+    "ShardConfig",
     "StreamState",
     "edge_detect",
     "edge_detect_stream",
@@ -112,7 +120,12 @@ class EdgeConfig:
                   kernel K2, a ring of that many input windows copied ahead
                   of the compute (bit-identical to K1; raises when the ring
                   does not fit the tile's shared memory).
-      shard:      None; multi-GPU sharding is not ported.
+      shard:      a :class:`~repro_torch.sharding.halo.ShardConfig`: spread
+                  the call over the image mesh of every visible CUDA device
+                  (``data`` batch groups x a ``rows x cols`` spatial grid
+                  with halo exchange); None = one device. ``device="cpu"``
+                  gives a mesh of the one CPU device; pass ``mesh=`` to
+                  :func:`edge_detect` for any other device list.
       nms:        thin the magnitude by non-maximum suppression (in K1).
       hysteresis: link the thin map into a bool edge map (implies nms).
       low/high:   hysteresis thresholds as fractions of the peak.
@@ -136,7 +149,7 @@ class EdgeConfig:
     block_w: Optional[int] = None
     precision: str = "auto"
     pipeline_depth: Optional[int] = None
-    shard: Any = None
+    shard: Optional[ShardConfig] = None
     nms: bool = False
     hysteresis: bool = False
     low: Optional[float] = None
@@ -351,6 +364,7 @@ def edge_detect(
     *,
     layout: Optional[str] = None,
     device=None,
+    mesh=None,
     **overrides,
 ) -> EdgeResult:
     """Run the edge-detection pipeline on ``images``.
@@ -362,6 +376,10 @@ def edge_detect(
       layout: explicit layout override (skips auto-detection).
       device: where to run; None = the CUDA device (raises when there is
         none). ``"cpu"`` runs the plain PyTorch version.
+      mesh: an image mesh (``repro_torch.runtime.elastic.ImageMesh``)
+        overriding ``config.shard``, for callers that manage the device
+        population themselves (elastic serving). Results gather on its
+        first device.
       **overrides: field overrides applied to ``config``.
 
     Returns:
@@ -372,7 +390,7 @@ def edge_detect(
     cfg = config or EdgeConfig()
     if overrides:
         cfg = cfg.replace(**overrides)
-    return dispatch.edge(images, cfg.resolved(), layout=layout, device=device)
+    return dispatch.edge(images, cfg.resolved(), layout=layout, device=device, mesh=mesh)
 
 
 def edge_detect_stream(

@@ -60,10 +60,11 @@ class ModelConfig:
     sobel_backend: str = "auto"      # auto | cuda | torch
     sobel_block_h: int = 0           # CTA tile rows; 0 = default
     sobel_block_w: int = 0           # CTA tile cols; 0 = default
+    sobel_shard: str = ""            # image-mesh shard spec "DxRxC" | "auto"; "" = single device
 
     def edge_config(self, **overrides):
         """This config's image pipeline as a ``repro_torch.api.EdgeConfig``."""
-        from repro_torch.api import EdgeConfig
+        from repro_torch.api import EdgeConfig, ShardConfig
         from repro_torch.core.filters import operator_for_size
 
         operator = self.sobel_operator or operator_for_size(self.sobel_size)
@@ -74,6 +75,7 @@ class ModelConfig:
             backend=self.sobel_backend,
             block_h=self.sobel_block_h or None,
             block_w=self.sobel_block_w or None,
+            shard=ShardConfig.parse(self.sobel_shard) if self.sobel_shard else None,
         )
         return cfg.replace(**overrides) if overrides else cfg
 

@@ -12,7 +12,7 @@ Backends:
                 ``xla`` lane, on any device.
   * ``auto``  — ``cuda`` for a CUDA device, ``torch`` for the CPU.
 
-:func:`edge` ports the single-device branch of ``repro.kernels.dispatch.edge``:
+:func:`edge` ports ``repro.kernels.dispatch.edge``. Single-device:
 :func:`resolve_precision` picks the lane (the exact integer lane for
 eligible u8 gray frames on ``cuda``), :func:`choose_block_shape` the tile
 and ring depth (explicit config fields, then the tuning cache
@@ -26,7 +26,11 @@ normalize epilogue scales by ``255 / max(peak, 1e-8)``. A stencil plan
 ``core.ladder.plan_int_eligible``, the tile from the plan's own cache slot
 (``filters.plan_identity``) or a default sized by its composed reach, and
 one K1 or K2 launch that runs its pre-stages ahead of the gradient; the
-stream path refuses plans with pre-stages, as the reference does.
+stream path refuses plans with pre-stages, as the reference does. With a
+mesh of more than one device (``mesh=``, or ``EdgeConfig.shard``) the
+sharded branch runs the same kernels once per shard, on the halo-extended
+block (``sharding/halo.py``), and takes the peak over each shard's valid
+pixels; hysteresis and the normalize epilogue run on the gathered maps.
 
 :func:`edge_stream` is one frame step of the streaming detector: a per-tile
 change test against the previous frame (:func:`stream_delta`), one K3
@@ -69,12 +73,6 @@ __all__ = [
 ]
 
 BACKENDS = ("auto", "cuda", "torch")
-
-# EdgeConfig fields whose engine is not ported yet -> their ROADMAP item.
-_UNPORTED = (
-    ("shard", "queue 1 item 10 (multi-GPU halo sharding)"),
-)
-
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA device. Asking for CUDA where there is none
@@ -151,6 +149,10 @@ def choose_block_shape(
     block_h: Optional[int] = None,
     block_w: Optional[int] = None,
     cache: Optional[tuning.TuningCache] = None,
+    devices: int = 1,
+    mesh: str = "1x1x1",
+    kernel_h: Optional[int] = None,
+    kernel_w: Optional[int] = None,
     precision: str = "f32",
     pipeline_depth: Optional[int] = None,
     nms: bool = False,
@@ -175,12 +177,18 @@ def choose_block_shape(
     ``plan`` (a resolved stencil plan) keys its own slot,
     ``filters.plan_identity(plan)`` in place of ``-``, and sizes the
     default tile by its composed reach (``2 * plan.linear_reach + 1``).
+
+    ``h``/``w`` key the cache on the frame the user sees. A sharded call
+    fills ``devices`` and ``mesh`` (``"DxRxC"``), so its tunings do not
+    collide with single-device ones, and names the halo-extended block each
+    shard's kernel tiles in ``kernel_h``/``kernel_w``, which size the
+    default tile.
     """
     if block_h and block_w:
         return block_h, block_w, pipeline_depth or 0, "explicit"
     cache = cache if cache is not None else tuning.get_default_cache()
     spec = plan.gradient if plan is not None else get_operator(operator)
-    key = tuning.TuneKey(backend, dtype, operator, variant, h, w, padding, layout, 1, "1x1x1",
+    key = tuning.TuneKey(backend, dtype, operator, variant, h, w, padding, layout, devices, mesh,
                          precision, pipeline_depth or 0,
                          plan_identity(plan) if plan is not None else "-")
     hit = cache.lookup(key)
@@ -199,7 +207,7 @@ def choose_block_shape(
             RuntimeWarning, stacklevel=2,
         )
     size = 2 * plan.linear_reach + 1 if plan is not None else spec.size
-    dbh, dbw = ekern.default_block_shape(h, w, size)
+    dbh, dbw = ekern.default_block_shape(kernel_h or h, kernel_w or w, size)
     return block_h or dbh, block_w or dbw, pipeline_depth or 0, "default"
 
 
@@ -241,42 +249,11 @@ def _normalize(mag: torch.Tensor, peak: torch.Tensor) -> torch.Tensor:
     return mag * scale
 
 
-def edge(
-    images,
-    config: "EdgeConfig",
-    *,
-    layout: Optional[str] = None,
-    device=None,
-    tuning_cache: Optional[tuning.TuningCache] = None,
-) -> "EdgeResult":
-    """Run one :class:`~repro_torch.api.EdgeConfig` end to end on ``device``
-    (``None`` = the CUDA device); ``layout`` names the input layout (the
-    facade detects it); ``tuning_cache`` replaces the process-wide cache."""
-    from repro_torch.api import EdgeResult
-
-    config = config.resolved()
-    if config.temporal:
-        raise ValueError(
-            "temporal hysteresis carries per-stream state; use "
-            "repro_torch.api.edge_detect_stream (or drop temporal for stateless "
-            "calls)"
-        )
-    for field, item in _UNPORTED:
-        if getattr(config, field):
-            raise NotImplementedError(
-                f"EdgeConfig.{field} is not ported yet: ROADMAP {item}"
-            )
-    dev = resolve_device(device)
-    backend = resolve_backend(config.backend, dev)
-    x, layout, rgb, batch_shape, h, w = _flatten(images, layout, dev)
-
-    spec = config.spec
-    need_comps = config.with_components or config.with_orientation
-    # Hysteresis thresholds are fractions of the per-image magnitude peak.
-    need_peak = config.normalize or config.with_max or config.hysteresis
-    # The lane is resolved once, against the dtype the kernel sees.
-    precision = resolve_precision(config.precision, backend, spec=spec, rgb=rgb,
-                                  input_dtype=x.dtype, plan=config.plan)
+def _edge_single(x, config, backend, *, rgb, h, w, need_comps, need_peak, tuning_cache,
+                 precision):
+    """The single-device branch of :func:`edge`: one fused launch that also
+    emits the per-tile maxima of the un-thinned magnitude; the peak is their
+    max. Returns ``(primary, comps | None, peak (B, 1, 1) | None)``."""
     bh, bw, depth, _source = choose_block_shape(
         h, w, operator=config.operator, variant=config.variant,
         dtype=_kernel_dtype_name(x), backend=backend, padding=config.padding,
@@ -286,7 +263,7 @@ def edge(
     )
     run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
     out = run(
-        x, spec=spec, variant=config.variant, directions=config.directions,
+        x, spec=config.spec, variant=config.variant, directions=config.directions,
         padding=config.padding, block_h=bh, block_w=bw, rgb=rgb,
         out_components=need_comps, out_nms=config.nms, with_max=need_peak,
         precision=precision, pipeline_depth=depth, plan=config.plan,
@@ -303,6 +280,145 @@ def edge(
     else:
         mag = outs.pop(0)
     peak = bmax.amax(dim=(-2, -1), keepdim=True) if need_peak else None
+    return mag, comps, peak
+
+
+def _shard_compute(config: "EdgeConfig", backend: str, *, rgb: bool, need_comps: bool,
+                   need_raw: bool, block_h: int, block_w: int, precision: str, depth: int):
+    """The per-shard engine: ``(B, h, w[, 3]) -> (primary, components |
+    None, raw magnitude | None)`` through the single-device kernels (K1, or
+    K2 at a ring depth, on ``cuda``; ``edge_plain`` on ``torch``).
+
+    ``primary`` is the magnitude, or with ``config.nms`` the thin map;
+    ``need_raw`` adds the un-thinned magnitude in NMS mode, the peak's
+    source. No tile maxima: a shard's peak is taken over its valid pixels
+    only (``sharding.halo.sharded_edge``)."""
+    run = ekern.edge_cuda if backend == "cuda" else ekern.edge_plain
+    kw = dict(spec=config.spec, variant=config.variant, directions=config.directions,
+              padding=config.padding, block_h=block_h, block_w=block_w, rgb=rgb,
+              precision=precision, pipeline_depth=depth, plan=config.plan)
+
+    def compute(xl):
+        if config.nms:
+            out = run(xl, out_nms=True, out_components=need_comps, out_mag=need_raw, **kw)
+            outs = list(out) if isinstance(out, tuple) else [out]
+            thin = outs.pop(0)
+            comps = outs.pop(0) if need_comps else None
+            return thin, comps, (outs.pop(0) if need_raw else None)
+        if need_comps:
+            comps = run(xl, out_components=True, **kw)
+            return magnitude(comps.unbind(dim=1)), comps, None
+        return run(xl, **kw), None, None
+
+    return compute
+
+
+def _edge_sharded(x, config, backend, mesh, *, rgb, h, w, need_comps, need_peak,
+                  tuning_cache, precision, chaos=None):
+    """The sharded branch of :func:`edge`: ``(primary, comps | None, peak
+    (B, 1, 1) | None)``, bit-exact with the single-device branch.
+
+    The halo is ``halo.exchange_radius``: the operator's radius, the plan's
+    composed reach, plus one with NMS (hysteresis, a global fixpoint, runs
+    on the gathered map). The tile is chosen for the halo-extended block
+    each shard's kernel sees, under the mesh's own tuning slot."""
+    from repro_torch.sharding import halo
+
+    r = halo.exchange_radius(config.spec, config.nms, plan=config.plan)
+    d, rr, cc = mesh.shape["data"], mesh.shape["row"], mesh.shape["col"]
+    sh, _hp = halo.shard_geometry(h, rr, r)
+    sw, _wp = halo.shard_geometry(w, cc, r)
+    bh, bw, depth, _source = choose_block_shape(
+        h, w, operator=config.operator, variant=config.variant,
+        dtype=_kernel_dtype_name(x), backend=backend, padding=config.padding,
+        layout="rgb" if rgb else "gray", block_h=config.block_h, block_w=config.block_w,
+        cache=tuning_cache, devices=d * rr * cc, mesh=f"{d}x{rr}x{cc}",
+        kernel_h=sh + (2 * r if rr > 1 else 0), kernel_w=sw + (2 * r if cc > 1 else 0),
+        precision=precision, pipeline_depth=config.pipeline_depth, nms=config.nms,
+        plan=config.plan,
+    )
+    compute = _shard_compute(config, backend, rgb=rgb, need_comps=need_comps,
+                             need_raw=config.nms and need_peak, block_h=bh, block_w=bw,
+                             precision=precision, depth=depth)
+    mag, comps, peak = halo.sharded_edge(
+        x, mesh, radius=r, padding=config.padding, compute=compute, rgb=rgb,
+        need_comps=need_comps, need_peak=need_peak, chaos=chaos,
+    )
+    return mag, comps, (peak[:, None, None] if need_peak else None)
+
+
+def _mesh_device(config: "EdgeConfig", mesh, device):
+    """``(mesh or None, device)`` for a call: ``mesh`` overrides
+    ``config.shard``; a shard config alone builds its mesh over every
+    visible CUDA device, or over ``device`` itself when that is the CPU.
+    With a mesh the frames land on, and the results gather on, its first
+    device; ``device``, if given, must be of the same type."""
+    if mesh is None and config.shard is not None:
+        from repro_torch.sharding import halo
+
+        dev = resolve_device(device)
+        mesh = halo.mesh_from_config(config.shard, [dev] if dev.type == "cpu" else None)
+    if mesh is None:
+        return None, resolve_device(device)
+    kinds = {dv.type for dv in mesh.flat()}
+    if device is not None:
+        kinds.add(torch.device(device).type)
+    if len(kinds) > 1:
+        raise ValueError(f"the mesh's devices and device={device!r} mix device types {kinds}")
+    return mesh, resolve_device(mesh.lead)
+
+
+def edge(
+    images,
+    config: "EdgeConfig",
+    *,
+    layout: Optional[str] = None,
+    device=None,
+    tuning_cache: Optional[tuning.TuningCache] = None,
+    mesh=None,
+    chaos=None,
+) -> "EdgeResult":
+    """Run one :class:`~repro_torch.api.EdgeConfig` end to end on ``device``
+    (``None`` = the CUDA device); ``layout`` names the input layout (the
+    facade detects it); ``tuning_cache`` replaces the process-wide cache.
+
+    ``mesh`` (a ``runtime.elastic.ImageMesh``) overrides ``config.shard``:
+    the image server passes the survivors' mesh after an elastic replan. A
+    mesh of more than one device runs the sharded engine
+    (``sharding.halo``), bit-exact with the single-device branch. ``chaos``
+    (a ``runtime.chaos.FaultPlan``) fires the ``"dispatch.edge"`` site on
+    entry."""
+    from repro_torch.api import EdgeResult
+
+    if chaos is not None:
+        chaos.fire("dispatch.edge")
+    config = config.resolved()
+    if config.temporal:
+        raise ValueError(
+            "temporal hysteresis carries per-stream state; use "
+            "repro_torch.api.edge_detect_stream (or drop temporal for stateless "
+            "calls)"
+        )
+    mesh, dev = _mesh_device(config, mesh, device)
+    backend = resolve_backend(config.backend, dev)
+    x, layout, rgb, batch_shape, h, w = _flatten(images, layout, dev)
+
+    spec = config.spec
+    need_comps = config.with_components or config.with_orientation
+    # Hysteresis thresholds are fractions of the per-image magnitude peak.
+    need_peak = config.normalize or config.with_max or config.hysteresis
+    # The lane is resolved once, against the dtype the kernel sees.
+    precision = resolve_precision(config.precision, backend, spec=spec, rgb=rgb,
+                                  input_dtype=x.dtype, plan=config.plan)
+    if mesh is not None and mesh.size > 1:
+        mag, comps, peak = _edge_sharded(
+            x, config, backend, mesh, rgb=rgb, h=h, w=w, need_comps=need_comps,
+            need_peak=need_peak, tuning_cache=tuning_cache, precision=precision, chaos=chaos,
+        )
+    else:
+        mag, comps, peak = _edge_single(x, config, backend, rgb=rgb, h=h, w=w,
+                                        need_comps=need_comps, need_peak=need_peak,
+                                        tuning_cache=tuning_cache, precision=precision)
 
     orientation = None
     if config.with_orientation:

@@ -20,8 +20,10 @@ This module
 The key and the file are the reference's schema v6, so a file written by
 either package reads in the other; ``backend`` is ``cuda`` or ``torch``
 here, the plan slot is ``filters.plan_identity(plan)`` for a stencil plan
-and ``-`` for a single operator, and ``devices``/``mesh`` stay
-``1``/``1x1x1`` (no sharding yet). Older files
+and ``-`` for a single operator, and ``devices``/``mesh`` are ``1``/``1x1x1``
+for a single-device call and the mesh's size and ``DxRxC`` shape for a
+sharded one (``kernels.dispatch`` resolves that tile against the
+halo-extended block each shard's kernel sees). Older files
 migrate on load exactly as in the reference (v1 -> ... -> v6) and are
 rewritten as v6 by the next :meth:`TuningCache.save`. A TPU tuning means
 nothing on the card and is never carried across: the backends differ, so

@@ -1,6 +1,8 @@
-"""Serving-side runtime: fault injection, retry policy, step monitoring and
-straggler policy. Copies of the JAX-free modules of ``repro.runtime``; its
-elastic mesh planner, which needs JAX, has no counterpart here yet."""
+"""Serving-side runtime: fault injection, retry policy, step monitoring,
+straggler policy and the elastic image mesh. Copies of the JAX-free modules
+of ``repro.runtime``, and the image half of its ``elastic`` module over
+``torch.device`` grids (the LM meshes' ``make_mesh``/``reshard`` are not
+ported yet)."""
 from repro_torch.runtime.chaos import (  # noqa: F401
     CorruptFrame,
     DeviceLoss,
@@ -8,6 +10,13 @@ from repro_torch.runtime.chaos import (  # noqa: F401
     InjectedFault,
     StepFail,
     Straggler,
+)
+from repro_torch.runtime.elastic import (  # noqa: F401
+    IMAGE_MESH_AXES,
+    ImageMesh,
+    make_image_mesh,
+    plan_image_mesh,
+    plan_mesh,
 )
 from repro_torch.runtime.fault import FaultPolicy, FaultTolerantRunner, StepFailure  # noqa: F401
 from repro_torch.runtime.monitor import StepMonitor  # noqa: F401

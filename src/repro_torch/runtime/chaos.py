@@ -1,8 +1,8 @@
 """Deterministic, seedable fault injection for the serving path.
 
 A copy of ``repro.runtime.chaos`` (it needs nothing of JAX). The port's
-``StreamEngine`` takes a plan; the server's ``--chaos`` flag and the
-elastic image server are still to port.
+``StreamEngine``, its image server (``launch/serve.py --chaos``) and its
+sharded engine (``sharding/halo.py``) take a plan.
 
 The serving stack advertises graceful degradation (retry, backend fallback,
 elastic replan, shedding, quarantine — ``repro_torch.serve.guard``); this module
@@ -21,8 +21,8 @@ Four fault kinds, mirroring what a real edge fleet sees:
     site (``"step"``), the engine entry (``"dispatch.edge"``), the sharded
     engine (``"halo.sharded_edge"``), or the fallback runner
     (``"fallback"``). Transient failures heal after ``count`` attempts
-    (exercising the retry ladder); persistent ones never do (exercising the
-    cuda→torch backend fallback).
+    (exercising the retry ladder); persistent ones never do (the port has
+    no backend fallback, so they raise once the retries are spent).
   * :class:`Straggler` — artificial per-host delay: the named host's work
     runs ``delay_ms`` slow over a step window, which both drags the wall
     clock of any batch it rides in *and* shows up in the per-host

@@ -10,12 +10,14 @@ outcome:
      in place; the frame's outcome is ``retried``.
   2. **Fallback** — where the caller hands :class:`StepGuard` a
      ``fallback`` callable, a persistently failing primary flips to it
-     permanently; outcomes become ``degraded``. The stream engine passes
-     none: a CUDA kernel that keeps failing raises, and the plain PyTorch
-     lane never stands in for it.
-  3. **Elastic replan** — a detected device loss is counted as a replan;
-     the stream engine has no compiled step to rebuild (the elastic mesh
-     of the image server is still to port).
+     permanently; outcomes become ``degraded``. The image server and the
+     stream engine pass none: a CUDA kernel that keeps failing raises, and
+     the plain PyTorch lane never stands in for it.
+  3. **Elastic replan** — a device loss or an excluded straggler rebuilds
+     the image server's mesh on the survivors
+     (``runtime.elastic.plan_image_mesh``) and re-warms outside the
+     latency window; serving continues at lower throughput. The stream
+     engine counts a device loss as a replan (it has no mesh).
   4. **Load shedding** — a stream that keeps blowing its latency budget
      drops its oldest pending frame(s) (:class:`Shedder`, with hysteresis
      so recovery is observable rather than oscillating); outcomes ``shed``.
@@ -33,8 +35,8 @@ Fault injection (:mod:`repro_torch.runtime.chaos`) threads through the
 same entry points: the guard fires the plan's ``"step"``/``"fallback"``
 sites per attempt.
 
-The port of ``repro.serve.guard``. The reference engine fills rung 2 with
-its ``pallas → xla`` fallback; the port's engine leaves it empty.
+The port of ``repro.serve.guard``. The reference's servers fill rung 2
+with their ``pallas → xla`` fallback; the port's leave it empty.
 """
 from __future__ import annotations
 

@@ -132,12 +132,21 @@ def test_backends_resolve_by_device():
                                       input_dtype=torch.uint8) == "f32"
 
 
-@pytest.mark.parametrize("override,item", (
-    (dict(shard="2x1x1"), "item 10"),
-), ids=lambda v: str(v))
-def test_unported_options_raise(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        edge_detect(np.zeros((8, 8), np.uint8), device="cpu", **override)
+@pytest.mark.parametrize("spec", ("1x1x1", "auto", "0x1x1"))
+def test_shard_is_accepted(spec):
+    """``EdgeConfig.shard`` runs (it raised while sharding was unported): on
+    the CPU its mesh is the one CPU device, so the call equals the
+    unsharded one; a spatial grid that does not fit raises the reference's
+    error."""
+    from repro_torch.api import ShardConfig
+
+    x = _frames("u8", (2, 19, 29))
+    ref = edge_detect(x, device="cpu", with_max=True)
+    out = edge_detect(x, device="cpu", with_max=True, shard=ShardConfig.parse(spec))
+    np.testing.assert_array_equal(out.magnitude.numpy(), ref.magnitude.numpy())
+    np.testing.assert_array_equal(out.peak.numpy(), ref.peak.numpy())
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        edge_detect(x, device="cpu", shard=ShardConfig(rows=2, cols=2))
 
 
 def test_config_validation_matches_reference():

@@ -930,3 +930,38 @@ def test_plan_footprint_matches_the_source_and_over_budget_raises(cuda_device):
     with pytest.raises(ValueError, match="pre-stage plane"):
         ekern.edge_cuda(x, plan="canny5", variant="v2", directions=4, block_h=64,
                         block_w=256, out_nms=True, pipeline_depth=2)
+
+
+SHARD_CONFIGS = (
+    dict(with_max=True, with_components=True, with_orientation=True),
+    dict(operator="scharr3", padding="zero", with_max=True),
+    dict(nms=True, hysteresis=True, with_max=True),
+    dict(plan="canny5", hysteresis=True, with_max=True),
+    dict(with_max=True, pipeline_depth=2),
+)
+
+
+@pytest.mark.parametrize("config", SHARD_CONFIGS, ids=str)
+@pytest.mark.parametrize("kind", ("u8", "f32", "rgb"))
+@pytest.mark.parametrize("spec", ("8x1x1", "2x2x2", "1x4x2"))
+def test_sharded_facade_on_logical_devices(cuda_device, spec, kind, config):
+    """K1 (or K2 at a depth) once per shard on ``[cuda:0] * 8``: the sharded
+    call equals the single-device call and the torch lane bit for bit."""
+    from repro_torch.api import ShardConfig
+    from repro_torch.sharding.halo import mesh_from_config
+
+    x = _frames(kind, (3, 237, 413), cuda_device)
+    cfg = EdgeConfig(block_h=32, block_w=64, **config)
+    mesh = mesh_from_config(ShardConfig.parse(spec), [torch.device("cuda:0")] * 8)
+    single = edge_detect(x, cfg)
+    k1, k2 = ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches
+    out = edge_detect(x, cfg, mesh=mesh)
+    depth = bool(config.get("pipeline_depth"))
+    assert (ekern.edge_cuda.launches - k1, ekern.edge_pipelined_cuda.launches - k2) == (
+        (0, 8) if depth else (8, 0))
+    plain = edge_detect(x, cfg.replace(backend="torch"), mesh=mesh)
+    for field in ("magnitude", "components", "orientation", "peak", "thin", "edges"):
+        a, b, c = getattr(out, field), getattr(single, field), getattr(plain, field)
+        assert (a is None) == (b is None) == (c is None), field
+        if a is not None:
+            assert a.device.type == "cuda" and torch.equal(a, b) and torch.equal(a, c), field

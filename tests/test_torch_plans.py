@@ -310,7 +310,14 @@ def test_single_operator_plan_collapses_to_operator_path():
 
 
 def test_unported_lists_only_shard():
-    assert [f for f, _ in dispatch._UNPORTED] == ["shard"]
+    """``shard`` was the last EdgeConfig field the engine refused as
+    unported; since it runs, the table of unported fields is gone."""
+    assert not hasattr(dispatch, "_UNPORTED")
+    x = np.arange(2 * 9 * 11, dtype=np.uint8).reshape(2, 9, 11)
+    cfg = api.EdgeConfig(plan="canny5", with_max=True)
+    out = api.edge_detect(x, cfg.replace(shard=api.ShardConfig(data=1)), device="cpu")
+    ref = api.edge_detect(x, cfg, device="cpu")
+    assert torch.equal(out.magnitude, ref.magnitude) and torch.equal(out.peak, ref.peak)
 
 
 def test_precision_resolution_takes_the_plan_chain():

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from conftest import SUBPROCESS_TIMEOUT
+
 import numpy as np
 import pytest
 import torch
@@ -187,3 +189,183 @@ def test_ssm_server_refuses_the_reference_servers_prompts():
                      args)
     assert str(err.value) == str(ref_err.value) == (
         "ssm engine needs bucket-length prompts; got 19, buckets=(8, 16, 32, 64)")
+
+
+# --- The elastic, chaos-tested image server on a logical mesh of 8 CPUs -----
+
+CPU8 = [torch.device("cpu")] * 8
+SERVE = ["--arch", "sobel-hd", "--smoke", "--requests", "6", "--slots", "2"]
+SHARDED_RUNS = {
+    "simulate-loss": ["--shard", "2x2x2", "--simulate-loss-at", "3"],
+    "chaos-loss": ["--shard", "2x2x2", "--chaos", "loss@3"],
+}
+REF_SERVER = r"""
+import contextlib, io, itertools, json, os, sys, time, types
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+from repro.launch import serve
+ticks = itertools.count()
+serve.time = types.SimpleNamespace(perf_counter=lambda: next(ticks) * 1e-3, sleep=time.sleep)
+out = {}
+for name, argv in json.loads(sys.argv[1]).items():
+    buf = io.StringIO()
+    sys.argv = ["serve"] + argv
+    with contextlib.redirect_stdout(buf):
+        serve.main()
+    out[name] = buf.getvalue()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_server_output():
+    """The reference server's stdout for each of ``SHARDED_RUNS``, on 8
+    forced host devices, from one subprocess."""
+    import json
+
+    runs = {k: SERVE + v for k, v in SHARDED_RUNS.items()}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", REF_SERVER, json.dumps(runs)],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=SUBPROCESS_TIMEOUT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _steady_clock(monkeypatch):
+    """Give the server a clock that advances 1 ms a reading. The straggler
+    monitor runs under any ``--chaos`` plan and compares each device's
+    median request time with the fleet's; after a device loss the lost
+    devices' times freeze, so on a loaded host a slow stretch of requests
+    flags the survivors, in either package. With equal request times
+    nothing is flagged, and the lines depend on the plan alone."""
+    import itertools
+    import time
+    import types
+
+    ticks = itertools.count()
+    monkeypatch.setattr(serve, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(ticks) * 1e-3, sleep=time.sleep))
+
+
+def _health(text):
+    """The ``health:`` line's fields, as a dict, without ``backend``."""
+    line = [ln for ln in text.splitlines() if ln.startswith("health: ")][-1]
+    fields = {}
+    for part in line[len("health: "):].split(" "):
+        if "=" in part:
+            k, v = part.split("=", 1)
+            fields[k] = v
+    fields.pop("backend")
+    return fields
+
+
+def _elastic_lines(text):
+    keep = ("image mesh:", "device loss:", "excluding straggler")
+    return [ln for ln in text.splitlines() if ln.startswith(keep)]
+
+
+@pytest.mark.parametrize("run", sorted(SHARDED_RUNS))
+def test_sharded_server_prints_the_reference_lines(run, reference_server_output, capsys,
+                                                   monkeypatch):
+    """``--shard 2x2x2`` with a device loss before request 3: the mesh,
+    device-loss and ``served through reshard`` lines and every health field
+    but ``backend`` equal the reference server's, both on a steady clock."""
+    _steady_clock(monkeypatch)
+    stats = serve.main(SERVE + SHARDED_RUNS[run] + ["--device", "cpu"], devices=CPU8)
+    ours, ref = capsys.readouterr().out, reference_server_output[run]
+    assert _elastic_lines(ours) == _elastic_lines(ref) == [
+        "image mesh: data=2 row=2 col=2 on 8 device(s)",
+        "device loss: 8 -> 4 devices; replanning mesh and resharding",
+        "image mesh: data=1 row=2 col=2 on 4 device(s)",
+    ]
+    assert "(served through reshard)" in ours and "(served through reshard)" in ref
+    assert _health(ours) == _health(ref)
+    health = stats["health"]
+    assert health.unaccounted == 0 and health.replans == 1 and health.backend == "torch"
+    assert stats["meshes"] == [(2, 2, 2), (1, 2, 2)] and len(stats["rewarm_ms"]) == 1
+
+
+def test_sharded_server_answer_equals_the_reference():
+    """The last answer of a sharded ``--edges`` server equals the
+    reference's single-device XLA lane on the same frames."""
+    stats = serve.main(["--arch", "sobel-hd", "--smoke", "--requests", "2", "--slots", "3",
+                        "--shard", "1x2x2", "--edges", "--device", "cpu"], devices=CPU8)
+    res = stats["result"]
+    ref_cfg = ref_get_config("sobel-hd", smoke=True)
+    frames = ref_image_batch(ref_cfg, 3, step=1)["images"]
+    ref = ref_edge_detect(frames, ref_cfg.edge_config(with_max=True, backend="xla", nms=True,
+                                                       hysteresis=True))
+    for field in ("magnitude", "thin", "edges", "peak"):
+        np.testing.assert_array_equal(getattr(res, field).numpy(), np.asarray(getattr(ref, field)))
+    assert stats["meshes"] == [(1, 2, 2)]
+
+
+def test_chaos_server_retries_and_excludes_a_straggler(capsys, monkeypatch):
+    """``fail@step:1x2;slow@d1:40``: request 0 succeeds on its third attempt,
+    device 1 straggles by 40 ms a request and is excluded after three
+    strikes, with the reference's "7 -> 7" replan line. On a steady clock
+    the monitor sees the injected delay alone, whatever the host's load."""
+    _steady_clock(monkeypatch)
+    stats = serve.main(SERVE + ["--shard", "2x2x2", "--chaos", "fail@step:1x2;slow@d1:40",
+                                "--device", "cpu"], devices=CPU8)
+    out = capsys.readouterr().out
+    health = stats["health"]
+    assert (health.submitted, health.counts["served"], health.counts["retried"]) == (6, 5, 1)
+    assert health.retries == 2 and health.replans == 1 and health.unaccounted == 0
+    assert health.stragglers == ["d1"] and health.excluded == ["d1"]
+    assert "excluding straggler d1: 7 -> 7 devices; replanning mesh and resharding" in out
+    assert "image mesh: data=1 row=2 col=2 on 4 device(s)" in out
+    assert "health: submitted=6 served=5 retried=1" in out
+
+
+def test_persistent_failure_raises_after_the_health_line(capsys):
+    """No fallback: a failure that outlasts the retries raises, after the
+    ledger shows the request unaccounted."""
+    from repro_torch.runtime.chaos import InjectedFault
+
+    with pytest.raises(InjectedFault):
+        serve.main(SERVE + ["--shard", "2x2x2", "--chaos", "fail@step:1x9", "--device", "cpu"],
+                   devices=CPU8)
+    out = capsys.readouterr().out
+    assert "health: submitted=1 served=0 retried=0 degraded=0" in out
+    assert "unaccounted=1" in out and "errors=1" in out
+
+
+def test_unaccounted_chaos_run_exits_non_zero(monkeypatch):
+    """A chaos run that leaves a request unaccounted exits non-zero."""
+    from repro_torch.serve import guard
+
+    monkeypatch.setattr(guard.Health, "record", lambda self, kind: None)
+    with pytest.raises(SystemExit, match="left 6 request"):
+        serve.main(SERVE + ["--chaos", "slow@d0:1", "--device", "cpu"], devices=CPU8)
+
+
+def test_lm_arch_refuses_shard_and_chaos(monkeypatch):
+    from repro.launch import serve as ref_serve
+
+    for flag, value in (("--shard", "2x2x2"), ("--chaos", "loss@1")):
+        argv = ["--arch", "llama3.2-1b", "--smoke", flag, value]
+        with pytest.raises(SystemExit) as err:
+            serve.main(argv + ["--device", "cpu"])
+        monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+        with pytest.raises(SystemExit) as ref_err:
+            ref_serve.main()
+        assert str(err.value) == str(ref_err.value)
+        assert str(err.value).startswith(f"{flag} applies to image (detector) serving")
+
+
+def test_shard_that_does_not_fit_raises_at_startup():
+    with pytest.raises(ValueError, match="spatial grid 2x2 needs 4 devices, have 1"):
+        serve.main(SERVE + ["--shard", "2x2x2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs 16 devices, have 8"):
+        serve.main(SERVE + ["--shard", "4x2x2", "--device", "cpu"], devices=CPU8)
+    with pytest.raises(ValueError, match="do not match --device"):
+        serve.main(SERVE + ["--device", "cuda"], devices=CPU8)
+
+
+def test_stream_server_takes_a_chaos_plan():
+    stats = serve.main(["--arch", "sobel-hd", "--smoke", "--streams", "2", "--requests", "3",
+                        "--device", "cpu", "--chaos", "corrupt@0:1=nan"])
+    health = stats["health"]
+    assert health.counts["quarantined"] == 1 and health.unaccounted == 0
