@@ -205,7 +205,19 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    ``LOGIT_TOL`` and the cache's ``h`` and ``conv`` within ``STATE_TOL``
    of the plain lane, with both lanes' seconds.
 
-Phases 6-9b run after 4d, then phase 5. The last line is
+10. The contract analyzer (``repro_torch.analysis``) on the card:
+   ``analyze(full=True, backends=("torch", "cuda"))`` against
+   ``analysis_baseline_torch.json``, with the counts set to 0 just before.
+   It must report zero new violations, leave no rule unrun, and launch K1,
+   K2 and K3; prints the checks, artifacts, the seconds of each part, and
+   per K1-K3 instance the ``fma.rn.f32`` count of its PTX (0) and the FFMA
+   count of its SASS.
+10b. The paper's Fig. 7 check on FULL frames (4x2048x2048 f32): the SSIM
+   (``core/ssim.py``) of K1's unnormalized magnitude against the dense
+   oracle ``kernels/ref.sobel_ref`` on the plain lane exceeds 0.999999 for
+   the ``separable``, ``v1`` and ``v2`` variants.
+
+Phases 6-9b run after 4d, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -2675,6 +2687,76 @@ def phase_plan_timing(full_inputs, dev, plan_counts):
         plans=k2_rows, launches_plan_facade=plan_counts["k2_plan"])
 
 
+def phase_analyzer():
+    """Phase 10: the contract analyzer's whole sweep, CPU and card halves,
+    against the committed baseline. Returns its summary."""
+    from repro_torch.analysis import analyze, load_baseline, render_coverage
+
+    reset_counts()
+    t0 = time.perf_counter()
+    report = analyze(full=True, backends=("torch", "cuda"))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    report.apply_baseline(load_baseline(str(ROOT / "analysis_baseline_torch.json")))
+    print(report.render())
+    print(render_coverage(report))
+    meta = report.meta
+    instances = meta["instances"]
+    for key, row in sorted(instances.items()):
+        ring = f" copies {row['copies']} waits {row['waits']}" if "copies" in row else ""
+        print(f"  {key}: fma.rn.f32 {row['fma.rn.f32']}, FFMA {row['FFMA']}, static smem "
+              f"{row['static_smem']} B{ring}")
+    for loc, row in sorted(meta["launch_smem"].items()):
+        print(f"  {loc}: {row['instance']} asked for {row['dynamic']} B dynamic + "
+              f"{row['static']} B static shared memory")
+    print(f"  integer-lane accumulators (licensed / on the card): "
+          f"{meta['int_lane_accumulators']}")
+    print(f"  profiler records taken again for missing device records: "
+          f"{meta['profiles_taken_again']}")
+    summary = {"checks": report.checks, "artifacts": len(report.combos),
+               "new_violations": len(report.violations), "allowlisted": len(report.allowlisted),
+               "not_run": meta["not_run"], "seconds": dict(meta["seconds"], total=seconds),
+               "functions": meta["functions"], "launches": counts,
+               "fma_rn_f32": sum(r["fma.rn.f32"] for r in instances.values()),
+               "ffma": {k: r["FFMA"] for k, r in instances.items()}}
+    print(json.dumps({k: v for k, v in summary.items() if k != "ffma"}))
+    check(report.ok, f"the analyzer found {len(report.violations)} new violation(s)")
+    check(not meta["not_run"], f"rules not run on the card: {meta['not_run']}")
+    check(len(instances) == 84, f"the listings held {len(instances)} of 84 instances")
+    check(summary["fma_rn_f32"] == 0, "fma.rn.f32 in the PTX of a K1-K3 instance")
+    check(counts["k1"] >= 1 and counts["k2"] >= 1 and counts["k3"] >= 1,
+          f"phase 10 did not launch K1, K2 and K3: {counts}")
+    return summary
+
+
+def phase_fig7(dev):
+    """Phase 10b: Fig. 7 on FULL frames, SSIM of K1's unnormalized magnitude
+    against the dense oracle (plain lane, on the card) > 0.999999."""
+    from repro_torch.api import EdgeConfig, edge_detect
+    from repro_torch.configs import get_config
+    from repro_torch.core.ssim import ssim
+    from repro_torch.kernels.ref import sobel_ref
+
+    full = get_config("sobel-hd")
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand((4, full.image_h, full.image_w), generator=g, device=dev) * 255.0
+    ref = sobel_ref(x)
+    out = {}
+    for variant in ("separable", "v1", "v2"):
+        cfg = EdgeConfig(variant=variant, normalize=False, block_h=full.sobel_block_h,
+                         block_w=full.sobel_block_w)
+        reset_counts()
+        mag = edge_detect(x, cfg, device=dev).magnitude
+        k1 = read_counts()["k1"]
+        out[variant] = float(ssim(mag, ref).mean())
+        equal = bool(torch.equal(mag, ref))
+        print(f"  {variant}: SSIM {out[variant]!r} against sobel_ref ({k1} K1 launch, "
+              f"bit-equal {equal})")
+        check(k1 == 1, f"Fig. 7 {variant}: {k1} K1 launches, expected 1")
+        check(out[variant] > 0.999999, f"Fig. 7 {variant}: SSIM {out[variant]} <= 0.999999")
+    return out
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2746,6 +2828,8 @@ def main() -> None:
     kernels[1].update(launches_sharded_facade=shard_counts["k2"])
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
     kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
+    timed("10 contract analyzer", phase_analyzer)
+    timed("10b Fig. 7", phase_fig7, dev)
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,10 @@ which keeps a build to a minute or two rather than many minutes.
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false``: the kernels must
 round every product and sum on its own to stay bit-identical to their plain
 PyTorch versions. No ``--use_fast_math``: ``sqrtf`` and division stay IEEE.
+The library embeds the ``compute_90a`` PTX it was assembled from beside
+the ``sm_90a`` cubin (the card runs the cubin): the contract analyzer
+reads the PTX back (``cuobjdump --dump-ptx``) to check that no product was
+contracted, at no extra compile.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "library_path"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-gencode", "arch=compute_90a,code=[sm_90a,compute_90a]",
     "-O3", "--fmad=false", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",

@@ -55,7 +55,7 @@
 // (70 x 262) take 152 KB: one CTA an SM where the operator alone fits
 // three.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 // --fmad=false keeps every product and sum separately rounded (the
 // reference's max(., -FLT_MAX) fence); no --use_fast_math, so sqrtf is IEEE.
 

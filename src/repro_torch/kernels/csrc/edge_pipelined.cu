@@ -82,7 +82,7 @@
 // a 4x2048x2048 f32 call is bound by bytes and the int lane by 32-bit
 // integer operations (64 lanes per SM, half the f32 rate).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 // (every product and sum separately rounded; no --use_fast_math).
 
 #include <cuda.h>  // CUtensorMap and the encoder's types only: nothing is linked

@@ -49,7 +49,7 @@
 // the operations are those of K1's NMS lane over the changed tiles only. The
 // CTAs' mask reads come from L2 and are not counted.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 
 #include <string.h>
 

@@ -68,7 +68,7 @@
 // Left for later work: wgmma and TMA, splitting k and v once per CTA, warp
 // specialisation, a persistent grid.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 // (the repository's flags; the products here are tensor-core instructions,
 // so --fmad=false only keeps the softmax's scalar arithmetic unfused).
 

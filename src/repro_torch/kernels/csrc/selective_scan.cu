@@ -49,7 +49,7 @@
 // not __expf; --fmad=false keeps h * da + bx two roundings, as the plain
 // version rounds them.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

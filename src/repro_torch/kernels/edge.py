@@ -48,7 +48,9 @@ __all__ = [
     "default_block_shape",
     "kernel_dtype",
     "window_smem_bytes",
+    "launch_smem_bytes",
     "pipelined_smem_bytes",
+    "pipelined_layout",
     "pre_plane_words",
     "kernel_plan",
     "pipelined_bands",
@@ -139,25 +141,32 @@ def pre_plane_words(block_h: int, block_w: int, plan, nms: bool = False) -> int:
     return 0
 
 
+def launch_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False,
+                      plan=None) -> int:
+    """The dynamic shared memory K1 and K3 ask for at launch
+    (``csrc/edge_tile.cuh``, ``tile_smem_bytes``, plus a plan's pre-stage
+    plane in ``csrc/edge.cu``): the f32 halo window of the ``block_h x
+    block_w`` tile at the window's reach (``radius``, or a plan's
+    ``linear_reach``, + 1 with NMS)."""
+    fused = _fused(plan)
+    halo = window_radius(fused.linear_reach if fused is not None else radius, nms)
+    return 4 * ((block_h + 2 * halo) * (block_w + 2 * halo)
+                + pre_plane_words(block_h, block_w, fused, nms))
+
+
 def window_smem_bytes(block_h: int, block_w: int, radius: int, nms: bool = False,
                       plan=None) -> int:
-    """The shared-memory footprint a tile is held to for K1 and K3: the f32
-    halo window (``csrc/edge_tile.cuh``, ``tile_smem_bytes``, what K1 and K3
-    allocate), and with NMS also the f32 magnitude of the ``(block + 2)``
-    inner tile and a sector byte per output pixel. K1 and K3 keep those two
-    in registers; the bound still counts them, so that the tiles legal for
-    an NMS call did not change. A ``plan`` with pre-stages is held to what
-    K1 allocates for it: the window at its composed reach
-    (``plan.linear_reach`` in place of ``radius``) and its plane
-    (:func:`pre_plane_words`), with no NMS buffers."""
-    fused = _fused(plan)
-    if fused is not None:
-        halo = window_radius(fused.linear_reach, nms)
-        return 4 * ((block_h + 2 * halo) * (block_w + 2 * halo)
-                    + pre_plane_words(block_h, block_w, fused, nms))
-    halo = window_radius(radius, nms)
-    smem = 4 * (block_h + 2 * halo) * (block_w + 2 * halo)
-    if nms:
+    """The shared-memory footprint a tile is held to for K1 and K3: what
+    they allocate (:func:`launch_smem_bytes`), and with NMS also the f32
+    magnitude of the ``(block + 2)`` inner tile and a sector byte per
+    output pixel. K1 and K3 keep those two in registers; the bound still
+    counts them, so that the tiles legal for an NMS call did not change. A
+    ``plan`` with pre-stages is held to what K1 allocates for it: the
+    window at its composed reach (``plan.linear_reach`` in place of
+    ``radius``) and its plane (:func:`pre_plane_words`), with no NMS
+    buffers."""
+    smem = launch_smem_bytes(block_h, block_w, radius, nms, plan)
+    if nms and _fused(plan) is None:
         smem += 4 * (block_h + 2) * (block_w + 2) + block_h * block_w
     return smem
 
@@ -175,8 +184,16 @@ def _tile_threads(bw: int, nms: bool) -> int:
 
 def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: int,
                          channels: int, nms: bool, plan=None) -> int:
-    """Dynamic shared memory of one K2 CTA (``csrc/edge_pipelined.cu``,
-    ``pipelined_layout``), for the window of ``eh x ew = (bh + 2 R_in) x
+    """Dynamic shared memory of one K2 CTA: :func:`pipelined_layout`'s
+    ``total``."""
+    return pipelined_layout(bh, bw, radius, depth, in_bytes, channels, nms, plan)["total"]
+
+
+def pipelined_layout(bh: int, bw: int, radius: int, depth: int, in_bytes: int,
+                     channels: int, nms: bool, plan=None) -> dict:
+    """K2's dynamic shared memory (``csrc/edge_pipelined.cu``,
+    ``pipelined_layout``): ``{"eh", "ew", "slots", "barriers", "total"}``
+    (a slot and an mbarrier per ring window; the bytes), for the window of ``eh x ew = (bh + 2 R_in) x
     (bw + 2 R_in)`` (``R_in`` = radius, + 1 with NMS):
 
       * the ring: ``depth`` slots, each the larger of the two copy routes'
@@ -218,7 +235,7 @@ def pipelined_smem_bytes(bh: int, bw: int, radius: int, depth: int, in_bytes: in
     off = _align16(off + 4 * eh * ew)
     off = _align16(off + 4 * pre_plane_words(bh, bw, fused, nms))
     off = _align16(off + 2 * (K2_MAX_THREADS // 32) * 4 + depth * 8)
-    return off + 128
+    return dict(eh=eh, ew=ew, slots=depth, barriers=depth, total=off + 128)
 
 
 def pipelined_bands(bh: int, bw: int, nms: bool, size: int = 5) -> list:

@@ -965,3 +965,147 @@ def test_sharded_facade_on_logical_devices(cuda_device, spec, kind, config):
         assert (a is None) == (b is None) == (c is None), field
         if a is not None:
             assert a.device.type == "cuda" and torch.equal(a, b) and torch.equal(a, c), field
+
+
+# --- The contract analyzer's card half (repro_torch.analysis) ---------------
+#
+# The tests that profile come first and profile in quick succession, the
+# compiled code read before: on the H100 the profiler returns short windows
+# without their device records once its process profiled and then went
+# ~30 s without (tools/profiler_idle.py; the analyzer's own device programs
+# run in a child process for that).
+
+ROOT_BASELINE = __import__("pathlib").Path(__file__).resolve().parents[1] / \
+    "analysis_baseline_torch.json"
+
+
+@pytest.fixture(scope="module")
+def static_smem():
+    """Each K1-K3 instance's static shared memory, read from the compiled
+    code before any test of this section profiles."""
+    from repro_torch.analysis import device
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    progs = device.compiled_programs()
+    return {k: v for prog in progs.values() for k, v in prog.static_smem.items()}
+
+
+def _profiled_kernels(fn):
+    from repro_torch.analysis import device
+    from repro_torch.kernels import build
+
+    fn()
+    torch.cuda.synchronize()
+    return device.profile_call(fn, build.BUILD_DIR / "analysis")
+
+
+@pytest.mark.parametrize("which", ("k1", "k1-nms", "k2", "k3"))
+def test_fuse003_one_kernel_per_wrapper_call(cuda_device, static_smem, which):
+    """One wrapper call is exactly one edge kernel on the device: no pad,
+    copy or memset beside it, and its dynamic shared memory is the
+    allocation model's."""
+    from repro_torch.analysis import check_device_program, device
+
+    spec = get_operator("sobel5")
+    x = _frames("u8", (2, 237, 413), cuda_device)
+    kw = dict(spec=spec, variant="v2", directions=4, block_h=32, block_w=64)
+    if which == "k3":
+        n, h, w = x.shape
+        gh, gw = -(-h // 32), -(-w // 64)
+        prev = torch.zeros((n, h, w), device=cuda_device)
+        bmax = torch.zeros((n, gh, gw), device=cuda_device)
+        mask = torch.ones((n, gh, gw), dtype=torch.int32, device=cuda_device)
+        acts = _profiled_kernels(lambda: ekern.edge_stream_cuda(x, prev, bmax, mask, **kw))
+        kernel, smem = "stream_kernel", ekern.launch_smem_bytes(32, 64, 2)
+    elif which == "k2":
+        acts = _profiled_kernels(lambda: ekern.edge_pipelined_cuda(x, pipeline_depth=2, **kw))
+        kernel, smem = "pipelined_kernel", ekern.pipelined_smem_bytes(32, 64, 2, 2, 1, 1, False)
+    else:
+        nms = which == "k1-nms"
+        acts = _profiled_kernels(lambda: ekern.edge_cuda(x, out_nms=nms, with_max=True, **kw))
+        kernel, smem = "edge_kernel", ekern.launch_smem_bytes(32, 64, 2, nms)
+    assert check_device_program([a["name"] for a in acts], location=which, kernel=kernel) == []
+    assert len(acts) == 1, acts
+    assert acts[0]["smem"] - static_smem[device.instance_key(acts[0]["name"])] == smem
+
+
+def test_analyzer_cuda_sweep_is_clean(cuda_device):
+    """The fast sweep on both lanes, every card half run: no new violation
+    against the committed baseline, no rule left unrun, K1-K3 launched."""
+    from repro_torch.analysis import analyze, load_baseline
+
+    launches = (ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches,
+                ekern.edge_stream_cuda.launches)
+    report = analyze(backends=("torch", "cuda"))
+    report.apply_baseline(load_baseline(str(ROOT_BASELINE)))
+    assert report.ok, report.render()
+    assert report.meta["not_run"] == {}
+    assert all(now > then for now, then in zip(
+        (ekern.edge_cuda.launches, ekern.edge_pipelined_cuda.launches,
+         ekern.edge_stream_cuda.launches), launches))
+    assert all(row["fma.rn.f32"] == 0 for row in report.meta["instances"].values())
+
+
+def test_listings_hold_every_instance_the_wrappers_launch(cuda_device):
+    """The SASS, PTX and resource-usage parsers find all 84 K1-K3 instances
+    (``compiled_program`` raises on a missing one); each K2 instance has
+    its ring's copies and try-waits; no instance has ``fma.rn.f32``."""
+    from repro_torch.analysis import device
+
+    progs = device.compiled_programs()
+    found = set()
+    for lib, prog in progs.items():
+        assert prog.functions["sass"] >= len(prog.sass) and prog.functions["ptx"] >= len(prog.ptx)
+        found |= set(prog.sass) & set(prog.ptx) & set(prog.static_smem)
+        for key, ops in prog.sass.items():
+            assert "fma.rn.f32" not in prog.ptx[key], key
+            if lib == "edge_pipelined":
+                copies, waits = device.sass_ring_sites(ops)
+                assert copies > 0 and waits > 0, (key, copies, waits)
+    assert found >= {i.key for i in device.launchable_instances()}
+
+
+@pytest.mark.parametrize("nms", (False, True))
+@pytest.mark.parametrize("op", ("sobel3", "sobel5", "sobel7", "sep9"))
+@pytest.mark.parametrize("which", ("k1", "k2", "k3"))
+def test_impulse_probe_measures_window_radius(cuda_device, which, op, nms):
+    """HALO001 on the card: impulses at 0..R+1 rows and columns from a tile
+    border move K1's, K2's and K3's output exactly ``window_radius`` away."""
+    from repro_torch.analysis import impulse_reach
+    from repro_torch.kernels.tiling import window_radius
+
+    spec = get_operator(op)
+    kw = dict(spec=spec, variant=spec.resolve_variant("auto"), directions=max(spec.directions),
+              block_h=16, block_w=32)
+
+    def fn(xb):
+        if which == "k3":
+            n, h, w = xb.shape
+            gh, gw = -(-h // 16), -(-w // 32)
+            return ekern.edge_stream_cuda(
+                xb, torch.zeros((n, h, w), device=cuda_device),
+                torch.zeros((n, gh, gw), device=cuda_device),
+                torch.ones((n, gh, gw), dtype=torch.int32, device=cuda_device),
+                out_nms=nms, **kw)[0]
+        return ekern.edge_cuda(xb, out_nms=nms, pipeline_depth=2 if which == "k2" else 0, **kw)
+
+    r = window_radius(spec.radius, nms)
+    assert impulse_reach(fn, (80, 128), border=(32, 64), offsets=r + 2,
+                         device=cuda_device) == (r, r)
+
+
+def test_fig7_ssim_on_the_card(cuda_device):
+    """Fig. 7: K1's unnormalized magnitude against the dense oracle on the
+    plain lane, SSIM > 0.999999 for each ladder variant."""
+    from repro_torch.core.ssim import ssim
+    from repro_torch.kernels.ref import sobel_ref
+
+    x = _frames("f32", (2, 512, 640), cuda_device)
+    ref = sobel_ref(x)
+    for variant in ("separable", "v1", "v2"):
+        launches = ekern.edge_cuda.launches
+        mag = edge_detect(x, EdgeConfig(variant=variant, normalize=False, block_h=64,
+                                        block_w=128)).magnitude
+        assert ekern.edge_cuda.launches == launches + 1
+        assert float(ssim(mag, ref).mean()) > 0.999999, variant

@@ -44,7 +44,8 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.serve.engine, repro_torch.configs.llama3_2_1b, "
         "repro_torch.configs.olmo_1b, repro_torch.configs.glm4_9b, "
         "repro_torch.kernels.selective_scan, repro_torch.models.ssm, "
-        "repro_torch.configs.falcon_mamba_7b; "
+        "repro_torch.configs.falcon_mamba_7b, repro_torch.analysis, repro_torch.analysis.device, "
+        "repro_torch.analysis.__main__, repro_torch.core.ssim, repro_torch.kernels.ref; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
