@@ -150,8 +150,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    operations plus each pre-stage's, ``plan_pre_ops``), with
    ``blur_sobel5``'s yardstick one cuDNN ``F.conv2d`` of the composed 9x9
    bank (components only, used nowhere in the port). K4 joins it: CUDA-event
-   medians at (1, 32, 2048, 64) causal f32 and at the LM server's prefill
-   shapes (1, 32, S in 8/16/32/64, 64), in turns with
+   medians at (1, 32, 2048, 64) causal f32, at the LM server's prefill
+   shapes (1, 32, S in 8/16/32/64, 64) and at minicpm3-4b's MLA shape
+   (1, 40, 2048, 96) with v of 64 (K4 on v zero-padded to 96, the
+   yardstick on the 64-wide v), in turns with
    ``F.scaled_dot_product_attention(is_causal=True)`` (the yardstick, used
    nowhere in the port; library, kernel, kernel, library), beside its plain
    version and its bound (``flash_bound``: the 3xTF32 products at the
@@ -167,7 +169,10 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    f32 and bf16, causal and not, on the reference test's four shapes,
    ragged lengths 1-200 at head dims 64 and 128, the server's prefill shapes
    and (1, 32, 2048, 64): f32 within 2e-5 (abs + rel), bf16 within one
-   ulp of the output plus 2e-5.
+   ulp of the output plus 2e-5. MLA's prefill shapes (1, 40, S, 96), S in
+   8/16/32/64/2048, causal f32, v of 64 zero-padded to 96 as
+   ``models/attention.py`` pads it: within 2e-5 of the plain version on the
+   padded and on the 64-wide v, the 32 padded output columns exactly 0.
 7. This slice's main path: the LM server, ``repro_torch.launch.serve
    --arch llama3.2-1b --requests 16 --slots 4 --max-new 16``, FULL width
    and depth in f32, counts set to 0 just before and read just after: K4
@@ -175,11 +180,12 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    launch. The same requests on the same weights then run through the
    plain lane on the card: the engine's padded prefills' logits must agree
    within ``LOGIT_TOL``, and the greedy tokens must be equal except where
-   the plain lane's top-2 logit gap is below it (the count is printed).
-   One engine prefill round and one decode step run under the profiler.
-7b. ``Model.prefill`` at FULL width on prompts of 2,048 and 1,000 tokens:
-   16 K4 launches each, logits within ``LOGIT_TOL`` of the plain lane.
-   The llama weights are freed after it.
+   the plain lane's top-2 logit gap is below it (the count is printed;
+   ``lane_replay``). One engine prefill round and one decode step run
+   under the profiler (``profile_engine``).
+7b. ``Model.prefill`` at FULL width on prompts of 2,048 and 1,000 tokens
+   (``long_prefill``): 16 K4 launches each, logits within ``LOGIT_TOL`` of
+   the plain lane. The llama weights are freed after it.
 8. Holds K5 (``selective_scan``) to ``selective_scan_plain`` on the card,
    both outputs (y and the final state), f32 and bf16: the reference
    test's shapes and blocks, ragged d_inner (24, 200) x N (1, 4, 16) x L
@@ -217,7 +223,42 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    oracle ``kernels/ref.sobel_ref`` on the plain lane exceeds 0.999999 for
    the ``separable``, ``v1`` and ``v2`` variants.
 
-Phases 6-9b run after 4d, then phase 5, then 10 and 10b. The last line is
+11. The moe slice's main path: ``repro_torch.serve.Engine`` on
+   qwen3-moe-30b-a3b at FULL width and 24 of its 48 layers in f32
+   (15,577,227,264 parameters, 62.3 GB, drawn on the card from seed 0; the
+   whole model's 122.1 GB do not fit one 80 GB card), 4 slots, the
+   reference server's 16 prompts, 16 new tokens, counts set to 0 just
+   before and read just after: K4 must launch 24 x 16 = 384 times and
+   nothing else may launch. Prints tok/s, prefill and decode-step p50. The
+   same weights then run ``lane_replay``, which compares a moe model's
+   lanes layer by layer (``layer_local``): at random weights its gates
+   carry a last-bit difference from layer to layer, so free-running lanes
+   part as far as the plain lane parts from itself with its embeddings
+   moved by one ulp. Each block runs on both lanes from the plain lane's
+   input: K4's attention output within ``ATTN_TOL``, the router logits
+   within ``ROUTER_TOL``, the expert sets apart only where the plain lane's
+   margin between its k-th and (k+1)-th router logit is at most
+   ``ROUTE_MARGIN`` (2) times the lanes' router-logit difference at that
+   layer (the parts are counted), and the last
+   layer's logits within ``LOGIT_TOL`` (a prompt whose last layer parted is
+   exempt, and counted). Greedy tokens must be equal except where the
+   plain lane's top-2 gap is below ``LOGIT_TOL`` plus the one-ulp control's
+   logit difference there. Then one profiled decode step with the device's
+   idle share.
+11b. ``long_prefill`` on those weights: 24 K4 launches a prompt. The
+   weights are freed.
+11c. phi3.5-moe-42b-a6.6b at FULL width and 8 of its 32 layers in f32
+   (10,665,205,760 parameters, 42.7 GB; the whole is 167.5 GB):
+   ``long_prefill``, 8 K4 launches a prompt (top-2 of 16 experts,
+   layernorm). The weights are freed.
+12. The MLA slice's main path: the LM server, ``repro_torch.launch.serve
+   --arch minicpm3-4b --requests 16 --slots 4 --max-new 16``, FULL width
+   and depth in f32 (4,261,902,848 parameters, 17.0 GB), counts set to 0
+   just before and read just after: K4 must launch 62 x 16 = 992 times
+   and nothing else may launch; then ``lane_replay``, ``profile_engine``
+   and ``long_prefill`` (62 K4 launches a prompt) on the same weights.
+
+Phases 6-9b run after 4d, then 11-12, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -1736,11 +1777,34 @@ K4_CASES = (
     + [((1, 32, 2048, 2048, 64), (128, 128))]
 )
 K4_TOL = 2e-5            # f32: tests/test_kernels.py's atol and rtol
+# minicpm3-4b's MLA prefill as K4 sees it: 40 heads, q and k of 64 nope + 32
+# rope dims, v of 64 zero-padded to 96; the server's buckets and 2,048.
+MLA_HEADS, MLA_QK, MLA_V = 40, 96, 64
+MLA_K4_S = (8, 16, 32, 64, 2048)
 # Logits of the f32 model, K4 lane against the plain lane on the card: the
 # attention outputs differ by rounding (~1e-6), which 16 layers of f32
 # products carry to the logits far below this.
 LOGIT_TOL = 1e-3
+LM_REQUESTS, LM_SLOTS, LM_NEW = 16, 4, 16     # the reference server's defaults
 LM_ARGS = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4", "--max-new", "16"]
+# A moe model's lanes are compared layer by layer (``layer_local``): at
+# random weights its gates amplify the lanes' last-bit differences from
+# layer to layer, so two free-running lanes part as far as the plain lane
+# parts from itself with its embeddings moved by one ulp
+# (tools/moe_lane_divergence.py prints both, layer by layer).
+# ATTN_TOL: the K4 lane's attention output against the plain lane's on the
+# same input, relative to its largest value; a layout, head-mapping, mask
+# or padding fault moves it by O(1), while the random weights' scores (of
+# order 10^3 in phi3.5-moe) amplify the kernels' rounding to ~1e-4.
+ATTN_TOL = 1e-3
+# ROUTER_TOL: the lanes' router logits on the same input, relative to the
+# plain lane's router-logit standard deviation at that layer.
+ROUTER_TOL = 1e-3
+# ROUTE_MARGIN: where the lanes' router logits differ by at most d, rounding
+# can part their expert sets only where the plain lane's margin between its
+# k-th and (k+1)-th logit is at most 2 d; a part at a larger margin is a
+# fault. The bound is ROUTE_MARGIN x d, d measured at each layer.
+ROUTE_MARGIN = 2.0
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1786,11 +1850,35 @@ def phase_k4_vs_plain(dev):
                     bad += 1
                     print(f"  MISMATCH K4 {shape} {dtype} causal={causal}: max abs err "
                           f"{float(diff.max())}")
+    # MLA's prefill (minicpm3-4b: 40 heads, q and k of 64 + 32 dims, v of 64
+    # zero-padded to 96 as models/attention.py pads it), causal f32: within
+    # K4_TOL of the plain version on the padded v and on the 64-wide v, and
+    # the 32 padded output columns exactly 0.
+    mla_bad, worst_mla = 0, 0.0
+    for s in MLA_K4_S:
+        q, k, v = attention_inputs((1, MLA_HEADS, s, s, MLA_QK), torch.float32, dev, seed=s)
+        v = v[..., :MLA_V]
+        got = flash_attention(q, k, F.pad(v, (0, MLA_QK - MLA_V)), causal=True, block_q=s,
+                              block_kv=s)
+        pad_zero = torch.count_nonzero(got[..., MLA_V:]) == 0
+        for want in (flash_attention_plain(q, k, F.pad(v, (0, MLA_QK - MLA_V)))[..., :MLA_V],
+                     flash_attention_plain(q, k, v)):
+            diff = (got[..., :MLA_V] - want).abs()
+            worst_mla = max(worst_mla, float(diff.max()))
+            if not (bool((diff <= K4_TOL + K4_TOL * want.abs()).all()) and pad_zero
+                    and bool(torch.isfinite(got).all())):
+                mla_bad += 1
+                print(f"  MISMATCH K4 MLA (1, {MLA_HEADS}, {s}, {MLA_QK}) v {MLA_V}: max abs err "
+                      f"{float(diff.max())}, padded columns zero: {bool(pad_zero)}")
     torch.cuda.synchronize()
     print(f"K4 vs plain: {cases} cases, {bad} outside tolerance; worst f32 abs err "
           f"{worst_f32:.3g} (tolerance {K4_TOL} abs + rel); worst bf16 abs err {worst_bf16:.3g}, "
-          f"{worst_ulps:.3g} ulp of the output (tolerance 1 ulp + {K4_TOL})")
+          f"{worst_ulps:.3g} ulp of the output (tolerance 1 ulp + {K4_TOL}); MLA shapes "
+          f"(1, {MLA_HEADS}, S, {MLA_QK}), S in {MLA_K4_S}, v {MLA_V} zero-padded: "
+          f"{2 * len(MLA_K4_S)} comparisons, {mla_bad} outside tolerance, worst abs err "
+          f"{worst_mla:.3g}, padded output columns exactly 0 in every case: {mla_bad == 0}")
     check(bad == 0, f"K4 differs from flash_attention_plain in {bad} of {cases} cases")
+    check(mla_bad == 0, f"K4 with MLA's padded v differs in {mla_bad} comparisons")
     return main_err
 
 
@@ -1804,194 +1892,378 @@ def replay_prompts(vocab: int, n: int):
     return prompts
 
 
-def plain_logits_gap(model, params, prompt, outputs, step, dev):
-    """Teacher-forced greedy decode of one request on the plain lane (batch
-    1): the logits at ``step`` after feeding ``outputs[:step]``. Returns the
-    plain lane's top-2 gap there and how far ``outputs[step]`` lies below
-    its top logit."""
-    cache = model.init_cache(1, len(prompt) + step + 1, dtype=torch.float32, device=dev)
-    if len(prompt) > 1:
+def padded_batch(ctx, dev, trash=None):
+    """The engine's bucket-padded prefill batch of one context: tokens
+    right-padded to their bucket, pad tokens' cache destinations at
+    ``trash`` (default: the bucket length). Returns (batch, bucket)."""
+    from repro_torch.launch.serve import LM_BUCKETS
+    from repro_torch.serve.engine import _bucket
+
+    b = _bucket(len(ctx), LM_BUCKETS)
+    toks = torch.zeros((1, b), dtype=torch.int32, device=dev)
+    toks[0, :len(ctx)] = torch.tensor(ctx)
+    pos = torch.arange(b, dtype=torch.int32, device=dev)[None]
+    trash = b if trash is None else trash
+    return {"tokens": toks, "positions": pos,
+            "cache_positions": torch.where(pos < len(ctx), pos, trash)}, b
+
+
+def top2_gap(logits: torch.Tensor, token: int):
+    """The gap between the two largest of ``logits`` and how far ``token``'s
+    logit lies below the largest."""
+    top2 = torch.topk(logits, 2).values
+    return float(top2[0] - top2[1]), float(top2[0] - logits[token])
+
+
+def ulp_params(params):
+    """The weights with the embedding table moved by one ulp (x (1 + 2^-23)):
+    the plain lane on them is the control that shows how far the model's
+    own rounding carries a last-bit difference."""
+    emb = params["embed"]["embedding"] * (1 + 2.0 ** -23)
+    return dict(params, embed=dict(params["embed"], embedding=emb))
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def layer_local(cfg, params, batch) -> dict:
+    """A moe model's two lanes layer by layer, each block run on both lanes
+    from the plain lane's hidden state (the prefill's attention and MoE;
+    the cache is only written there): the K4 lane's attention output within
+    ``ATTN_TOL`` of the plain lane's, router logits within ``ROUTER_TOL``
+    (relative), expert sets apart only where the plain lane's margin
+    between its k-th and (k+1)-th router logit is at most ``ROUTE_MARGIN``
+    times the lanes' router-logit difference, and the last layer's logits
+    (final norm and head on each lane's last block) within ``LOGIT_TOL``
+    unless the last layer's experts parted. Returns the worst of each and the parts."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.models.layers import apply_norm, torch_dtype
+    from repro_torch.models.moe import record_routing
+
+    k = cfg.num_experts_per_tok
+    x, pos = T._prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
+    out = dict(attn_err=0.0, router_err=0.0, parts=0, last_parted=False,
+               min_margin=float("inf"), logit_err=0.0)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        xn = apply_norm(lp["ln1"], cfg, x)
+        attn, y, logs = {}, {}, {}
+        for backend in ("torch", "auto"):
+            attn[backend], _ = apply_attention(lp["attn"], cfg, xn, pos, backend=backend)
+            with record_routing() as logs[backend]:
+                y[backend], _, _ = T._apply_attn_block(lp, cfg, x, pos, backend=backend)
+        (lg_p, idx_p), (lg_k, idx_k) = logs["torch"][0], logs["auto"][0]
+        d = float((lg_k - lg_p).abs().max())
+        top = torch.topk(lg_p, k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
+        parted = (idx_p.sort(dim=-1).values != idx_k.sort(dim=-1).values).any(dim=-1)
+        attn_err, router_err = max_rel(attn["auto"], attn["torch"]), d / float(lg_p.std())
+        check(attn_err <= ATTN_TOL, f"layer {i}: K4's attention output differs from the plain "
+                                    f"lane's by {attn_err:.3g} of its largest value > {ATTN_TOL}")
+        check(router_err <= ROUTER_TOL, f"layer {i}: the lanes' router logits differ by "
+                                        f"{router_err:.3g} of their deviation > {ROUTER_TOL}")
+        check(not bool((parted & (margin > ROUTE_MARGIN * d)).any()),
+              f"layer {i}: the lanes route apart where the plain lane's router margin exceeds "
+              f"{ROUTE_MARGIN} x their router-logit difference {d:.3g}")
+        out["attn_err"] = max(out["attn_err"], attn_err)
+        out["router_err"] = max(out["router_err"], router_err)
+        out["min_margin"] = min(out["min_margin"], float(margin.min()))
+        out["parts"] += int(parted.sum())
+        out["last_parted"] = bool(parted.any())
+        x = y["torch"]
+    logits = {b: T.unembed(params, cfg, apply_norm(params["final_norm"], cfg, y[b][:, -1:]))
+              for b in y}
+    check(bool(torch.isfinite(logits["auto"]).all()), "non-finite logits")
+    out["logit_err"] = float((logits["auto"] - logits["torch"]).abs().max())
+    check(out["last_parted"] or out["logit_err"] <= LOGIT_TOL,
+          f"the last layer's logits differ by {out['logit_err']} > {LOGIT_TOL}")
+    return out
+
+
+def replay_logits(cfg, params, prompt, outputs, step, backend, dev):
+    """Teacher-forced greedy decode of one request on one lane (batch 1):
+    the logits at ``step`` after feeding ``outputs[:step]``. The context is
+    prefilled as the engine does: bucket-padded with the pad tokens aimed at
+    a trash slot, or, for an ssm model, as it is."""
+    from repro_torch.models import Model
+
+    model = Model(cfg, backend=backend)
+    n = len(prompt) - 1
+    length = len(prompt) + step + 1              # the last position is the trash slot
+    cache = model.init_cache(1, length, dtype=torch.float32, device=dev)
+    if n and cfg.family == "ssm":
         model.prefill(params, {"tokens": torch.tensor([prompt[:-1]], device=dev)}, cache)
-    feed = [prompt[-1]] + list(outputs[:step])
-    for j, tok in enumerate(feed):
-        logits, cache = model.decode_step(params, cache, torch.tensor([[tok]], device=dev),
-                                          len(prompt) - 1 + j)
-    top2 = torch.topk(logits[0, 0], 2).values
-    return float(top2[0] - top2[1]), float(top2[0] - logits[0, 0, outputs[step]])
+    elif n:
+        model.prefill(params, padded_batch(prompt[:-1], dev, trash=length - 1)[0], cache)
+    for j, tok in enumerate([prompt[-1]] + list(outputs[:step])):
+        logits, cache = model.decode_step(params, cache, torch.tensor([[tok]], device=dev), n + j)
+    return logits[0, 0]
 
 
-def phase_lm_server(dev):
-    """Phase 7, this slice's main path: the LM server at FULL llama3.2-1b
-    width and depth, f32, through repro_torch.launch.serve; counts set to 0
-    just before and read just after. Then the same requests on the same
-    weights through the plain lane on the card: the engine's padded
-    prefills' logits within LOGIT_TOL, and the greedy tokens equal except
-    where the plain lane's top-2 gap is below LOGIT_TOL."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+def lane_replay(cfg, params, done, dev) -> dict:
+    """The served requests (kernel lane) against the plain lane on the card,
+    on the same weights. Every prompt's engine prefill (bucket-padded): a
+    dense model's logits within ``LOGIT_TOL`` on both lanes; a moe model's
+    blocks by ``layer_local`` (prompts whose last layer routed apart are
+    exempt from its logit check, and counted). Then the requests replayed
+    through a plain-lane ``Engine``: greedy tokens equal except where the
+    plain lane's top-2 gap is below ``LOGIT_TOL``; for a moe model, below
+    ``LOGIT_TOL`` plus how far the plain lane's logits move there when its
+    embeddings move by one ulp (``ulp_params``: the model's own rounding
+    noise at that token)."""
     from repro_torch.launch.serve import LM_BUCKETS
     from repro_torch.models import Model
     from repro_torch.serve import Engine, Request
-    from repro_torch.serve.engine import _bucket
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    reset_counts()
-    stats = serve.main(LM_ARGS)
-    counts = read_counts()
-    cfg = get_config("llama3.2-1b").replace(dtype="float32")
-    n_req, n_new = 16, 16
-    check(counts["k4"] == cfg.num_layers * n_req and stats["k4_launches"] == counts["k4"],
-          f"the LM server launched K4 {counts['k4']} times, not {cfg.num_layers} x {n_req}")
-    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"the LM server launched {counts}")
-    done = sorted(stats["requests"], key=lambda r: r.uid)
-    check(len(done) == n_req and all(len(r.output) == n_new for r in done),
-          "the LM server did not serve every request to --max-new")
-    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
-    print(f"LM server {cfg.name}: {stats['param_count']:,} params; {stats['tok_s']:.1f} tok/s "
-          f"({stats['tokens']} tokens in {stats['seconds']:.3f} s); prefill p50 "
-          f"{stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}); decode step p50 "
-          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K4 launches {counts['k4']}")
-
-    params = stats["params"]
-    prompts = replay_prompts(cfg.vocab_size, n_req)
-    check([r.prompt for r in done] == prompts, "the server's prompts are not the replay's")
-    # The engine's padded prefill of every prompt, both lanes.
-    worst = 0.0
-    for prompt in prompts:
-        ctx = prompt[:-1]
-        b = _bucket(len(ctx), LM_BUCKETS)
-        toks = torch.zeros((1, b), dtype=torch.int32, device=dev)
-        toks[0, :len(ctx)] = torch.tensor(ctx)
-        pos = torch.arange(b, dtype=torch.int32, device=dev)[None]
-        batch = {"tokens": toks, "positions": pos,
-                 "cache_positions": torch.where(pos < len(ctx), pos, b)}
+    moe = cfg.family == "moe"
+    worst, local = 0.0, []
+    for r in done:
+        batch, b = padded_batch(r.prompt[:-1], dev)
+        if moe:
+            local.append(layer_local(cfg, params, batch))
+            continue
         lane = {}
         for backend in ("auto", "torch"):
             cache = Model(cfg).init_cache(1, b + 1, dtype=torch.float32, device=dev)
             lane[backend], _ = Model(cfg, backend=backend).prefill(params, batch, cache)
         check(bool(torch.isfinite(lane["auto"]).all()), "non-finite prefill logits")
         worst = max(worst, float((lane["auto"] - lane["torch"]).abs().max()))
+    exempt = sum(lo["last_parted"] for lo in local)
+    if moe:
+        worst = max([lo["logit_err"] for lo in local if not lo["last_parted"]], default=0.0)
     check(worst <= LOGIT_TOL, f"prefill logits differ by {worst} > {LOGIT_TOL}")
 
-    eng = Engine(cfg, params, max_batch=4, max_len=256, prompt_buckets=LM_BUCKETS,
+    eng = Engine(cfg, params, max_batch=LM_SLOTS, max_len=256, prompt_buckets=LM_BUCKETS,
                  backend="torch")
-    for uid, prompt in enumerate(prompts):
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
+    for r in done:
+        eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=len(r.output)))
     before = read_counts()["k4"]
     plain = {r.uid: r.output for r in eng.run()}
     check(read_counts()["k4"] == before, "the plain replay launched K4")
-    plain_model = Model(cfg, backend="torch")
-    ties = 0
+    ties, noise = 0, 0.0
     for r in done:
         want = plain[r.uid]
         if r.output == want:
             continue
         step = next(i for i, (a, b) in enumerate(zip(r.output, want)) if a != b)
-        gap, below = plain_logits_gap(plain_model, params, r.prompt, r.output, step, dev)
-        check(gap < LOGIT_TOL and below < LOGIT_TOL,
+        lg = replay_logits(cfg, params, r.prompt, r.output, step, "torch", dev)
+        gap, below = top2_gap(lg, r.output[step])
+        tol = LOGIT_TOL
+        if moe:
+            lc = replay_logits(cfg, ulp_params(params), r.prompt, r.output, step, "torch", dev)
+            tol += float((lc - lg).abs().max())
+            noise = max(noise, tol - LOGIT_TOL)
+        check(gap < tol and below < tol,
               f"request {r.uid} step {step}: token {r.output[step]} (plain {want[step]}) with "
-              f"the plain lane's top-2 gap {gap} and the token {below} below its top")
+              f"the plain lane's top-2 gap {gap} and the token {below} below its top "
+              f"(tolerance {tol})")
         ties += 1
-    print(f"  plain-lane replay on the card: prefill logits within {worst:.3g} (tolerance "
-          f"{LOGIT_TOL}); tokens equal in {n_req - ties} of {n_req} requests, {ties} near "
-          f"ties (top-2 gap < {LOGIT_TOL})")
+    n = len(done)
+    out = dict(logit_err=worst, near_ties=ties)
+    if moe:
+        out.update(route_exempt=exempt, route_parts=sum(lo["parts"] for lo in local),
+                   route_min_margin=min(lo["min_margin"] for lo in local),
+                   attn_err=max(lo["attn_err"] for lo in local),
+                   router_err=max(lo["router_err"] for lo in local), tie_noise=noise)
+        print(f"  plain-lane replay on the card, layer by layer (each block on both lanes from "
+              f"the plain lane's input): attention within {out['attn_err']:.3g} of its largest "
+              f"value (tolerance {ATTN_TOL}), router logits within {out['router_err']:.3g} of "
+              f"their deviation (tolerance {ROUTER_TOL}); experts parted at "
+              f"{out['route_parts']} (token, layer) pairs, each at a margin within "
+              f"{ROUTE_MARGIN} x the router-logit difference; least router margin "
+              f"{out['route_min_margin']:.3g}; last-layer logits within {worst:.3g} (tolerance "
+              f"{LOGIT_TOL}) in {n - exempt} of {n} prompts, {exempt} exempt (the last layer's "
+              f"experts parted)")
+    else:
+        print(f"  plain-lane replay on the card: prefill logits within {worst:.3g} (tolerance "
+              f"{LOGIT_TOL})")
+    print(f"  tokens equal in {n - ties} of {n} requests, {ties} near ties (top-2 gap < "
+          f"{LOGIT_TOL}{' + the one-ulp control' if moe else ''})")
+    return out
 
-    # Where a prefill and a decode step go: four prompts admitted into a
-    # fresh engine (four prefills), then one decode step of its four slots.
-    eng = Engine(cfg, params, max_batch=4, max_len=256, prompt_buckets=LM_BUCKETS)
-    for uid, prompt in enumerate(prompts[:4]):
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
-    device_profile("four engine prefills (K4 lane)", eng._admit, top=8, kernel="flash_kernel")
+
+def profile_engine(cfg, params, prompts, label: str) -> dict:
+    """Four prompts admitted into a fresh engine (four prefills) and then
+    one decode step of its four slots, each under the profiler: device time
+    by kernel, K4's share of the prefills' and the decode step's idle
+    share."""
+    from repro_torch.launch.serve import LM_BUCKETS
+    from repro_torch.serve import Engine, Request
+
+    eng = Engine(cfg, params, max_batch=LM_SLOTS, max_len=256, prompt_buckets=LM_BUCKETS)
+    for uid, prompt in enumerate(prompts[:LM_SLOTS]):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=LM_NEW))
+    _, _, k4_us = device_profile(f"four engine prefills (K4 lane), {label}", eng._admit, top=8,
+                                 kernel="flash_kernel")
     eng._decode_once()
-    device_profile("one engine decode step, 4 slots", eng._decode_once, top=8,
-                   kernel="flash_kernel")
-    return dict(stats, k4=counts["k4"], logit_err=worst, near_ties=ties)
+    busy, span, _ = device_profile(f"one engine decode step, 4 slots, {label}",
+                                   eng._decode_once, top=8)
+    return dict(k4_profile_us=k4_us, decode_idle=1 - busy / span)
 
 
-def phase_long_prefill(dev, params):
-    """Phase 7b: Model.prefill at FULL llama3.2-1b width with one prompt of
-    2,048 tokens and one of 1,000, K4 lane against the plain lane."""
+def phase_lm_server(dev):
+    """Phase 7, the dense slice's main path: the LM server at FULL
+    llama3.2-1b width and depth, f32, through repro_torch.launch.serve;
+    counts set to 0 just before and read just after. Then the same requests
+    on the same weights through the plain lane on the card
+    (``lane_replay``)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    stats = serve.main(LM_ARGS)
+    counts = read_counts()
+    cfg = get_config("llama3.2-1b").replace(dtype="float32")
+    check(counts["k4"] == cfg.num_layers * LM_REQUESTS and stats["k4_launches"] == counts["k4"],
+          f"the LM server launched K4 {counts['k4']} times, not {cfg.num_layers} x "
+          f"{LM_REQUESTS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"the LM server launched {counts}")
+    done = sorted(stats["requests"], key=lambda r: r.uid)
+    check(len(done) == LM_REQUESTS and all(len(r.output) == LM_NEW for r in done),
+          "the LM server did not serve every request to --max-new")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    print(f"LM server {cfg.name}: {stats['param_count']:,} params; {stats['tok_s']:.1f} tok/s "
+          f"({stats['tokens']} tokens in {stats['seconds']:.3f} s); prefill p50 "
+          f"{stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K4 launches {counts['k4']}")
+    prompts = replay_prompts(cfg.vocab_size, LM_REQUESTS)
+    check([r.prompt for r in done] == prompts, "the server's prompts are not the replay's")
+    lanes = lane_replay(cfg, stats["params"], done, dev)
+    prof = profile_engine(cfg, stats["params"], prompts, cfg.name)
+    return dict(stats, k4=counts["k4"], **lanes, **prof)
+
+
+def long_prefill(cfg, params, dev) -> int:
+    """``Model.prefill`` of one prompt of 2,048 random tokens and one of
+    1,000 (``default_rng(7)``) on both lanes, counts set to 0 before each:
+    the kernel lane launches K4 once a layer and nothing else, the plain
+    lane nothing; logits within ``LOGIT_TOL`` (a moe model: ``layer_local``,
+    and the free-running lanes' difference printed beside the one-ulp
+    control's). Prints each lane's seconds. Returns the K4 launches."""
     from repro_torch.models import Model
 
-    cfg = get_config("llama3.2-1b").replace(dtype="float32")
     rng = np.random.default_rng(7)
     launches = 0
     for n in (2048, 1000):
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
-        lane = {}
+        lane, secs = {}, {}
         for backend in ("auto", "torch"):
             cache = Model(cfg).init_cache(1, n, dtype=torch.float32, device=dev)
             reset_counts()
-            lane[backend], cache = Model(cfg, backend=backend).prefill(params, {"tokens": tokens},
-                                                                       cache)
-            k4 = read_counts()["k4"]
-            check(k4 == (cfg.num_layers if backend == "auto" else 0),
-                  f"prefill of {n} tokens ({backend}) launched K4 {k4} times")
+            t0 = time.perf_counter()
+            lane[backend], _ = Model(cfg, backend=backend).prefill(params, {"tokens": tokens},
+                                                                   cache)
+            torch.cuda.synchronize()
+            secs[backend] = time.perf_counter() - t0
+            counts = read_counts()
+            k4 = counts["k4"]
+            check(k4 == (cfg.num_layers if backend == "auto" else 0)
+                  and all(counts[k] == 0 for k in COUNTS if k != "k4"),
+                  f"prefill of {n} tokens ({backend}) launched {counts}")
             launches += k4
         err = float((lane["auto"] - lane["torch"]).abs().max())
         check(bool(torch.isfinite(lane["auto"]).all()), f"non-finite logits at {n} tokens")
-        check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
-        print(f"long prefill {n} tokens: K4 lane within {err:.3g} of the plain lane "
-              f"(tolerance {LOGIT_TOL}); K4 launches {cfg.num_layers}")
+        if cfg.family == "moe":
+            cache = Model(cfg).init_cache(1, n, dtype=torch.float32, device=dev)
+            ctrl, _ = Model(cfg, backend="torch").prefill(ulp_params(params), {"tokens": tokens},
+                                                          cache)
+            lo = layer_local(cfg, params, {"tokens": tokens})
+            line = (f"layer by layer: attention within {lo['attn_err']:.3g} (tolerance "
+                    f"{ATTN_TOL}), router logits within {lo['router_err']:.3g} (tolerance "
+                    f"{ROUTER_TOL}), experts parted at {lo['parts']} (token, layer) pairs "
+                    f"(least margin {lo['min_margin']:.3g}), last-layer logits within "
+                    f"{lo['logit_err']:.3g} (tolerance {LOGIT_TOL}"
+                    f"{', exempt: the last layer parted' if lo['last_parted'] else ''}); "
+                    f"free-running lanes apart by {err:.3g}, the one-ulp control by "
+                    f"{float((ctrl - lane['torch']).abs().max()):.3g}")
+        else:
+            check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
+            line = f"K4 lane within {err:.3g} of the plain lane (tolerance {LOGIT_TOL})"
+        print(f"long prefill {cfg.name} ({cfg.num_layers} layers) {n} tokens: {line}; K4 "
+              f"launches {cfg.num_layers}; K4 lane {secs['auto']:.2f} s, plain lane "
+              f"{secs['torch']:.2f} s")
     return launches
 
 
-def flash_bound(shape, causal: bool, elt: int) -> dict:
+def phase_long_prefill(dev, params):
+    """Phase 7b: ``long_prefill`` at FULL llama3.2-1b."""
+    from repro_torch.configs import get_config
+
+    return long_prefill(get_config("llama3.2-1b").replace(dtype="float32"), params, dev)
+
+
+def flash_bound(shape, causal: bool, elt: int, dv: int = 0) -> dict:
     """K4's least time, in ms, the largest of three terms over the (query,
-    key) pairs the mask keeps: the tensor cores' products, 4D flops a pair
-    (q.k and p*v) three times over in the 3xTF32 split at the dense TF32
-    rate; one exp a pair on the SFUs; q, k, v read once and the output
-    written once at 3.35 TB/s. ``simt_ms`` is the bound of the SIMT kernel K4
-    was before (2D FMAs and 4 other f32 operations a pair at 33.5 T
-    instructions/s), printed beside it."""
+    key) pairs the mask keeps: the tensor cores' products, 2D + 2Dv flops a
+    pair (q.k and p*v) three times over in the 3xTF32 split at the dense
+    TF32 rate; one exp a pair on the SFUs; q, k, v read once and the output
+    written once at 3.35 TB/s. ``dv`` is v's width (default D; MLA's 64
+    beside D = 96 counts the unpadded work). ``simt_ms`` is the bound of
+    the SIMT kernel K4 was before (2D FMAs and 4 other f32 operations a
+    pair at 33.5 T instructions/s), printed beside it."""
     b, h, s, t, d = shape
+    dv = dv or d
     pairs = b * h * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
-    terms = {"tensor_ms": 3 * 4 * d * pairs / TF32_FLOPS_PER_S * 1e3,
+    terms = {"tensor_ms": 3 * 2 * (d + dv) * pairs / TF32_FLOPS_PER_S * 1e3,
              "exp_ms": pairs / SFU_PER_S * 1e3,
-             "bytes_ms": b * h * (2 * s * d + 2 * t * d) * elt / HBM_BYTES_PER_S * 1e3}
+             "bytes_ms": b * h * (s * (d + dv) + t * (d + dv)) * elt / HBM_BYTES_PER_S * 1e3}
     top = max(terms, key=terms.get)
     return dict(terms, bound_ms=terms[top], bound_by="bytes" if top == "bytes_ms" else "operations",
-                simt_ms=pairs * (2 * d + 4) / F32_OPS_PER_S * 1e3, pairs=pairs)
+                simt_ms=pairs * (d + dv + 4) / F32_OPS_PER_S * 1e3, pairs=pairs)
 
 
-def phase_k4_timing(dev, lm, long_launches, main_err):
+def phase_k4_timing(dev, lm, long_launches, main_err, paths):
     """Phase 5 (K4): CUDA-event medians of K4, its plain version and
     F.scaled_dot_product_attention (the yardstick; the port never calls
-    it), causal f32, at (1, 32, 2048, 64) and the server's prefill shapes."""
+    it), causal f32, at (1, 32, 2048, 64), the server's prefill shapes and
+    MLA's (1, 40, 2048, 96) with v of 64 (K4 on v zero-padded to 96, SDPA
+    on the 64-wide v). ``paths`` holds the other LM paths' K4 launches and
+    server numbers (phases 11-12)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {}
-    for s in (2048, 8, 16, 32, 64):
-        shape = (1, 32, s, s, 64)
+    for s, h, d, dv in ((2048, 32, 64, 64), (8, 32, 64, 64), (16, 32, 64, 64), (32, 32, 64, 64),
+                        (64, 32, 64, 64), (2048, MLA_HEADS, MLA_QK, MLA_V)):
+        shape = (1, h, s, s, d)
         q, k, v = attention_inputs(shape, torch.float32, dev, seed=s)
-        got = flash_attention(q, k, v, block_q=s, block_kv=s)
+        v = v[..., :dv]
+        vk = F.pad(v, (0, d - dv))       # what K4 takes: v of k's width
+        got = flash_attention(q, k, vk, block_q=s, block_kv=s)[..., :dv]
         want = flash_attention_plain(q, k, v)
-        fb = flash_bound(shape, True, 4)
+        fb = flash_bound(shape, True, 4, dv)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
-        kern = lambda: flash_attention(q, k, v, block_q=s, block_kv=s)  # noqa: E731
+        kern = lambda: flash_attention(q, k, vk, block_q=s, block_kv=s)  # noqa: E731
         # In turns (library, kernel, kernel, library), each a median of 20.
         lib1, ms1, ms2, lib2 = median_ms(sdpa), median_ms(kern), median_ms(kern), median_ms(sdpa)
         row = dict(ms=statistics.median([ms1, ms2]), ms_runs=[ms1, ms2],
                    plain_ms=median_ms(lambda: flash_attention_plain(q, k, v)),
                    library_ms=statistics.median([lib1, lib2]), library_ms_runs=[lib1, lib2],
-                   max_abs_err=float((got - want).abs().max()), shape=list(shape), **fb)
-        rows[f"1x32x{s}x64"] = row
+                   max_abs_err=float((got - want).abs().max()), shape=list(shape), dv=dv, **fb)
+        label = f"1x{h}x{s}x{d}" + (f"_v{dv}" if dv != d else "")
+        rows[label] = row
         verdict = "faster" if row["ms"] < row["library_ms"] else "slower"
-        print(f"K4 at (1, 32, {s}, 64) causal f32: {ms1:.4f} / {ms2:.4f} ms; "
-              f"scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} ms (K4 {verdict}, "
-              f"{row['ms'] / row['library_ms']:.3f}x); plain {row['plain_ms']:.4f} ms; bound "
-              f"{fb['bound_ms']:.4f} ms by {fb['bound_by']} ({fb['pairs']} pairs: 3xTF32 tensor "
-              f"{fb['tensor_ms']:.4f} ms, SFU exp {fb['exp_ms']:.4f} ms, bytes "
-              f"{fb['bytes_ms']:.4f} ms; the old SIMT bound {fb['simt_ms']:.4f} ms)")
+        print(f"K4 at (1, {h}, {s}, {d}){f' v {dv} padded to {d}' if dv != d else ''} causal f32: "
+              f"{ms1:.4f} / {ms2:.4f} ms; scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} "
+              f"ms (K4 {verdict}, {row['ms'] / row['library_ms']:.3f}x); plain "
+              f"{row['plain_ms']:.4f} ms; bound {fb['bound_ms']:.4f} ms by {fb['bound_by']} "
+              f"({fb['pairs']} pairs: 3xTF32 tensor {fb['tensor_ms']:.4f} ms, SFU exp "
+              f"{fb['exp_ms']:.4f} ms, bytes {fb['bytes_ms']:.4f} ms; the old SIMT bound "
+              f"{fb['simt_ms']:.4f} ms)")
     main = rows["1x32x2048x64"]
+    by_path = {"llama3.2-1b server": lm["k4"], "llama3.2-1b long prefills": long_launches,
+               **paths["launches"]}
+    server_keys = ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens", "prefills",
+                   "decode_steps", "param_count", "logit_err", "near_ties", "decode_idle")
     return {
         "name": "K4 flash_attention (online-softmax attention)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:40",
-        "launches": lm["k4"],
+        "launches": sum(by_path.values()),
         "max_abs_err": main_err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -1999,10 +2271,11 @@ def phase_k4_timing(dev, lm, long_launches, main_err):
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shapes": rows,
+        "launches_by_path": by_path,
         "launches_long_prefill": long_launches,
-        "server": {k: lm[k] for k in ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens",
-                                      "prefills", "decode_steps", "param_count", "logit_err",
-                                      "near_ties")},
+        "server": {k: lm[k] for k in server_keys},
+        **{name: {k: v for k, v in st.items() if k in server_keys or k.startswith("route")}
+           for name, st in paths["servers"].items()},
     }
 
 
@@ -2189,14 +2462,14 @@ def phase_ssm_server(dev):
     before = read_counts()["k5"]
     plain = {r.uid: r.output for r in eng.run()}
     check(read_counts()["k5"] == before, "the plain replay launched K5")
-    plain_model = Model(cfg, backend="torch")
     ties = 0
     for r in done:
         want = plain[r.uid]
         if r.output == want:
             continue
         step = next(i for i, (a, b) in enumerate(zip(r.output, want)) if a != b)
-        gap, below = plain_logits_gap(plain_model, params, r.prompt, r.output, step, dev)
+        gap, below = top2_gap(replay_logits(cfg, params, r.prompt, r.output, step, "torch", dev),
+                              r.output[step])
         check(gap < LOGIT_TOL and below < LOGIT_TOL,
               f"request {r.uid} step {step}: token {r.output[step]} (plain {want[step]}) with "
               f"the plain lane's top-2 gap {gap} and the token {below} below its top")
@@ -2341,6 +2614,138 @@ def phase_k5_timing(dev, ssm, long_launches, main_err):
                                        "prefills", "decode_steps", "param_count", "logit_err",
                                        "near_ties", "k5_profile_us")},
     }
+
+
+# --- The moe family and MLA on K4 (phases 11-12) -------------------------------
+
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 24    # of 48: the whole is 122.1 GB in f32
+PHI_ARCH, PHI_LAYERS = "phi3.5-moe-42b-a6.6b", 8  # of 32: the whole is 167.5 GB in f32
+MLA_ARCH = "minicpm3-4b"                          # whole: 17.0 GB in f32
+# Model.param_count() at those depths, as the reference counts them.
+CUT_PARAMS = {MOE_ARCH: 15_577_227_264, PHI_ARCH: 10_665_205_760, MLA_ARCH: 4_261_902_848}
+MLA_ARGS = ["--arch", MLA_ARCH, "--requests", "16", "--slots", "4", "--max-new", "16"]
+
+
+def draw(arch: str, layers: int, dev):
+    """FULL-width ``arch`` at ``layers`` layers in f32, its weights drawn on
+    the card from seed 0. Returns (cfg, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"{cfg.name} FULL width, {layers} of {get_config(arch).num_layers} layers: "
+          f"{n_params:,} params drawn on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    check(n_params == CUT_PARAMS[arch], f"{cfg.name} has {n_params:,} params, not "
+                                        f"{CUT_PARAMS[arch]:,}")
+    return cfg, params
+
+
+def free_weights():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe_server(dev):
+    """Phase 11, the moe slice's main path: ``Engine`` on qwen3-moe-30b-a3b
+    at FULL width and 24 of its 48 layers, f32, 4 slots, the reference
+    server's 16 prompts (buckets 8-64, 16 new tokens), counts set to 0 just
+    before and read just after: K4 must launch 24 layers x 16 prefills =
+    384 times and nothing else may launch. Then ``lane_replay`` on the same
+    weights and the profiled decode step."""
+    from repro_torch.launch.serve import LM_BUCKETS
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = draw(MOE_ARCH, MOE_LAYERS, dev)
+    prompts = replay_prompts(cfg.vocab_size, LM_REQUESTS)
+    eng = Engine(cfg, params, max_batch=LM_SLOTS, max_len=256, prompt_buckets=LM_BUCKETS)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=LM_NEW))
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["k4"] == cfg.num_layers * LM_REQUESTS,
+          f"the moe engine launched K4 {counts['k4']} times, not {cfg.num_layers} x "
+          f"{LM_REQUESTS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"the moe engine launched {counts}")
+    done = sorted(done, key=lambda r: r.uid)
+    check(len(done) == LM_REQUESTS and all(len(r.output) == LM_NEW for r in done),
+          "the moe engine did not serve every request to its max_new_tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    check([r.prompt for r in done] == prompts, "the engine's prompts are not the replay's")
+    toks = sum(len(r.output) for r in done)
+    stats = dict(tokens=toks, seconds=wall, tok_s=toks / wall, prefills=len(eng.prefill_ms),
+                 decode_steps=len(eng.decode_ms),
+                 prefill_p50_ms=statistics.median(eng.prefill_ms),
+                 decode_p50_ms=statistics.median(eng.decode_ms),
+                 param_count=CUT_PARAMS[MOE_ARCH], k4=counts["k4"])
+    print(f"moe engine {cfg.name} ({cfg.num_layers} layers): {stats['tok_s']:.1f} tok/s ({toks} "
+          f"tokens in {wall:.3f} s); prefill p50 {stats['prefill_p50_ms']:.3f} ms "
+          f"({stats['prefills']}); decode step p50 {stats['decode_p50_ms']:.3f} ms "
+          f"({stats['decode_steps']}); K4 launches {counts['k4']}")
+    del eng
+    stats.update(lane_replay(cfg, params, done, dev))
+    stats.update(profile_engine(cfg, params, prompts, cfg.name))
+    return stats, cfg, params
+
+
+def phase_moe_long_prefill(dev, cfg, params):
+    """Phase 11b: ``long_prefill`` on phase 11's qwen3-moe weights (one
+    routing group of 2,048 and of 1,000 tokens)."""
+    return long_prefill(cfg, params, dev)
+
+
+def phase_phi_prefill(dev):
+    """Phase 11c: ``long_prefill`` at FULL phi3.5-moe-42b-a6.6b width and 8
+    of its 32 layers (top-2 of 16 experts, layernorm)."""
+    cfg, params = draw(PHI_ARCH, PHI_LAYERS, dev)
+    return long_prefill(cfg, params, dev)
+
+
+def phase_mla_server(dev):
+    """Phase 12, the MLA slice's main path: the LM server with ``--arch
+    minicpm3-4b`` at FULL width and depth, f32, counts set to 0 just before
+    and read just after: K4 must launch 62 layers x 16 prefills = 992 times
+    (q and k of 96 dims, v zero-padded from 64) and nothing else may
+    launch. Then ``lane_replay``, the profiled decode step and
+    ``long_prefill`` on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    stats = serve.main(MLA_ARGS)
+    counts = read_counts()
+    cfg = get_config(MLA_ARCH).replace(dtype="float32")
+    params = stats.pop("params")
+    check(stats["param_count"] == CUT_PARAMS[MLA_ARCH], f"{cfg.name} has "
+                                                        f"{stats['param_count']:,} params")
+    check(counts["k4"] == cfg.num_layers * LM_REQUESTS and stats["k4_launches"] == counts["k4"],
+          f"the MLA server launched K4 {counts['k4']} times, not {cfg.num_layers} x "
+          f"{LM_REQUESTS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"the MLA server launched {counts}")
+    done = sorted(stats.pop("requests"), key=lambda r: r.uid)
+    check(len(done) == LM_REQUESTS and all(len(r.output) == LM_NEW for r in done),
+          "the MLA server did not serve every request to --max-new")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    prompts = replay_prompts(cfg.vocab_size, LM_REQUESTS)
+    check([r.prompt for r in done] == prompts, "the server's prompts are not the replay's")
+    print(f"MLA server {cfg.name}: {stats['param_count']:,} params; {stats['tok_s']:.1f} tok/s "
+          f"({stats['tokens']} tokens in {stats['seconds']:.3f} s); prefill p50 "
+          f"{stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K4 launches {counts['k4']}")
+    stats.update(lane_replay(cfg, params, done, dev), k4=counts["k4"])
+    stats.update(profile_engine(cfg, params, prompts, cfg.name))
+    stats["long_launches"] = long_prefill(cfg, params, dev)
+    return stats
 
 
 def phase_timing(full, dev, motion_mask, server_launches, edges_launches, k3_launches,
@@ -2807,16 +3212,28 @@ def main() -> None:
     k4_err = timed("6 K4 vs plain", phase_k4_vs_plain, dev)
     lm = timed("7 LM server", phase_lm_server, dev)
     long_launches = timed("7b long prefill", phase_long_prefill, dev, lm.pop("params"))
-    gc.collect()                 # the llama weights go before falcon-mamba's 29 GB
-    torch.cuda.empty_cache()
+    free_weights()               # the llama weights go before falcon-mamba's 29 GB
     t_ssm = time.perf_counter()
     k5_err = timed("8 K5 vs plain", phase_k5_vs_plain, dev)
     ssm = timed("9 ssm server", phase_ssm_server, dev)
     ssm_long_launches = timed("9b ssm long prefill", phase_ssm_long_prefill, dev,
                               ssm.pop("params"))
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_weights()
     print(f"[phases 8-9b: {time.perf_counter() - t_ssm:.1f}s]")
+    t_moe = time.perf_counter()
+    moe, moe_cfg, moe_params = timed("11 moe server", phase_moe_server, dev)
+    moe_long = timed("11b moe long prefill", phase_moe_long_prefill, dev, moe_cfg, moe_params)
+    del moe_params
+    free_weights()              # qwen3-moe's 62.3 GB go before phi3.5-moe's 42.7 GB
+    phi_long = timed("11c phi3.5-moe prefill", phase_phi_prefill, dev)
+    free_weights()
+    mla = timed("12 MLA server", phase_mla_server, dev)
+    free_weights()
+    print(f"[phases 11-12: {time.perf_counter() - t_moe:.1f}s]")
+    paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
+                          f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
+                          f"{MLA_ARCH} long prefills": mla["long_launches"]},
+             "servers": {"moe_server": moe, "mla_server": mla}}
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)
@@ -2826,7 +3243,7 @@ def main() -> None:
                       launches_chaos_server={k: v["launches"] for k, v in chaos_runs.items()},
                       chaos_server=chaos_runs)
     kernels[1].update(launches_sharded_facade=shard_counts["k2"])
-    kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err))
+    kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err, paths))
     kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
     timed("10 contract analyzer", phase_analyzer)
     timed("10b Fig. 7", phase_fig7, dev)

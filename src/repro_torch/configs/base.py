@@ -1,11 +1,12 @@
 """Config schema and registry: the fields of ``repro.configs.base`` that the
-port runs, the image pipeline's, the dense LM's and the SSM's, with the
+port runs, the image pipeline's, the dense LM's (with MLA), the MoE's and
+the SSM's, with the
 reference's names and defaults.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests. The MoE, hybrid,
-encoder-decoder and frontend fields, and ``ShapeConfig``, are not ported
-yet (ROADMAP queue 1 item 13).
+form and a ``smoke`` reduction for CPU tests. The hybrid, encoder-decoder
+and frontend fields, and ``ShapeConfig``, are not ported yet (ROADMAP
+queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_archs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | ssm | image (the other LM families are not ported yet)
+    family: str                      # dense | moe | ssm | image (not ported: hybrid, encdec, vlm)
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -29,16 +30,30 @@ class ModelConfig:
     vocab_size: int = 0
 
     # --- attention ---
-    attn_type: str = "gqa"           # gqa | none (mla is not ported yet)
+    attn_type: str = "gqa"           # gqa | mla | none
     rope_theta: float = 10_000.0
     use_rope: bool = True
     qk_norm: bool = False
     attn_logit_softcap: float = 0.0
+    # MLA (DeepSeek/MiniCPM3-style latent attention)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    qk_nope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- norm / mlp ---
     norm_type: str = "rmsnorm"       # rmsnorm | layernorm | layernorm_np
     mlp_type: str = "swiglu"         # swiglu | gelu
     norm_eps: float = 1e-5
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 4096       # routing group (tokens); GShard-style
+    router_aux_coef: float = 0.01
+    router_z_coef: float = 1e-3
 
     # --- SSM (Mamba-1; mamba2 is not ported yet) ---
     ssm_type: str = "none"           # none | mamba1
@@ -102,17 +117,23 @@ class ModelConfig:
 _REGISTRY: Dict[str, tuple] = {}
 
 ARCH_IDS = (
+    "qwen3-moe-30b-a3b",
+    "phi3.5-moe-42b-a6.6b",
     "falcon-mamba-7b",
     "glm4-9b",
     "olmo-1b",
+    "minicpm3-4b",
     "llama3.2-1b",
     "sobel-hd",                      # the paper's own workload, as an arch
 )
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "glm4-9b": "glm4_9b",
     "olmo-1b": "olmo_1b",
+    "minicpm3-4b": "minicpm3_4b",
     "llama3.2-1b": "llama3_2_1b",
     "sobel-hd": "sobel_hd",
 }
@@ -121,16 +142,11 @@ _MODULES = {
 # What the port does not run yet -> its ROADMAP item, and the reference's
 # archs that need it.
 UNPORTED = {
-    "moe": "queue 1 item 13: MoE (models/moe.py)",
-    "mla": "queue 1 item 13: MLA (minicpm3-4b)",
     "hybrid": "queue 1 item 13: the hybrid's mamba2 and shared attention",
     "encdec": "queue 1 item 13: encoder-decoder and VLM frontends",
     "vlm": "queue 1 item 13: encoder-decoder and VLM frontends",
 }
 _UNPORTED_ARCHS = {
-    "qwen3-moe-30b-a3b": "moe",
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "minicpm3-4b": "mla",
     "zamba2-2.7b": "hybrid",
     "whisper-large-v3": "encdec",
     "pixtral-12b": "vlm",

@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-LM mode (``--arch llama3.2-1b``, the other dense configs and
-``falcon-mamba-7b``): the port of ``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
+LM mode (``--arch llama3.2-1b``, the other dense configs, ``minicpm3-4b``
+(MLA), the MoE configs ``qwen3-moe-30b-a3b`` and ``phi3.5-moe-42b-a6.6b``,
+and ``falcon-mamba-7b``): the port of ``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
 device, in f32 (the reference's server forces ``dtype="float32"``); the
 continuous-batching :class:`~repro_torch.serve.Engine` with ``--slots``
 slots, ``--max-len`` positions and prompt buckets 8/16/32/64 serves

@@ -1,27 +1,36 @@
-"""Attention: GQA (dense and memory-chunked), with kernel K4 on the prefill.
+"""Attention: GQA (dense and memory-chunked) and MLA (latent, absorbed
+decode), with kernel K4 on the prefill.
 
 The port of ``repro.models.attention``. Shapes: activations (B, S, d_model);
 q/k/v (B, S, heads, head_dim) with GQA grouping H = KV * G. Decode uses a
-KV cache ``{"k": (B, L, KV, D), "v": (B, L, KV, D)}``, which
-:func:`update_cache` writes in place (the reference's is functional): a
-served model keeps one cache and never needs the old one.
+cache, which :func:`update_cache` writes in place (the reference's is
+functional): a served model keeps one cache and never needs the old one.
+  * GQA: ``{"k": (B, L, KV, D), "v": (B, L, KV, D)}``;
+  * MLA (``minicpm3-4b``): ``{"ckv": (B, L, kv_lora_rank), "k_rope": (B, L,
+    qk_rope_head_dim)}``, the latent cache; the decode step uses the
+    *absorbed* form (q projected into the latent space), so the cache is
+    never expanded to per-head keys and values.
 
 This port runs on one device, so the reference's tensor-parallel head
 layouts reduce to its single-device branch (KV heads kept, G query heads
-per KV head). MLA (``minicpm3-4b``) and cross-attention (``whisper``) are
-not ported yet (ROADMAP queue 1 item 13).
+per KV head; MLA has KV = H, G = 1). Cross-attention (``whisper``) is not
+ported yet (ROADMAP queue 1 item 13).
 
 Lanes (``backend``, as the edge path's): on a CUDA tensor the prefill and
 forward attention (S query positions over the same S keys) run K4,
 ``kernels/csrc/flash_attention.cu``, at every length; the decode read path
 (S == 1 over the whole slotted cache) is plain PyTorch, as the reference
-leaves it to XLA. K4 masks by index, so on the card the causal prefill
-raises unless ``positions`` is ``arange(S)`` in every row, which is what
-``transformer._prepare_inputs`` and the engine give; it also raises for an
-``attn_logit_softcap`` (K4 has none, and no ported config sets one). The
-plain lane (``backend="torch"``, and every CPU tensor) runs
-:func:`dot_attention` and follows the reference's switch to the chunked
-online softmax above 4,096 positions.
+leaves it to XLA. MLA's expanded prefill has q and k of
+``qk_nope_head_dim + qk_rope_head_dim`` dims but v of ``v_head_dim``: K4
+takes v of k's width, so v is zero-padded to it and the output sliced
+back, which is exact (zero columns add nothing, and the softmax does not
+read v); K4's scale, 1/sqrt of q's width, is the reference's. K4 masks by
+index, so on the card the causal prefill raises unless ``positions`` is
+``arange(S)`` in every row, which is what ``transformer._prepare_inputs``
+and the engine give; it also raises for an ``attn_logit_softcap`` (K4 has
+none, and no ported config sets one). The plain lane (``backend="torch"``,
+and every CPU tensor) runs :func:`dot_attention` and follows the
+reference's switch to the chunked online softmax above 4,096 positions.
 """
 from __future__ import annotations
 
@@ -29,8 +38,9 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import UNPORTED, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_backend, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import Spec, apply_rope
@@ -44,8 +54,6 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-_MLA = ("multi-head latent attention (attn_type='mla') is not ported yet: "
-        f"ROADMAP {UNPORTED['mla']}")
 
 
 def update_cache(cache_arr: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
@@ -96,9 +104,25 @@ def update_cache(cache_arr: torch.Tensor, new: torch.Tensor, index) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 def attention_params(cfg: ModelConfig) -> Dict[str, Spec]:
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(_MLA)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.attn_type == "mla":
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        v = cfg.v_head_dim
+        p: Dict[str, Spec] = {
+            "wkv_a": Spec((d, cfg.kv_lora_rank + rope), ("embed", None)),
+            "kv_norm": Spec((cfg.kv_lora_rank,), (None,), "ones"),
+            "wk_b": Spec((cfg.kv_lora_rank, h, nope), (None, "heads", None)),
+            "wv_b": Spec((cfg.kv_lora_rank, h, v), (None, "heads", None)),
+            "wo": Spec((h, v, d), ("heads", None, "embed")),
+        }
+        if cfg.q_lora_rank:
+            p["wq_a"] = Spec((d, cfg.q_lora_rank), ("embed", "qk_rank"))
+            p["q_norm"] = Spec((cfg.q_lora_rank,), (None,), "ones")
+            p["wq_b"] = Spec((cfg.q_lora_rank, h, nope + rope), (None, "heads", None))
+        else:
+            p["wq"] = Spec((d, h, nope + rope), ("embed", "heads", None))
+        return p
+
     p = {
         "wq": Spec((d, h, hd), ("embed", "heads", "head_dim")),
         "wk": Spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
@@ -205,6 +229,15 @@ def _k4_attention(q5: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
 
 
+def _k4_attention_narrow_v(q5: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool) -> torch.Tensor:
+    """:func:`_k4_attention` for v narrower than k (MLA): v zero-padded to
+    k's width, the output sliced back. Returns (B, S, KV, G, Dv)."""
+    dv = v.shape[-1]
+    out = _k4_attention(q5, k, F.pad(v, (0, k.shape[-1] - dv)), causal)
+    return out[..., :dv]
+
+
 def _check_k4_call(cfg: ModelConfig, positions: torch.Tensor, causal: bool) -> None:
     """What K4 cannot take on the card raises; nothing falls back."""
     if cfg.attn_logit_softcap:
@@ -266,7 +299,7 @@ def apply_attention(
     attn_chunk: int = 1024,
     backend: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention (GQA).
+    """Self-attention (GQA or MLA).
 
     With ``cache``: S == 1 is a decode step reading the cache; S > 1 is a
     prefill, which attends over the freshly computed local k/v (never the
@@ -274,9 +307,10 @@ def apply_attention(
     ``backend``: ``auto`` (K4 for a CUDA tensor, plain for the CPU),
     ``cuda`` or ``torch``.
     """
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(_MLA)
     lane = resolve_backend(backend, x.device)
+    if cfg.attn_type == "mla":
+        return _apply_mla(params, cfg, x, positions, causal=causal, cache=cache,
+                          cache_index=cache_index, lane=lane)
     kv_h, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     q, k, v = _gqa_qkv(params, cfg, x, positions)
     b, s = x.shape[0], x.shape[1]
@@ -313,15 +347,98 @@ def apply_attention(
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3-style multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    dtype = x.dtype
+    b, s, d = x.shape
+    nope = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        cq = x @ params["wq_a"].to(dtype)
+        cq = _rms(cq, params["q_norm"], cfg.norm_eps)
+        w = params["wq_b"].to(dtype)                       # "bsr,rhk->bshk"
+    else:
+        cq, w = x, params["wq"].to(dtype)                  # "bsd,dhk->bshk"
+    q = (cq @ w.reshape(w.shape[0], -1)).reshape(b, s, w.shape[1], w.shape[2])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(params, cfg: ModelConfig, x, positions):
+    rank = cfg.kv_lora_rank
+    kv = x @ params["wkv_a"].to(x.dtype)
+    ckv, k_rope = kv[..., :rank], kv[..., rank:]
+    ckv = _rms(ckv, params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)  # shared rope head
+    return ckv, k_rope
+
+
+def _apply_mla(params, cfg: ModelConfig, x, positions, *, causal, cache, cache_index, lane):
+    b, s = x.shape[0], x.shape[1]
+    h = cfg.num_heads
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv_new, k_rope_new = _mla_latent(params, cfg, x, positions)
+    dtype = x.dtype
+    wk_b, wv_b = params["wk_b"].to(dtype), params["wv_b"].to(dtype)
+    wo = params["wo"].to(dtype)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = {
+            "ckv": update_cache(cache["ckv"], ckv_new, cache_index),
+            "k_rope": update_cache(cache["k_rope"], k_rope_new, cache_index),
+        }
+
+    if cache is not None and s == 1:
+        # Absorbed decode (plain PyTorch on both lanes): q_nope -> latent
+        # space; the cache stays compressed.
+        ckv, kr = new_cache["ckv"], new_cache["k_rope"]
+        t = ckv.shape[1]
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+        s_lat = torch.einsum("bshr,blr->bhsl", q_lat, ckv)
+        s_rope = torch.einsum("bshp,blp->bhsl", q_rope, kr)
+        logits = (s_lat + s_rope).float() * scale
+        valid = torch.arange(t, device=x.device)[None, None, :] <= positions[:, :, None]
+        logits = torch.where(valid[:, None], logits, _NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(dtype)
+        ctx_lat = torch.einsum("bhsl,blr->bshr", w, ckv)
+        out_v = torch.einsum("bshr,rhv->bshv", ctx_lat, wv_b)
+        return out_v.reshape(b, s, h * vd) @ wo.reshape(h * vd, -1), new_cache
+
+    # Prefill / forward: expand the latent to per-head k and v (standard form).
+    k_nope = (ckv_new @ wk_b.reshape(rank, h * nope)).reshape(b, s, h, nope)
+    v = (ckv_new @ wv_b.reshape(rank, h * vd)).reshape(b, s, h, vd)
+    k_rope_b = k_rope_new[:, :, None, :].expand(b, s, h, rope)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    q5 = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # KV = H, G = 1
+    if lane == "cuda":
+        _check_k4_call(cfg, positions, causal)
+        out = _k4_attention_narrow_v(q5, k, v, causal)
+    else:
+        impl = "chunked" if s > 4096 else "dense"
+        out = dot_attention(q5, k, v, pos_q=positions, pos_k=positions, causal=causal,
+                            impl=impl)
+    return out.reshape(b, s, h * vd) @ wo.reshape(h * vd, -1), new_cache
+
+
+# ---------------------------------------------------------------------------
 # Cache init
 # ---------------------------------------------------------------------------
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                     device=None) -> Dict:
-    """Zero k/v caches on ``device`` (``None`` = the CUDA device)."""
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(_MLA)
+    """Zero caches on ``device`` (``None`` = the CUDA device): k/v (GQA) or
+    the latent ``ckv`` and shared ``k_rope`` (MLA)."""
     dev = resolve_device(device)
+    if cfg.attn_type == "mla":
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=dev),
+                "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype,
+                                      device=dev)}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}

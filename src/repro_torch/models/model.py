@@ -1,6 +1,6 @@
 """Public model API: init / forward / cache / prefill / decode for the dense
-and ssm families, and :func:`carry_params`, which takes the reference's
-weights.
+(GQA or MLA), moe and ssm families, and :func:`carry_params`, which takes
+the reference's weights.
 
 The port of ``repro.models.model.Model`` without the training half
 (``loss_fn``, ``cross_entropy``, ``cast_params``: ROADMAP queue 1 item 13).
@@ -28,9 +28,9 @@ class Model:
     """Thin functional wrapper binding a ModelConfig to the layer stack.
 
     ``backend`` picks the kernel lane of every call: ``auto`` (kernel K4
-    for a dense model's attention and K5 for an ssm model's scan on CUDA
-    tensors, their plain versions on CPU ones), ``cuda`` or ``torch`` (the
-    plain versions on any device).
+    for a dense or moe model's prefill attention and K5 for an ssm model's
+    scan on CUDA tensors, their plain versions on CPU ones), ``cuda`` or
+    ``torch`` (the plain versions on any device).
     """
 
     def __init__(self, cfg: ModelConfig, *, backend: str = "auto"):

@@ -1,23 +1,27 @@
-"""Transformer assembly for the dense and ssm families: embed, a loop over
-the stacked layers, final norm, unembed.
+"""Transformer assembly for the dense, moe and ssm families: embed, a loop
+over the stacked layers, final norm, unembed.
 
 The port of ``repro.models.transformer`` for ``dense`` (pre-norm
-[attention, MLP] blocks, RoPE, causal) and ``ssm`` (pre-norm [Mamba-1]
-blocks, attention-free). The reference's ``lax.scan`` over the stacked
-parameters is a Python loop over the leading layer axis here; remat is a
-training matter and is not ported. The other families (moe, hybrid,
-encdec, vlm) raise, naming their ROADMAP item.
+[attention, MLP] blocks, RoPE, causal; GQA or MLA), ``moe`` (the same with
+the MoE FFN of ``models/moe.py``) and ``ssm`` (pre-norm [Mamba-1] blocks,
+attention-free). The reference's ``lax.scan`` over the stacked parameters
+is a Python loop over the leading layer axis here; remat is a training
+matter and is not ported. The other families (hybrid, encdec, vlm) raise,
+naming their ROADMAP item. A moe model's forward returns the per-layer
+auxiliary losses summed over the layers (``moe_aux``, ``moe_z``); its
+prefill and decode step drop them, as the reference's do.
 
 Every function takes ``backend`` (``auto`` | ``cuda`` | ``torch``) and hands
 it to ``attention.apply_attention`` or ``ssm.apply_mamba1``: on a CUDA
 tensor ``auto`` runs the prefill and forward attention through kernel K4
 and the prefill and forward scan through kernel K5.
 
-Caches are written in place, a layer at a time: the dense family's k/v at
-the prefill's and decode's positions, the ssm family's state ``h`` and
-conv tail (the reference returns new caches). An ssm model keeps no
-positions: its prefill starts every sequence from the zero state, and its
-decode step ignores ``index``.
+Caches are written in place, a layer at a time: the attention families'
+k/v (MLA: the latent and the rope key) at the prefill's and decode's
+positions, the ssm family's state ``h`` and conv tail (the reference
+returns new caches). An ssm model keeps no positions: its prefill starts
+every sequence from the zero state, and its decode step ignores
+``index``.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.models.layers import (
     stack_specs,
     torch_dtype,
 )
+from repro_torch.models.moe import apply_moe, moe_params
 
 __all__ = [
     "model_param_specs",
@@ -52,7 +57,7 @@ __all__ = [
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet, naming its ROADMAP item."""
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "moe", "ssm"):
         return
     if cfg.family in UNPORTED:
         raise NotImplementedError(
@@ -82,7 +87,7 @@ def _attn_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "ln1": norm_params(cfg),
         "attn": attention_params(cfg),
         "ln2": norm_params(cfg),
-        "ffn": mlp_params(cfg),
+        "ffn": moe_params(cfg) if cfg.family == "moe" else mlp_params(cfg),
     }
 
 
@@ -117,13 +122,19 @@ def _layer(tree: Any, i: int) -> Any:
 
 def _apply_attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, cache=None,
                       index=None, backend="auto"):
+    """One pre-norm [attention, MLP or MoE] block. Returns (x, new cache or
+    None, the MoE's auxiliary losses or {})."""
     h, new_cache = apply_attention(
         lp["attn"], cfg, apply_norm(lp["ln1"], cfg, x), positions,
         causal=causal, cache=cache, cache_index=index, backend=backend,
     )
     x = x + h
-    x = x + apply_mlp(lp["ffn"], cfg, apply_norm(lp["ln2"], cfg, x))
-    return x, new_cache
+    y = apply_norm(lp["ln2"], cfg, x)
+    if cfg.family == "moe":
+        h, aux = apply_moe(lp["ffn"], cfg, y)
+    else:
+        h, aux = apply_mlp(lp["ffn"], cfg, y), {}
+    return x + h, new_cache, aux
 
 
 def _apply_mamba_block(lp, cfg: ModelConfig, x, *, cache=None, return_cache=False,
@@ -142,14 +153,19 @@ def _apply_mamba_block(lp, cfg: ModelConfig, x, *, cache=None, return_cache=Fals
 
 
 def _scan_decoder(params, cfg: ModelConfig, x, positions, backend="auto"):
-    """The main layer stack without a cache (the reference's ``lax.scan``)."""
+    """The main layer stack without a cache (the reference's ``lax.scan``).
+    Returns (x, the auxiliary losses summed over the layers)."""
+    auxs: Dict[str, list] = {}
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         if cfg.family == "ssm":
             x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
-        else:
-            x, _ = _apply_attn_block(lp, cfg, x, positions, causal=True, backend=backend)
-    return x
+            continue
+        x, _, aux = _apply_attn_block(lp, cfg, x, positions, causal=True, backend=backend)
+        for name, v in aux.items():
+            auxs.setdefault(name, []).append(v)
+    # the reference sums each loss over its scan's stacked per-layer values
+    return x, {name: torch.stack(vs).sum() for name, vs in auxs.items()}
 
 
 def _prepare_inputs(params, cfg: ModelConfig, batch: Dict, dtype):
@@ -168,13 +184,14 @@ def _prepare_inputs(params, cfg: ModelConfig, batch: Dict, dtype):
 
 def forward(params, cfg: ModelConfig, batch: Dict, *,
             backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Full (prefill-style) forward. Returns (logits, aux_losses); a dense
-    model has no auxiliary losses."""
+    """Full (prefill-style) forward. Returns (logits, aux_losses): a moe
+    model's ``moe_aux`` and ``moe_z`` summed over its layers, ``{}`` for a
+    dense or ssm model."""
     check_family(cfg)
     x, positions = _prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
-    x = _scan_decoder(params, cfg, x, positions, backend)
+    x, aux = _scan_decoder(params, cfg, x, positions, backend)
     x = apply_norm(params["final_norm"], cfg, x)
-    return unembed(params, cfg, x), {}
+    return unembed(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +200,10 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Dict:
-    """``{"layers": {"k", "v"}}`` (dense) or ``{"layers": {"h", "conv"}}``
-    (ssm: ``max_len`` unused, ``h`` always f32) zeros with a leading layer
-    axis, on ``device`` (``None`` = the CUDA device)."""
+    """``{"layers": {"k", "v"}}`` (GQA), ``{"layers": {"ckv", "k_rope"}}``
+    (MLA) or ``{"layers": {"h", "conv"}}`` (ssm: ``max_len`` unused, ``h``
+    always f32) zeros with a leading layer axis, on ``device`` (``None`` =
+    the CUDA device)."""
     check_family(cfg)
     if cfg.family == "ssm":
         one = ssm.init_mamba1_cache(cfg, batch, dtype, device)
@@ -212,16 +230,16 @@ def _ssm_stack(params, cfg: ModelConfig, x, cache: Dict, *, decode: bool, backen
 
 def _cached_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, backend):
     for i in range(cfg.num_layers):
-        x, _ = _apply_attn_block(_layer(params["layers"], i), cfg, x, positions, causal=True,
-                                 cache=_layer(cache["layers"], i), index=index,
-                                 backend=backend)
+        x, _, _ = _apply_attn_block(_layer(params["layers"], i), cfg, x, positions,
+                                    causal=True, cache=_layer(cache["layers"], i), index=index,
+                                    backend=backend)
     return x
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict, *,
             backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
     """Process a prompt, filling the cache (in place) from position 0, or at
-    ``batch["cache_positions"]`` per token (dense); an ssm prompt runs from
+    ``batch["cache_positions"]`` per token (dense, moe); an ssm prompt runs from
     the zero state and writes each layer's final state and conv tail.
     Returns (last-position logits, cache)."""
     check_family(cfg)

@@ -1,18 +1,22 @@
 """Batched serving engine: continuous batching over a slotted KV cache.
 
-The port of ``repro.serve.engine`` (dense and ssm families), detail for
-detail:
+The port of ``repro.serve.engine`` (dense, moe and ssm families), detail
+for detail:
   * ``max_batch`` slots share one batched cache of ``max_len + 1`` positions —
     the extra position is a *trash slot*: padded prompt tokens write their
-    k/v there, so bucket-padded prefill never pollutes attention (the causal
+    k/v (MLA: latent) there, so bucket-padded prefill never pollutes attention (the causal
     position mask can never reach them: a slot stops before position
     ``max_len - 1``);
   * a prompt's context (all but its last token) is right-padded to a bucket
     length and prefilled in one shot into a batch-1 cache with per-token
     cache destinations (``cache_positions``), then copied into its slot; the
-    last prompt token is fed by the slot's first decode step;
+    last prompt token is fed by the slot's first decode step. A moe model
+    routes the padded prompt as one group of the bucket's length, pad
+    tokens after the prompt's, so they take an expert's capacity only after
+    every prompt token;
   * decode runs one step per iteration for all ``max_batch`` slots, idle ones
-    included (token 0 at their stale positions), with per-slot positions;
+    included (token 0 at their stale positions), with per-slot positions (a
+    moe model routes every slot, the ``max_batch`` rows one group);
     finished slots are refilled from the queue without stalling the others
     (continuous batching).
 
@@ -24,8 +28,8 @@ are refused so). A one-token prompt has no context and no prefill, so its
 slot keeps the state its last occupant and the idle decode steps left
 there, as the reference's does.
 
-On the card the prefill's attention runs kernel K4 (dense) and its scan
-kernel K5 (ssm); the decode step is plain PyTorch
+On the card the prefill's attention runs kernel K4 (dense and moe) and
+its scan kernel K5 (ssm); the decode step is plain PyTorch
 (``models/attention.py``, ``models/ssm.py``). ``device=None`` means the CUDA
 device; ``backend="torch"`` runs the plain lane on any device. Host-clock
 times of every prefill and decode step, each ended by a device synchronise,

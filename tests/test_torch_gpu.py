@@ -520,6 +520,50 @@ def test_lm_engine_k4_lane_equals_plain_lane(cuda_device):
     torch.testing.assert_close(logits["auto"], logits["torch"], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "minicpm3-4b"))
+def test_moe_and_mla_engine_k4_lane_equals_plain_lane(cuda_device, arch):
+    """The smoke MoE and MLA models through the Engine on the card, K4 lane
+    and plain lane, on the same weights: K4 launched once per layer per
+    prefill (MLA with v zero-padded to k's width), the same tokens wherever
+    both lanes routed every token to the same experts, and prefill logits
+    within 1e-4 under the same condition."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.models.moe import record_routing
+    from repro_torch.serve import Engine, Request
+
+    def same_routes(a, b):
+        return len(a) == len(b) and all(torch.equal(ia.sort(-1).values, ib.sort(-1).values)
+                                        for (_, ia), (_, ib) in zip(a, b))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(0)
+    prompts = [[5, 9, 2, 7], [11, 3], list(range(1, 13)), [42], [13, 14, 15], list(range(30))]
+    outs, launches, logs = {}, {}, {}
+    for backend in ("auto", "torch"):
+        eng = Engine(cfg, params, max_batch=3, max_len=64, prompt_buckets=(8, 16, 32),
+                     backend=backend)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        before = flash_attention.launches
+        with record_routing() as logs[backend]:
+            outs[backend] = {r.uid: r.output for r in eng.run()}
+        launches[backend] = flash_attention.launches - before
+    assert launches == {"auto": cfg.num_layers * 5, "torch": 0}   # [42] has no context
+    if same_routes(logs["auto"], logs["torch"]):
+        assert outs["auto"] == outs["torch"]
+    tokens = torch.tensor([list(range(1, 30))], device=cuda_device)
+    logits, routes = {}, {}
+    for b in ("auto", "torch"):
+        with record_routing() as routes[b]:
+            logits[b] = Model(cfg, backend=b).prefill(
+                params, {"tokens": tokens}, Model(cfg).init_cache(1, 32, dtype=torch.float32))[0]
+    if same_routes(routes["auto"], routes["torch"]):
+        torch.testing.assert_close(logits["auto"], logits["torch"], rtol=1e-4, atol=1e-4)
+
+
 def test_lm_prefill_on_card_refuses_index_mismatch(cuda_device):
     """K4 masks by index: a causal prefill whose positions are not
     arange(S) raises on the card instead of taking the plain lane."""

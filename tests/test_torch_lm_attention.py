@@ -1,7 +1,9 @@
 """The port's attention against ``repro.models.attention`` on the same numpy
 inputs and weights: ``update_cache`` in its three index forms,
 ``dot_attention`` dense and chunked (with and without a softcap), and
-``apply_attention`` in prefill and decode, on the plain lane (CPU)."""
+``apply_attention`` in prefill and decode, GQA and MLA (minicpm3-4b's
+expanded prefill and absorbed decode), on the plain lane (CPU); and the
+card lane's zero-padded v for MLA, run through K4's plain version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,11 +154,135 @@ def test_params_and_cache_match_reference():
 
 
 def test_mla_and_unported_parts_raise():
-    cfg, _ = _cfgs(attn_type="mla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.attention_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.init_attn_cache(cfg, 1, 4, device="cpu")
+    """MLA is ported (its specs and caches build); cross-attention and the
+    encoder-decoder family are not, and raise naming their ROADMAP item."""
+    from repro_torch.models import transformer as T
+
+    cfg, _ = _cfgs("minicpm3-4b")
+    assert {"wkv_a", "kv_norm", "wk_b", "wv_b", "wo", "wq_a", "q_norm", "wq_b"} == set(
+        A.attention_params(cfg))
+    assert set(A.init_attn_cache(cfg, 1, 4, device="cpu")) == {"ckv", "k_rope"}
+    assert not hasattr(A, "apply_cross_attention")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13: encoder-decoder"):
+        T.check_family(get_config("llama3.2-1b", smoke=True).replace(family="encdec"))
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+MLA_VARIANTS = {"q_lora": {}, "no_q_lora": {"q_lora_rank": 0}}
+
+
+def _mla_cache(cfg, b, L, rng):
+    return {"ckv": rng.normal(0, 1, (b, L, cfg.kv_lora_rank)).astype(np.float32),
+            "k_rope": rng.normal(0, 1, (b, L, cfg.qk_rope_head_dim)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("variant", MLA_VARIANTS)
+def test_mla_params_and_cache_match_reference(variant):
+    cfg, rcfg = _cfgs("minicpm3-4b", **MLA_VARIANTS[variant])
+    assert {k: tuple(s) for k, s in A.attention_params(cfg).items()} == \
+        {k: tuple(s) for k, s in RA.attention_params(rcfg).items()}
+    cache, ref = A.init_attn_cache(cfg, 2, 7, device="cpu"), RA.init_attn_cache(rcfg, 2, 7)
+    assert set(cache) == set(ref) == {"ckv", "k_rope"}
+    for n in cache:
+        assert tuple(cache[n].shape) == ref[n].shape
+        assert cache[n].dtype == torch.bfloat16 and not cache[n].any()
+
+
+@pytest.mark.parametrize("variant", MLA_VARIANTS)
+@pytest.mark.parametrize("index_form", ["none", "scalar", "bs"])
+def test_apply_mla_prefill_matches_reference(variant, index_form):
+    """The expanded form: per-head k and v from the latent, q and k of
+    nope + rope dims, v of v_head_dim; the latent cache written through."""
+    cfg, rcfg = _cfgs("minicpm3-4b", **MLA_VARIANTS[variant])
+    params = _params(cfg, seed=2)
+    b, s, L = 2, 6, 9
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (b, s, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    cache = index = None
+    if index_form != "none":
+        cache = _mla_cache(cfg, b, L, rng)
+        trash = np.where(np.arange(s) < 4, np.arange(s), 8)[None].repeat(b, 0).astype(np.int32)
+        index = np.int32(0) if index_form == "scalar" else trash
+    want, want_cache = RA.apply_attention(
+        _j(params), rcfg, jnp.asarray(x), jnp.asarray(pos),
+        cache=None if cache is None else _j(cache),
+        cache_index=None if index is None else jnp.asarray(index))
+    got, got_cache = A.apply_attention(
+        _t(params), cfg, torch.from_numpy(x), torch.from_numpy(pos),
+        cache=None if cache is None else _t(cache),
+        cache_index=None if index is None else torch.from_numpy(np.asarray(index)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    if cache is None:
+        assert got_cache is None and want_cache is None
+    else:
+        rows = slice(0, 8)   # row 8 is the trash slot of the (B, S) form
+        assert set(got_cache) == set(want_cache) == {"ckv", "k_rope"}
+        for n in got_cache:
+            np.testing.assert_allclose(got_cache[n].numpy()[:, rows],
+                                       np.asarray(want_cache[n])[:, rows], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("variant", MLA_VARIANTS)
+@pytest.mark.parametrize("index", [np.int32(5), np.array([5, 2, 7], np.int32)],
+                         ids=["scalar", "per-slot"])
+def test_apply_mla_decode_matches_reference(variant, index):
+    """The absorbed decode: q_nope projected into the latent space, the
+    cache never expanded, positions past each row's masked."""
+    cfg, rcfg = _cfgs("minicpm3-4b", **MLA_VARIANTS[variant])
+    params = _params(cfg, seed=3)
+    b, L = 3, 9
+    rng = np.random.default_rng(9)
+    x = rng.normal(0, 1, (b, 1, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.asarray(index, np.int32), (b,))[:, None].copy()
+    cache = _mla_cache(cfg, b, L, rng)
+    want, want_cache = RA.apply_attention(_j(params), rcfg, jnp.asarray(x), jnp.asarray(pos),
+                                          cache=_j(cache), cache_index=jnp.asarray(index))
+    got, got_cache = A.apply_attention(_t(params), cfg, torch.from_numpy(x),
+                                       torch.from_numpy(pos), cache=_t(cache),
+                                       cache_index=torch.from_numpy(np.asarray(index)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    for n in ("ckv", "k_rope"):
+        np.testing.assert_allclose(got_cache[n].numpy(), np.asarray(want_cache[n]),
+                                   rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("s", [1, 6, 33])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_zero_padded_v_route_equals_unpadded_attention(monkeypatch, s, causal):
+    """The card lane's MLA route, v zero-padded to k's width for K4 and the
+    output sliced back, run with K4 replaced by its plain version: equal to
+    ``dot_attention`` on the unpadded v (the reference's MLA prefill), and
+    the padded columns of K4's output exactly 0."""
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg, _ = _cfgs("minicpm3-4b")
+    b, h = 2, cfg.num_heads
+    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    rng = np.random.default_rng(10)
+    q5 = torch.from_numpy(rng.normal(0, 1, (b, s, h, 1, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 1, (b, s, h, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 1, (b, s, h, dv)).astype(np.float32))
+    outs = []
+
+    def plain_k4(q, kk, vv, *, causal, block_q, block_kv, backend):
+        assert backend == "cuda" and vv.shape == kk.shape
+        out = FA.flash_attention(q, kk, vv, causal=causal, block_q=block_q,
+                                 block_kv=block_kv, backend="torch")
+        outs.append(out)
+        return out
+
+    monkeypatch.setattr(A, "flash_attention", plain_k4)
+    got = A._k4_attention_narrow_v(q5, k, v, causal)
+    pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    want = A.dot_attention(q5, k, v, pos_q=pos, pos_k=pos, causal=causal)
+    assert got.shape == want.shape == (b, s, h, 1, dv)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+    assert len(outs) == 1 and outs[0].shape[-1] == d
+    assert torch.count_nonzero(outs[0][..., dv:]) == 0
 
 
 def test_card_lane_refuses_what_k4_cannot_take():

@@ -1,19 +1,22 @@
 """The port's continuous-batching ``Engine`` gives the reference ``Engine``'s
 tokens on the same weights (carried by ``carry_params``), in the three
 cases of ``tests/test_engine.py``: continuous batching, EOS, and more
-requests than slots; and, for falcon-mamba-7b's smoke config, on
+requests than slots; the same for the MoE archs' and minicpm3-4b's
+(MLA) smoke configs, whose bucket-padded prefills drop tokens at the
+experts' capacity; and, for falcon-mamba-7b's smoke config, on
 bucket-length prompts, with one-token prompts that keep a used slot's
 state and the reference's refusal of other lengths."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.models import Model as RefModel
 from repro.serve import Engine as RefEngine
 from repro.serve import Request as RefRequest
 from repro_torch.configs import get_config
-from repro_torch.models import carry_params
+from repro_torch.models import Model, carry_params
 from repro_torch.serve import Engine, Request
 
 
@@ -129,3 +132,49 @@ def test_ssm_engine_refuses_non_bucket_prompts_as_reference(setup_ssm):
         msgs.append(str(err.value))
     assert msgs[0] == msgs[1] == ("ssm engine needs bucket-length prompts; got 19, "
                                   "buckets=(8, 16, 32, 64)")
+
+
+# ---------------------------------------------------------------------------
+# The moe family and MLA: qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b, minicpm3-4b
+# ---------------------------------------------------------------------------
+
+MOE_MLA = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b", "minicpm3-4b")
+
+
+@pytest.fixture(scope="module", params=MOE_MLA)
+def setup_moe_mla(request):
+    """The port's weights from seed 0 (the same in every process, unlike the
+    reference's initializer, which salts each leaf's key with ``hash``), so
+    that which prefills overflow an expert's capacity is fixed."""
+    rcfg = ref_get_config(request.param, smoke=True).replace(dtype="float32")
+    cfg = get_config(request.param, smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(0, device="cpu")
+    return cfg, params, rcfg, jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), params)
+
+
+def test_moe_mla_continuous_batching_matches_reference(setup_moe_mla):
+    """Bucket-padded prefills (b = 1, the routing group = the bucket, pad
+    tokens routed after the prompt's) and decode steps that route every
+    slot, idle ones included; MLA's latent cache takes the pad tokens in
+    its trash slot."""
+    from repro_torch.models import moe
+
+    prompts = [[5, 9, 2, 7], [11, 3], list(range(1, 16)), [42], [13, 14, 15], list(range(30, 60))]
+    reqs = [(i, p, 5, None) for i, p in enumerate(prompts)]
+    with moe.record_routing() as log:
+        got = _both(setup_moe_mla, reqs, max_batch=3, max_len=128, prompt_buckets=(8, 16, 32))
+    assert sorted(got) == list(range(len(prompts))) and all(len(o) == 5 for o in got.values())
+    cfg = setup_moe_mla[0]
+    if cfg.family == "moe":
+        # some prefill's expert queue outgrew its capacity: drops were exercised
+        over = [int(torch.bincount(idx.flatten(), minlength=cfg.num_experts).max())
+                > moe._capacity(idx.shape[0], cfg) for _, idx in log]
+        assert any(over)
+    else:
+        assert not log
+
+
+def test_moe_mla_more_requests_than_slots_match_reference(setup_moe_mla):
+    got = _both(setup_moe_mla, [(i, [i + 1, i + 2, i + 3], 3, None) for i in range(6)],
+                max_batch=2, max_len=64, prompt_buckets=(8,))
+    assert sorted(got) == list(range(6))

@@ -158,6 +158,36 @@ def test_lm_server_on_cpu():
     assert stats["param_count"] == 102_720
 
 
+@pytest.mark.parametrize("arch,params", [("qwen3-moe-30b-a3b", 157_056),
+                                         ("minicpm3-4b", 107_936)])
+def test_moe_and_mla_servers_on_cpu(arch, params):
+    """``--arch qwen3-moe-30b-a3b|minicpm3-4b --smoke --device cpu``: the
+    reference server's prompts through the port's engine (MoE routing and
+    MLA's latent cache), every request served to ``--max-new``, and the
+    tokens the reference's engine gives on the same weights."""
+    import jax
+
+    from repro.models import Model as RefModel
+    from repro.serve import Engine as RefEngine
+    from repro.serve import Request as RefRequest
+
+    stats = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "5",
+                        "--slots", "2", "--max-new", "3"])
+    done = sorted(stats["requests"], key=lambda r: r.uid)
+    assert len(done) == 5 and stats["tokens"] == 5 * 3 and all(r.done for r in done)
+    assert stats["k4_launches"] == 0 and stats["param_count"] == params
+    assert stats["prefills"] == 5 and stats["tok_s"] > 0
+    # The served weights, carried back, give the reference engine's tokens.
+    rcfg = ref_get_config(arch, smoke=True).replace(dtype="float32")
+    rparams = jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), stats["params"])
+    assert RefModel(rcfg).param_count() == params
+    eng = RefEngine(rcfg, rparams, max_batch=2, max_len=256, prompt_buckets=serve.LM_BUCKETS)
+    for r in done:
+        eng.submit(RefRequest(uid=r.uid, prompt=r.prompt, max_new_tokens=3))
+    want = {r.uid: r.output for r in eng.run()}
+    assert {r.uid: r.output for r in done} == want
+
+
 def test_lm_server_cli_and_unported_archs():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
@@ -166,7 +196,7 @@ def test_lm_server_cli_and_unported_archs():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "tok/s; prefill p50=" in proc.stdout and "K4 launches 0" in proc.stdout
-    for argv, msg in ((["--arch", "qwen3-moe-30b-a3b"], "MoE"),
+    for argv, msg in ((["--arch", "zamba2-2.7b"], "ROADMAP queue 1 item 13: the hybrid"),
                       (["--arch", "llama3.2-1b", "--smoke", "--streams", "2"], "--streams")):
         with pytest.raises(SystemExit, match=msg):
             serve.main(argv + ["--device", "cpu"])
