@@ -164,12 +164,17 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    8/16/32/64, 8192, 16), f32, beside its plain version and its
    bound (``scan_bound``: bytes, f32 operations and the SFU's exponentials,
    each term printed); no PyTorch call computes a selective scan, so it
-   has no yardstick.
+   has no yardstick. K4 also at zamba2's (1, 32, 2048, 80) and pixtral's
+   (1, 32, 1056, 128) causal and whisper's encoder (1, 20, 1500, 64)
+   non-causal, in turns with SDPA of the same mask.
 6. Holds K4 (``flash_attention``) to ``flash_attention_plain`` on the card,
    f32 and bf16, causal and not, on the reference test's four shapes,
    ragged lengths 1-200 at head dims 64 and 128, the server's prefill shapes
-   and (1, 32, 2048, 64): f32 within 2e-5 (abs + rel), bf16 within one
-   ulp of the output plus 2e-5. MLA's prefill shapes (1, 40, S, 96), S in
+   and (1, 32, 2048, 64), zamba2's shared block (1, 32, S, 80) for S in
+   8/16/32/64/1000/2048, whisper's encoder (4, 20, 1500, 1500, 64), cross-
+   (4, 20, 32, 1500, 64) and decoder self-attention (4, 20, 32, 32, 64),
+   and pixtral's (4, 32, 1056, 1056, 128): f32 within 2e-5 (abs + rel),
+   bf16 within one ulp of the output plus 2e-5. MLA's prefill shapes (1, 40, S, 96), S in
    8/16/32/64/2048, causal f32, v of 64 zero-padded to 96 as
    ``models/attention.py`` pads it: within 2e-5 of the plain version on the
    padded and on the 64-wide v, the 32 padded output columns exactly 0.
@@ -258,7 +263,33 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    and nothing else may launch; then ``lane_replay``, ``profile_engine``
    and ``long_prefill`` (62 K4 launches a prompt) on the same weights.
 
-Phases 6-9b run after 4d, then 11-12, then phase 5, then 10 and 10b. The last line is
+13. zamba2-2.7b (hybrid) at FULL width and depth in f32 (2,422,670,240
+   parameters, 9.7 GB, drawn on the card from seed 0): the ``Engine`` at
+   4 slots on 16 bucket-length prompts (``ssm_prompts``), 16 new tokens,
+   counts set to 0 just before and read just after: K4 must launch 9
+   shared-block applications x 16 prefills = 144 times and nothing else
+   may launch (the Mamba-2 SSD is plain PyTorch, as the reference's is
+   XLA). Then ``lane_replay`` (logits within ``LOGIT_TOL``, tokens equal
+   but for near ties), ``profile_engine`` (K4's share of the prefills, the
+   decode step's idle share) and ``long_prefill`` (9 K4 launches a prompt).
+14. whisper-large-v3 (encdec) at FULL width and depth (1,601,198,080
+   parameters, 6.4 GB): ``Model.prefill`` of 4 prompts of 32 tokens over
+   the whole 1,500-frame window (``lm_batch``'s ``enc_embeds``, seed 0),
+   three times, each exactly 96 K4 launches (32 encoder, non-causal; 32
+   decoder self; 32 cross, non-causal), then 16 greedy ``decode_step``s
+   that launch nothing (``frontend_serve``). The plain lane and a one-ulp
+   control run the same; the lanes are held block by block
+   (``frontend_layer_local``: attention and cross-attention within
+   ``ATTN_TOL``, last-layer logits within ``LOGIT_TOL``), and end to end
+   where the control stays within ``LOGIT_TOL``. Prints prefill p50,
+   decode-step p50, tok/s, K4's share of a prefill and a decode step's
+   idle share. The weights are freed.
+15. pixtral-12b (vlm) at FULL width and depth (12,247,782,400 parameters,
+   49.0 GB, after every earlier model is freed): the same with 4 prompts
+   of 1,024 stub patches + 32 text tokens (``lm_batch``), 40 K4 launches a
+   prefill.
+
+Phases 6-9b run after 4d, then 11-15, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -1775,6 +1806,15 @@ K4_CASES = (
     + [((1, 4, s, s, d), (s, s)) for s in (1, 7, 65, 129, 200) for d in (64, 128)]
     + [((1, 32, s, s, 64), (s, s)) for s in (8, 16, 32, 64)]
     + [((1, 32, 2048, 2048, 64), (128, 128))]
+    # zamba2's shared block (32 heads of 80: the D <= 128 instance) at the
+    # engine's buckets and the long prefills; whisper's encoder, decoder
+    # self- and cross-attention (20 heads of 64; 4 prompts of 32 tokens
+    # over the 1,500-frame window); pixtral's 1,024 patches + 32 tokens
+    # (8 KV heads repeated to 32 of 128).
+    + [((1, 32, s, s, 80), (s, s)) for s in (8, 16, 32, 64, 1000, 2048)]
+    + [((4, 20, 1500, 1500, 64), (1500, 1500)), ((4, 20, 32, 1500, 64), (32, 1500)),
+       ((4, 20, 32, 32, 64), (32, 32))]
+    + [((4, 32, 1056, 1056, 128), (1056, 1056))]
 )
 K4_TOL = 2e-5            # f32: tests/test_kernels.py's atol and rtol
 # minicpm3-4b's MLA prefill as K4 sees it: 40 heads, q and k of 64 nope + 32
@@ -1908,6 +1948,27 @@ def padded_batch(ctx, dev, trash=None):
             "cache_positions": torch.where(pos < len(ctx), pos, trash)}, b
 
 
+def engine_batch(cfg, ctx, dev):
+    """The engine's prefill batch of one context and the cache length it
+    needs: bucket-padded with a trash slot (the attention families), or the
+    context as it is (ssm and hybrid: bucket-length contexts only)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return {"tokens": torch.tensor([ctx], dtype=torch.int32, device=dev)}, len(ctx) + 1
+    batch, b = padded_batch(ctx, dev)
+    return batch, b + 1
+
+
+def k4_per_prefill(cfg) -> int:
+    """K4 launches of one prefill: one a layer (dense, moe, vlm), one a
+    shared-block application (hybrid), encoder + decoder self + cross
+    (encdec)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
 def top2_gap(logits: torch.Tensor, token: int):
     """The gap between the two largest of ``logits`` and how far ``token``'s
     logit lies below the largest."""
@@ -1986,14 +2047,14 @@ def replay_logits(cfg, params, prompt, outputs, step, backend, dev):
     """Teacher-forced greedy decode of one request on one lane (batch 1):
     the logits at ``step`` after feeding ``outputs[:step]``. The context is
     prefilled as the engine does: bucket-padded with the pad tokens aimed at
-    a trash slot, or, for an ssm model, as it is."""
+    a trash slot, or, for an ssm or hybrid model, as it is."""
     from repro_torch.models import Model
 
     model = Model(cfg, backend=backend)
     n = len(prompt) - 1
     length = len(prompt) + step + 1              # the last position is the trash slot
     cache = model.init_cache(1, length, dtype=torch.float32, device=dev)
-    if n and cfg.family == "ssm":
+    if n and cfg.family in ("ssm", "hybrid"):
         model.prefill(params, {"tokens": torch.tensor([prompt[:-1]], device=dev)}, cache)
     elif n:
         model.prefill(params, padded_batch(prompt[:-1], dev, trash=length - 1)[0], cache)
@@ -2004,8 +2065,9 @@ def replay_logits(cfg, params, prompt, outputs, step, backend, dev):
 
 def lane_replay(cfg, params, done, dev) -> dict:
     """The served requests (kernel lane) against the plain lane on the card,
-    on the same weights. Every prompt's engine prefill (bucket-padded): a
-    dense model's logits within ``LOGIT_TOL`` on both lanes; a moe model's
+    on the same weights. Every prompt's engine prefill (bucket-padded, or
+    as it is for a hybrid model): a dense or hybrid model's logits within
+    ``LOGIT_TOL`` on both lanes; a moe model's
     blocks by ``layer_local`` (prompts whose last layer routed apart are
     exempt from its logit check, and counted). Then the requests replayed
     through a plain-lane ``Engine``: greedy tokens equal except where the
@@ -2020,13 +2082,13 @@ def lane_replay(cfg, params, done, dev) -> dict:
     moe = cfg.family == "moe"
     worst, local = 0.0, []
     for r in done:
-        batch, b = padded_batch(r.prompt[:-1], dev)
+        batch, length = engine_batch(cfg, r.prompt[:-1], dev)
         if moe:
             local.append(layer_local(cfg, params, batch))
             continue
         lane = {}
         for backend in ("auto", "torch"):
-            cache = Model(cfg).init_cache(1, b + 1, dtype=torch.float32, device=dev)
+            cache = Model(cfg).init_cache(1, length, dtype=torch.float32, device=dev)
             lane[backend], _ = Model(cfg, backend=backend).prefill(params, batch, cache)
         check(bool(torch.isfinite(lane["auto"]).all()), "non-finite prefill logits")
         worst = max(worst, float((lane["auto"] - lane["torch"]).abs().max()))
@@ -2095,12 +2157,13 @@ def profile_engine(cfg, params, prompts, label: str) -> dict:
     eng = Engine(cfg, params, max_batch=LM_SLOTS, max_len=256, prompt_buckets=LM_BUCKETS)
     for uid, prompt in enumerate(prompts[:LM_SLOTS]):
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=LM_NEW))
-    _, _, k4_us = device_profile(f"four engine prefills (K4 lane), {label}", eng._admit, top=8,
-                                 kernel="flash_kernel")
+    busy_p, _, k4_us = device_profile(f"four engine prefills (K4 lane), {label}", eng._admit,
+                                      top=8, kernel="flash_kernel")
     eng._decode_once()
     busy, span, _ = device_profile(f"one engine decode step, 4 slots, {label}",
                                    eng._decode_once, top=8)
-    return dict(k4_profile_us=k4_us, decode_idle=1 - busy / span)
+    return dict(k4_profile_us=k4_us, k4_share=k4_us / busy_p, decode_idle=1 - busy / span,
+                decode_busy_us=busy)
 
 
 def phase_lm_server(dev):
@@ -2139,7 +2202,8 @@ def phase_lm_server(dev):
 def long_prefill(cfg, params, dev) -> int:
     """``Model.prefill`` of one prompt of 2,048 random tokens and one of
     1,000 (``default_rng(7)``) on both lanes, counts set to 0 before each:
-    the kernel lane launches K4 once a layer and nothing else, the plain
+    the kernel lane launches K4 ``k4_per_prefill`` times (once a layer, or
+    once a hybrid's shared-block application) and nothing else, the plain
     lane nothing; logits within ``LOGIT_TOL`` (a moe model: ``layer_local``,
     and the free-running lanes' difference printed beside the one-ulp
     control's). Prints each lane's seconds. Returns the K4 launches."""
@@ -2160,7 +2224,7 @@ def long_prefill(cfg, params, dev) -> int:
             secs[backend] = time.perf_counter() - t0
             counts = read_counts()
             k4 = counts["k4"]
-            check(k4 == (cfg.num_layers if backend == "auto" else 0)
+            check(k4 == (k4_per_prefill(cfg) if backend == "auto" else 0)
                   and all(counts[k] == 0 for k in COUNTS if k != "k4"),
                   f"prefill of {n} tokens ({backend}) launched {counts}")
             launches += k4
@@ -2183,7 +2247,7 @@ def long_prefill(cfg, params, dev) -> int:
             check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
             line = f"K4 lane within {err:.3g} of the plain lane (tolerance {LOGIT_TOL})"
         print(f"long prefill {cfg.name} ({cfg.num_layers} layers) {n} tokens: {line}; K4 "
-              f"launches {cfg.num_layers}; K4 lane {secs['auto']:.2f} s, plain lane "
+              f"launches {k4_per_prefill(cfg)}; K4 lane {secs['auto']:.2f} s, plain lane "
               f"{secs['torch']:.2f} s")
     return launches
 
@@ -2218,35 +2282,43 @@ def flash_bound(shape, causal: bool, elt: int, dv: int = 0) -> dict:
 def phase_k4_timing(dev, lm, long_launches, main_err, paths):
     """Phase 5 (K4): CUDA-event medians of K4, its plain version and
     F.scaled_dot_product_attention (the yardstick; the port never calls
-    it), causal f32, at (1, 32, 2048, 64), the server's prefill shapes and
+    it), f32, causal at (1, 32, 2048, 64), the server's prefill shapes,
     MLA's (1, 40, 2048, 96) with v of 64 (K4 on v zero-padded to 96, SDPA
-    on the 64-wide v). ``paths`` holds the other LM paths' K4 launches and
-    server numbers (phases 11-12)."""
+    on the 64-wide v), zamba2's shared block (1, 32, 2048, 80) and
+    pixtral's (1, 32, 1056, 128); non-causal at whisper's encoder (1, 20,
+    1500, 64). ``paths`` holds the other LM paths' K4 launches and server
+    numbers (phases 11-15)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {}
-    for s, h, d, dv in ((2048, 32, 64, 64), (8, 32, 64, 64), (16, 32, 64, 64), (32, 32, 64, 64),
-                        (64, 32, 64, 64), (2048, MLA_HEADS, MLA_QK, MLA_V)):
+    for s, h, d, dv, causal in ((2048, 32, 64, 64, True), (8, 32, 64, 64, True),
+                                (16, 32, 64, 64, True), (32, 32, 64, 64, True),
+                                (64, 32, 64, 64, True), (2048, MLA_HEADS, MLA_QK, MLA_V, True),
+                                (2048, 32, 80, 80, True), (1500, 20, 64, 64, False),
+                                (1056, 32, 128, 128, True)):
         shape = (1, h, s, s, d)
         q, k, v = attention_inputs(shape, torch.float32, dev, seed=s)
         v = v[..., :dv]
         vk = F.pad(v, (0, d - dv))       # what K4 takes: v of k's width
-        got = flash_attention(q, k, vk, block_q=s, block_kv=s)[..., :dv]
-        want = flash_attention_plain(q, k, v)
-        fb = flash_bound(shape, True, 4, dv)
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
-        kern = lambda: flash_attention(q, k, vk, block_q=s, block_kv=s)  # noqa: E731
+        got = flash_attention(q, k, vk, causal=causal, block_q=s, block_kv=s)[..., :dv]
+        want = flash_attention_plain(q, k, v, causal=causal)
+        fb = flash_bound(shape, causal, 4, dv)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        kern = lambda: flash_attention(q, k, vk, causal=causal, block_q=s,  # noqa: E731
+                                       block_kv=s)
         # In turns (library, kernel, kernel, library), each a median of 20.
         lib1, ms1, ms2, lib2 = median_ms(sdpa), median_ms(kern), median_ms(kern), median_ms(sdpa)
         row = dict(ms=statistics.median([ms1, ms2]), ms_runs=[ms1, ms2],
-                   plain_ms=median_ms(lambda: flash_attention_plain(q, k, v)),
+                   plain_ms=median_ms(lambda: flash_attention_plain(q, k, v, causal=causal)),
                    library_ms=statistics.median([lib1, lib2]), library_ms_runs=[lib1, lib2],
-                   max_abs_err=float((got - want).abs().max()), shape=list(shape), dv=dv, **fb)
-        label = f"1x{h}x{s}x{d}" + (f"_v{dv}" if dv != d else "")
+                   max_abs_err=float((got - want).abs().max()), shape=list(shape), dv=dv,
+                   causal=causal, **fb)
+        label = f"1x{h}x{s}x{d}" + (f"_v{dv}" if dv != d else "") + ("" if causal else "_full")
         rows[label] = row
         verdict = "faster" if row["ms"] < row["library_ms"] else "slower"
-        print(f"K4 at (1, {h}, {s}, {d}){f' v {dv} padded to {d}' if dv != d else ''} causal f32: "
+        print(f"K4 at (1, {h}, {s}, {d}){f' v {dv} padded to {d}' if dv != d else ''} "
+              f"{'causal' if causal else 'non-causal'} f32: "
               f"{ms1:.4f} / {ms2:.4f} ms; scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} "
               f"ms (K4 {verdict}, {row['ms'] / row['library_ms']:.3f}x); plain "
               f"{row['plain_ms']:.4f} ms; bound {fb['bound_ms']:.4f} ms by {fb['bound_by']} "
@@ -2257,7 +2329,10 @@ def phase_k4_timing(dev, lm, long_launches, main_err, paths):
     by_path = {"llama3.2-1b server": lm["k4"], "llama3.2-1b long prefills": long_launches,
                **paths["launches"]}
     server_keys = ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens", "prefills",
-                   "decode_steps", "param_count", "logit_err", "near_ties", "decode_idle")
+                   "decode_steps", "param_count", "logit_err", "near_ties", "decode_idle",
+                   "decode_busy_us", "k4_share", "k4_profile_us", "plain_prefill_ms",
+                   "attn_err", "cross_err", "free_logit_err", "control_logit_err",
+                   "decode_logit_err", "decode_control_err")
     return {
         "name": "K4 flash_attention (online-softmax attention)",
         "route": "cuda",
@@ -2273,7 +2348,7 @@ def phase_k4_timing(dev, lm, long_launches, main_err, paths):
         "shapes": rows,
         "launches_by_path": by_path,
         "launches_long_prefill": long_launches,
-        "server": {k: lm[k] for k in server_keys},
+        "server": {k: lm[k] for k in server_keys if k in lm},
         **{name: {k: v for k, v in st.items() if k in server_keys or k.startswith("route")}
            for name, st in paths["servers"].items()},
     }
@@ -2539,17 +2614,26 @@ def launch_device_us(fn, kernel: str, launches: int = 50) -> float:
     """Mean device microseconds a launch of the kernels whose name contains
     ``kernel``, over ``launches`` calls of ``fn`` under the profiler (no
     host time between launches counts), averaged over the launches the
-    profiler kept (it may drop some of a long run of short kernels)."""
+    profiler kept (it may drop some of a long run of short kernels). On
+    the H100 a short window can come back with none of its device records
+    (seen at 50 launches of a 3 us kernel); such a window is run again with
+    ten times the launches, twice at most, and says so."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in evs)
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in evs)
+        if count or attempt == 2:
+            break
+        print(f"  the profiler kept none of {launches} {kernel} launches; again with "
+              f"{10 * launches}")
+        launches *= 10
     check(0 < count <= launches, f"the profiler saw {count} {kernel} launches of {launches}")
     return sum(e.self_device_time_total for e in evs) / count
 
@@ -2627,22 +2711,25 @@ MLA_ARGS = ["--arch", MLA_ARCH, "--requests", "16", "--slots", "4", "--max-new",
 
 
 def draw(arch: str, layers: int, dev):
-    """FULL-width ``arch`` at ``layers`` layers in f32, its weights drawn on
-    the card from seed 0. Returns (cfg, params)."""
+    """FULL-width ``arch`` at ``layers`` layers (``None``: its whole depth)
+    in f32, its weights drawn on the card from seed 0. Returns (cfg,
+    params)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers or full.num_layers, dtype="float32")
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=dev)
     torch.cuda.synchronize()
     n_params = model.param_count()
-    print(f"{cfg.name} FULL width, {layers} of {get_config(arch).num_layers} layers: "
-          f"{n_params:,} params drawn on the card in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
-    check(n_params == CUT_PARAMS[arch], f"{cfg.name} has {n_params:,} params, not "
-                                        f"{CUT_PARAMS[arch]:,}")
+    want = CUT_PARAMS[arch] if layers else FULL_PARAMS[arch]
+    print(f"{cfg.name} FULL width, {cfg.num_layers} of {full.num_layers} layers: "
+          f"{n_params:,} params ({4 * n_params / 1e9:.1f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+          f"allocated")
+    check(n_params == want, f"{cfg.name} has {n_params:,} params, not {want:,}")
     return cfg, params
 
 
@@ -2745,6 +2832,298 @@ def phase_mla_server(dev):
     stats.update(lane_replay(cfg, params, done, dev), k4=counts["k4"])
     stats.update(profile_engine(cfg, params, prompts, cfg.name))
     stats["long_launches"] = long_prefill(cfg, params, dev)
+    return stats
+
+
+# --- The hybrid, encdec and vlm families on K4 (phases 13-15) -----------------
+
+HYBRID_ARCH = "zamba2-2.7b"          # 9.7 GB in f32, whole
+ENCDEC_ARCH = "whisper-large-v3"     # 6.4 GB in f32, whole
+VLM_ARCH = "pixtral-12b"             # 49.0 GB in f32, whole
+# Model.param_count() at FULL width and depth, as the reference counts them.
+FULL_PARAMS = {HYBRID_ARCH: 2_422_670_240, ENCDEC_ARCH: 1_601_198_080,
+               VLM_ARCH: 12_247_782_400}
+FRONTEND_BATCH = 4                   # prompts in one Model.prefill (whisper, pixtral)
+FRONTEND_TEXT = 32                   # decoder / text tokens of each prompt
+FRONTEND_PREFILLS = 3                # K4-lane prefills timed (their p50 is printed)
+
+
+def phase_hybrid_server(dev):
+    """Phase 13, zamba2-2.7b at FULL width and depth, f32: the ``Engine``
+    at 4 slots on 16 bucket-length prompts (``ssm_prompts``), 16 new tokens
+    each, counts set to 0 just before and read just after: K4 must launch
+    9 shared-block applications x 16 prefills = 144 times and nothing else
+    may launch. Then ``lane_replay``, ``profile_engine`` and
+    ``long_prefill`` (9 K4 launches a prompt) on the same weights."""
+    from repro_torch.serve import Engine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = draw(HYBRID_ARCH, None, dev)
+    prompts = ssm_prompts(cfg.vocab_size, LM_REQUESTS)
+    eng = Engine(cfg, params, max_batch=LM_SLOTS, max_len=256, prompt_buckets=SSM_BUCKETS)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=LM_NEW))
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = k4_per_prefill(cfg) * LM_REQUESTS
+    check(counts["k4"] == want, f"the hybrid engine launched K4 {counts['k4']} times, not "
+                                f"{k4_per_prefill(cfg)} x {LM_REQUESTS} = {want}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"),
+          f"the hybrid engine launched {counts}")
+    done = sorted(done, key=lambda r: r.uid)
+    check(len(done) == LM_REQUESTS and all(len(r.output) == LM_NEW for r in done),
+          "the hybrid engine did not serve every request to its max_new_tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output), "token out of range")
+    check([r.prompt for r in done] == prompts, "the engine's prompts are not the replay's")
+    toks = sum(len(r.output) for r in done)
+    stats = dict(tokens=toks, seconds=wall, tok_s=toks / wall, prefills=len(eng.prefill_ms),
+                 decode_steps=len(eng.decode_ms),
+                 prefill_p50_ms=statistics.median(eng.prefill_ms),
+                 decode_p50_ms=statistics.median(eng.decode_ms),
+                 param_count=FULL_PARAMS[HYBRID_ARCH], k4=counts["k4"])
+    print(f"hybrid engine {cfg.name}: {stats['tok_s']:.1f} tok/s ({toks} tokens in {wall:.3f} s); "
+          f"prefill p50 {stats['prefill_p50_ms']:.3f} ms ({stats['prefills']}, contexts of "
+          f"{sorted(set(len(p) - 1 for p in prompts))} tokens); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); K4 launches "
+          f"{counts['k4']}")
+    del eng
+    stats.update(lane_replay(cfg, params, done, dev))
+    stats.update(profile_engine(cfg, params, prompts, cfg.name))
+    stats["long_launches"] = long_prefill(cfg, params, dev)
+    return stats
+
+
+def frontend_batch(cfg, dev) -> dict:
+    """``data.synthetic.lm_batch`` (seed 0) of ``FRONTEND_BATCH`` prompts on
+    the card: whisper's whole 30 s window of 1,500 frames (``enc_embeds``,
+    drawn at seq_len = encoder_len) with the first ``FRONTEND_TEXT`` tokens
+    of its stream as the decoder prompt; pixtral's 1,024 patches
+    (``patch_embeds``) before ``FRONTEND_TEXT`` text tokens."""
+    from repro_torch.data.synthetic import lm_batch
+
+    if cfg.family == "encdec":
+        b = lm_batch(cfg, FRONTEND_BATCH, cfg.encoder_len, seed=0)
+        b = {"tokens": b["tokens"][:, :FRONTEND_TEXT], "enc_embeds": b["enc_embeds"]}
+    else:
+        b = lm_batch(cfg, FRONTEND_BATCH, cfg.num_patches + FRONTEND_TEXT, seed=0)
+        b = {"tokens": b["tokens"], "patch_embeds": b["patch_embeds"]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+
+def ulp_batch(batch: dict) -> dict:
+    """``batch`` with its frontend embeddings (``enc_embeds``,
+    ``patch_embeds``) moved by one ulp (x (1 + 2^-23)), for the control
+    lane beside ``ulp_params``."""
+    return {k: v * (1 + 2.0 ** -23) if k.endswith("_embeds") else v for k, v in batch.items()}
+
+
+def frontend_layer_local(cfg, params, batch) -> dict:
+    """An encdec or vlm model's two lanes block by block, each block run on
+    both lanes from the plain lane's hidden state (as ``layer_local`` does
+    for a moe model): every self-attention output (the encoder's
+    non-causal) and every cross-attention output (from the plain lane's
+    encoder output and state) of the K4 lane within ``ATTN_TOL`` of the
+    plain lane's, relative to its largest value, and the last layer's
+    logits (final norm and head on each lane's last block, last position)
+    within ``LOGIT_TOL``. Returns the worst of each."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import apply_attention, apply_cross_attention, cross_kv
+    from repro_torch.models.layers import apply_norm, torch_dtype
+
+    dtype = torch_dtype(cfg.dtype)
+    out = dict(attn_err=0.0, cross_err=0.0, logit_err=0.0)
+    lanes = ("auto", "torch")
+
+    def self_attention(lp, x, pos, causal):
+        xn = apply_norm(lp["ln1"], cfg, x)
+        h = {bk: apply_attention(lp["attn"], cfg, xn, pos, causal=causal, backend=bk)[0]
+             for bk in lanes}
+        out["attn_err"] = max(out["attn_err"], max_rel(h["auto"], h["torch"]))
+        return h["torch"]
+
+    enc_out = None
+    if cfg.family == "encdec":
+        x0 = batch["enc_embeds"].to(dtype)
+        b, t = x0.shape[0], x0.shape[1]
+        pos = torch.arange(t, dtype=torch.int32, device=x0.device)[None].expand(b, t)
+        x = x0 + T._sinusoid(pos, cfg.d_model).to(dtype)
+        for i in range(cfg.encoder_layers):
+            lp = T._layer(params["encoder"]["layers"], i)
+            self_attention(lp, x, pos, False)
+            x, _, _ = T._apply_attn_block(lp, cfg, x, pos, causal=False, backend="torch")
+        enc_out = apply_norm(params["encoder"]["final_norm"], cfg, x)
+    x, positions = T._prepare_inputs(params, cfg, batch, dtype)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        h = self_attention(lp, x, positions, True)
+        enc_kv = None
+        if enc_out is not None:
+            enc_kv = cross_kv(lp["cross"], cfg, enc_out)
+            xc = apply_norm(lp["ln_x"], cfg, x + h)
+            c = {bk: apply_cross_attention(lp["cross"], cfg, xc, *enc_kv, backend=bk)
+                 for bk in lanes}
+            out["cross_err"] = max(out["cross_err"], max_rel(c["auto"], c["torch"]))
+        y = {bk: T._apply_attn_block(lp, cfg, x, positions, causal=True, enc_kv=enc_kv,
+                                     backend=bk)[0] for bk in lanes}
+        x = y["torch"]
+    logits = {bk: T.unembed(params, cfg, apply_norm(params["final_norm"], cfg, y[bk][:, -1:]))
+              for bk in lanes}
+    out["logit_err"] = float((logits["auto"] - logits["torch"]).abs().max())
+    check(out["attn_err"] <= ATTN_TOL and out["cross_err"] <= ATTN_TOL,
+          f"{cfg.name}: K4's attention differs from the plain lane's by {out['attn_err']:.3g} "
+          f"(cross {out['cross_err']:.3g}) of its largest value > {ATTN_TOL}")
+    check(out["logit_err"] <= LOGIT_TOL,
+          f"{cfg.name}: the last layer's logits differ by {out['logit_err']} > {LOGIT_TOL}")
+    return out
+
+
+def frontend_serve(arch: str, dev) -> dict:
+    """Phases 14 (whisper-large-v3) and 15 (pixtral-12b), FULL width and
+    depth in f32, weights drawn on the card from seed 0: ``Model.prefill``
+    of ``frontend_batch``'s 4 prompts, then ``LM_NEW`` greedy
+    ``decode_step``s (the reference's servers refuse these families, so
+    the model is driven as tests/test_decode_consistency.py drives it).
+    The K4 lane prefills ``FRONTEND_PREFILLS`` times, counts set to 0 just
+    before each and read just after: ``k4_per_prefill`` launches each
+    (whisper 32 encoder + 32 decoder self + 32 cross = 96; pixtral 40), and
+    none during the decode. Then the plain lane on the same weights, and
+    the control: the plain lane with the token embeddings and the
+    frontend embeddings moved by one ulp (``ulp_params``, ``ulp_batch``),
+    teacher-forced on the plain lane's tokens, which shows how far the
+    model's own rounding carries a last-bit difference at each step. Held:
+    the blocks layer by layer (``frontend_layer_local``: attention within
+    ``ATTN_TOL``, last-layer logits within ``LOGIT_TOL``); and, where the
+    control stays within ``LOGIT_TOL`` at every step, end to end: the
+    free-running prefill logits, and the decode logits while both lanes'
+    tokens agree, within ``LOGIT_TOL``, greedy tokens equal except where
+    the plain lane's top-2 gap is below it (the ties are counted). Where
+    the control parts past it (at random weights: the stacked specs'
+    ``fan_in`` init divides by the layer count, so the attention scores are
+    sharp and a last-bit difference grows from layer to layer;
+    ``tools/encdec_lane_divergence.py`` prints it), the free-running
+    numbers are printed beside the control's. Then one prefill and one
+    decode step under the profiler. Frees the weights."""
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = draw(arch, None, dev)
+    batch = frontend_batch(cfg, dev)
+    b, s = batch["tokens"].shape
+    off = cfg.num_patches if cfg.family == "vlm" else 0
+    length = off + s + LM_NEW + 1
+    lanes = {}
+    for lane in ("auto", "torch", "control"):
+        backend = "auto" if lane == "auto" else "torch"
+        w, bt = (ulp_params(params), ulp_batch(batch)) if lane == "control" else (params, batch)
+        model = Model(cfg, backend=backend)
+        pre_ms = []
+        for _ in range(FRONTEND_PREFILLS if lane == "auto" else 1):
+            cache = model.init_cache(b, length, dtype=torch.float32, device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(w, bt, cache)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            check(counts["k4"] == (k4_per_prefill(cfg) if lane == "auto" else 0)
+                  and all(counts[k] == 0 for k in COUNTS if k != "k4"),
+                  f"{cfg.name} prefill ({lane}) launched {counts}")
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (b, 1, cfg.vocab_size),
+              f"{cfg.name} prefill logits: shape {tuple(logits.shape)} or not finite")
+        tok = logits[:, -1].argmax(-1)
+        toks, step_logits, dec_ms = [tok], [logits[:, -1]], []
+        reset_counts()
+        for i in range(LM_NEW):
+            if lane == "control":       # teacher-forced on the plain lane's tokens
+                tok = lanes["torch"]["toks"][:, i].to(dev)
+            t0 = time.perf_counter()
+            step, cache = model.decode_step(w, cache, tok[:, None], off + s + i)
+            tok = step[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            step_logits.append(step[:, -1])
+        counts = read_counts()
+        check(all(v == 0 for v in counts.values()), f"{cfg.name} decode launched {counts}")
+        lanes[lane] = dict(pre_ms=pre_ms, dec_ms=dec_ms, toks=torch.stack(toks, 1).cpu(),
+                           logits=torch.stack(step_logits, 1))
+        del cache, w, bt
+    k4, plain, ctrl = lanes["auto"], lanes["torch"], lanes["control"]
+    noise = (ctrl["logits"] - plain["logits"]).abs().amax(-1)         # (b, steps)
+    diff = (k4["logits"] - plain["logits"]).abs().amax(-1)
+    # Where a last-bit change of the inputs moves the logits past LOGIT_TOL,
+    # the model's own rounding decides the free-running logits and tokens,
+    # and only the layer-by-layer comparison can hold the kernel.
+    end_to_end = float(noise.max()) <= LOGIT_TOL
+    parted, dec_err, dec_noise = [], 0.0, float(noise[:, 1:].max())
+    for row in range(b):
+        got, want = k4["toks"][row].tolist(), plain["toks"][row].tolist()
+        agree = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), len(got))
+        # step j's logits were computed on the same history as long as j <= agree
+        for j in range(min(agree + 1, len(got))):
+            check(not end_to_end or float(diff[row, j]) <= LOGIT_TOL,
+                  f"{cfg.name} prompt {row} step {j}: logits differ by {float(diff[row, j])} > "
+                  f"{LOGIT_TOL}")
+            if j:
+                dec_err = max(dec_err, float(diff[row, j]))
+        if agree < len(got):
+            gap, below = top2_gap(plain["logits"][row, agree], got[agree])
+            check(not end_to_end or (gap < LOGIT_TOL and below < LOGIT_TOL),
+                  f"{cfg.name} prompt {row} token {agree}: {got[agree]} (plain {want[agree]}) "
+                  f"with the plain lane's top-2 gap {gap} and the token {below} below its top")
+            parted.append(agree)
+    ties = len(parted) if end_to_end else 0          # near ties, held above
+    pre_err, pre_noise = float(diff[:, 0].max()), float(noise[:, 0].max())
+    local = frontend_layer_local(cfg, params, batch)
+    n_tok = b * (LM_NEW + 1)
+    wall_ms = k4["pre_ms"][-1] + sum(k4["dec_ms"])
+    stats = dict(tokens=n_tok, seconds=wall_ms / 1e3, tok_s=n_tok / (wall_ms / 1e3),
+                 prefills=len(k4["pre_ms"]), decode_steps=len(k4["dec_ms"]),
+                 prefill_p50_ms=statistics.median(k4["pre_ms"]),
+                 decode_p50_ms=statistics.median(k4["dec_ms"]),
+                 plain_prefill_ms=plain["pre_ms"][0], param_count=FULL_PARAMS[arch],
+                 k4=k4_per_prefill(cfg) * len(k4["pre_ms"]), logit_err=local["logit_err"],
+                 attn_err=local["attn_err"], cross_err=local["cross_err"],
+                 free_logit_err=pre_err, control_logit_err=pre_noise,
+                 decode_logit_err=dec_err, decode_control_err=dec_noise, near_ties=ties,
+                 parted_at=parted, end_to_end=end_to_end)
+    shape = (f"{b} x ({cfg.num_patches} patches + {s} tokens)" if off else
+             f"{b} x {s} tokens over {batch['enc_embeds'].shape[1]} frames")
+    print(f"{cfg.name} ({cfg.family}): prefill of {shape}: p50 {stats['prefill_p50_ms']:.3f} "
+          f"ms ({stats['prefills']}: {', '.join(f'{t:.1f}' for t in k4['pre_ms'])}; plain "
+          f"lane {stats['plain_prefill_ms']:.1f} ms); decode step p50 "
+          f"{stats['decode_p50_ms']:.3f} ms ({stats['decode_steps']}); {stats['tok_s']:.1f} "
+          f"tok/s ({n_tok} greedy tokens in {wall_ms / 1e3:.3f} s); K4 launches "
+          f"{k4_per_prefill(cfg)} a prefill, 0 in the decode")
+    print(f"  layer by layer (each block on both lanes from the plain lane's input): "
+          f"attention within {local['attn_err']:.3g} of its largest value, cross-attention "
+          f"within {local['cross_err']:.3g} (tolerance {ATTN_TOL}); last-layer logits within "
+          f"{local['logit_err']:.3g} (tolerance {LOGIT_TOL})")
+    if end_to_end:
+        held = (f"held end to end: tokens equal in {b - ties} of {b} prompts, {ties} near "
+                f"ties (top-2 gap < {LOGIT_TOL})")
+    else:
+        held = (f"not held end to end (the one-ulp control parts past {LOGIT_TOL}): the "
+                f"lanes' tokens part in {len(parted)} of {b} prompts, at steps {parted}")
+    print(f"  free-running on the card: prefill logits within {pre_err:.3g}, decode logits "
+          f"within {dec_err:.3g} while the tokens agree; the one-ulp control (plain lane, "
+          f"teacher-forced) within {pre_noise:.3g} and {dec_noise:.3g}; {held}")
+    del lanes
+    model = Model(cfg)
+    cache = model.init_cache(b, length, dtype=torch.float32, device=dev)
+    busy_p, _, k4_us = device_profile(f"one prefill (K4 lane), {cfg.name}",
+                                      lambda: model.prefill(params, batch, cache), top=8,
+                                      kernel="flash_kernel")
+    tok = batch["tokens"][:, -1:]
+    busy, span, _ = device_profile(f"one decode step, {b} prompts, {cfg.name}",
+                                   lambda: model.decode_step(params, cache, tok, off + s), top=8)
+    stats.update(k4_profile_us=k4_us, k4_share=k4_us / busy_p, decode_idle=1 - busy / span,
+                 decode_busy_us=busy)
+    del params, cache
+    free_weights()
     return stats
 
 
@@ -3230,10 +3609,23 @@ def main() -> None:
     mla = timed("12 MLA server", phase_mla_server, dev)
     free_weights()
     print(f"[phases 11-12: {time.perf_counter() - t_moe:.1f}s]")
+    t_new = time.perf_counter()
+    hybrid = timed("13 hybrid engine", phase_hybrid_server, dev)
+    free_weights()
+    encdec = timed("14 encdec prefill and decode", frontend_serve, ENCDEC_ARCH, dev)
+    free_weights()              # every earlier model goes before pixtral's 49.0 GB
+    vlm = timed("15 vlm prefill and decode", frontend_serve, VLM_ARCH, dev)
+    free_weights()
+    print(f"[phases 13-15: {time.perf_counter() - t_new:.1f}s]")
     paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
                           f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
-                          f"{MLA_ARCH} long prefills": mla["long_launches"]},
-             "servers": {"moe_server": moe, "mla_server": mla}}
+                          f"{MLA_ARCH} long prefills": mla["long_launches"],
+                          f"{HYBRID_ARCH} engine": hybrid["k4"],
+                          f"{HYBRID_ARCH} long prefills": hybrid["long_launches"],
+                          f"{ENCDEC_ARCH} prefills": encdec["k4"],
+                          f"{VLM_ARCH} prefills": vlm["k4"]},
+             "servers": {"moe_server": moe, "mla_server": mla, "hybrid_engine": hybrid,
+                         "encdec_prefill": encdec, "vlm_prefill": vlm}}
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)

@@ -1,12 +1,13 @@
 """Config schema and registry: the fields of ``repro.configs.base`` that the
-port runs, the image pipeline's, the dense LM's (with MLA), the MoE's and
-the SSM's, with the
-reference's names and defaults.
+port runs, with the reference's names and defaults: the image pipeline's,
+the dense LM's (with MLA), the MoE's, the SSM's (Mamba-1 and Mamba-2), the
+hybrid's shared attention, the encoder-decoder's and the modality frontend
+stubs'.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests. The hybrid, encoder-decoder
-and frontend fields, and ``ShapeConfig``, are not ported yet (ROADMAP
-queue 1 item 13).
+form and a ``smoke`` reduction for CPU tests. The training fields
+(``remat``, ``scan_layers``) and ``ShapeConfig`` are not ported (ROADMAP
+queue 1 item 13.6).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ __all__ = ["ModelConfig", "register", "get_config", "list_archs"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | image (not ported: hybrid, encdec, vlm)
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | image
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -55,15 +56,27 @@ class ModelConfig:
     router_aux_coef: float = 0.01
     router_z_coef: float = 1e-3
 
-    # --- SSM (Mamba-1; mamba2 is not ported yet) ---
-    ssm_type: str = "none"           # none | mamba1
+    # --- SSM ---
+    ssm_type: str = "none"           # none | mamba1 | mamba2
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_head_dim: int = 64           # mamba2
     ssm_dt_rank: int = 0             # mamba1 (0 -> ceil(d_model/16))
-    ssm_chunk: int = 128             # scan chunk length (a shape gate of kernel K5)
+    ssm_chunk: int = 128             # scan/SSD chunk length (a shape gate of kernel K5)
     ssm_scan_dtype: str = "float32"  # the reference's assoc-scan element dtype; the port scans in f32
+
+    # --- hybrid (zamba-style shared attention) ---
+    attn_every: int = 0              # 0 = no shared block
+
+    # --- encoder-decoder ---
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_len: int = 1500          # stub frontend frames at serve time
+
+    # --- modality frontend stubs (precomputed embeddings) ---
+    frontend: str = "none"           # none | audio_stub | vision_stub
+    num_patches: int = 0             # vision_stub: patches prepended to text
 
     # --- image pipeline (sobel-hd: the paper's own workload) ---
     image_h: int = 0
@@ -110,6 +123,10 @@ class ModelConfig:
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -117,6 +134,9 @@ class ModelConfig:
 _REGISTRY: Dict[str, tuple] = {}
 
 ARCH_IDS = (
+    "zamba2-2.7b",
+    "whisper-large-v3",
+    "pixtral-12b",
     "qwen3-moe-30b-a3b",
     "phi3.5-moe-42b-a6.6b",
     "falcon-mamba-7b",
@@ -128,6 +148,9 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "zamba2-2.7b": "zamba2_2_7b",
+    "whisper-large-v3": "whisper_large_v3",
+    "pixtral-12b": "pixtral_12b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "falcon-mamba-7b": "falcon_mamba_7b",
@@ -139,20 +162,6 @@ _MODULES = {
 }
 
 
-# What the port does not run yet -> its ROADMAP item, and the reference's
-# archs that need it.
-UNPORTED = {
-    "hybrid": "queue 1 item 13: the hybrid's mamba2 and shared attention",
-    "encdec": "queue 1 item 13: encoder-decoder and VLM frontends",
-    "vlm": "queue 1 item 13: encoder-decoder and VLM frontends",
-}
-_UNPORTED_ARCHS = {
-    "zamba2-2.7b": "hybrid",
-    "whisper-large-v3": "encdec",
-    "pixtral-12b": "vlm",
-}
-
-
 def register(arch_id: str, full: ModelConfig, smoke: ModelConfig) -> None:
     _REGISTRY[arch_id] = (full, smoke)
 
@@ -160,9 +169,6 @@ def register(arch_id: str, full: ModelConfig, smoke: ModelConfig) -> None:
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _REGISTRY:
         mod = _MODULES.get(arch_id)
-        if arch_id in _UNPORTED_ARCHS:
-            raise NotImplementedError(f"arch {arch_id!r} is not ported yet: ROADMAP "
-                                      f"{UNPORTED[_UNPORTED_ARCHS[arch_id]]}")
         if mod is None:
             raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
         importlib.import_module(f"repro_torch.configs.{mod}")

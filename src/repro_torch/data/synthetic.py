@@ -1,7 +1,9 @@
-"""Deterministic synthetic frames, a pure function of ``(seed, step)``.
+"""Deterministic synthetic data, a pure function of ``(seed, step)``: token
+batches (with the stub frontends' inputs) and image frames.
 
-Copies of ``repro.data.synthetic.image_batch`` and ``video_frame``, so both
-packages serve the same frames from the same seed.
+Copies of ``repro.data.synthetic.lm_batch``, ``image_batch`` and
+``video_frame``, so both packages make the same numpy arrays from the same
+seed.
 """
 from __future__ import annotations
 
@@ -11,7 +13,59 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["image_batch", "video_frame"]
+__all__ = ["lm_batch", "image_batch", "video_frame"]
+
+
+def _perm(vocab: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed ^ 0x5EED).permutation(vocab)
+
+
+def lm_batch(
+    cfg: ModelConfig,
+    batch: int,
+    seq_len: int,
+    *,
+    seed: int = 0,
+    step: int = 0,
+    noise: float = 0.25,
+) -> Dict[str, np.ndarray]:
+    """A batch for any LM-family arch: a bigram token stream (each token's
+    successor is ``perm[token]`` with probability ``1 - noise``) and its
+    labels, plus the stub frontends' inputs: a VLM's ``patch_embeds``
+    (``num_patches`` of its ``seq_len`` positions, the text the rest) and
+    an encoder-decoder's ``enc_embeds`` (``min(encoder_len, seq_len)``
+    frames), both N(0, 1) x 0.02."""
+    rng = np.random.default_rng((seed * 1_000_003 + step) & 0x7FFFFFFF)
+    vocab = max(cfg.vocab_size, 2)
+    perm = _perm(vocab, seed)
+
+    vlm = cfg.family == "vlm" and cfg.frontend == "vision_stub"
+    text_len = seq_len - cfg.num_patches if vlm else seq_len
+    if vlm and text_len <= 1:
+        raise ValueError(f"seq_len {seq_len} leaves {text_len} text tokens after "
+                         f"{cfg.num_patches} patches; need at least 2")
+
+    toks = np.empty((batch, text_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, batch)
+    flip = rng.random((batch, text_len)) < noise
+    rand = rng.integers(0, vocab, (batch, text_len))
+    for t in range(text_len):
+        nxt = perm[toks[:, t]]
+        toks[:, t + 1] = np.where(flip[:, t], rand[:, t], nxt)
+    tokens, labels = toks[:, :-1], toks[:, 1:]
+
+    out: Dict[str, np.ndarray] = {"tokens": tokens, "labels": labels}
+    if vlm:
+        p = cfg.num_patches
+        out["patch_embeds"] = rng.standard_normal((batch, p, cfg.d_model)).astype(np.float32) * 0.02
+        out["labels"] = np.concatenate([np.zeros((batch, p), np.int32), labels], axis=1)
+        out["loss_weights"] = np.concatenate(
+            [np.zeros((batch, p), np.float32), np.ones_like(labels, np.float32)], axis=1
+        ).astype(np.float32)
+    elif cfg.family == "encdec":
+        t_enc = min(cfg.encoder_len, seq_len)
+        out["enc_embeds"] = rng.standard_normal((batch, t_enc, cfg.d_model)).astype(np.float32) * 0.02
+    return out
 
 
 def image_batch(

@@ -2,7 +2,8 @@
 
 LM mode (``--arch llama3.2-1b``, the other dense configs, ``minicpm3-4b``
 (MLA), the MoE configs ``qwen3-moe-30b-a3b`` and ``phi3.5-moe-42b-a6.6b``,
-and ``falcon-mamba-7b``): the port of ``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
+``falcon-mamba-7b`` and ``zamba2-2.7b``): the port of
+``repro.launch.serve.serve_lm``. Random weights from seed 0, drawn on the
 device, in f32 (the reference's server forces ``dtype="float32"``); the
 continuous-batching :class:`~repro_torch.serve.Engine` with ``--slots``
 slots, ``--max-len`` positions and prompt buckets 8/16/32/64 serves
@@ -12,10 +13,14 @@ runs kernel K4 on the card, an ssm model's prefill scan kernel K5; TF32
 products are switched off. Prints tokens per second over the whole run,
 the prefill and decode-step p50 (host clock, each ended by a device
 synchronise) and K4's and K5's launches. The first prefill pays the
-kernel's build when it is not built yet. An ssm model refuses those
-prompts as the reference's server does: its engine takes only contexts of
-a bucket's exact length, and the first prompt that is not raises
-``ValueError`` with the reference's message.
+kernel's build when it is not built yet. An ssm or hybrid model
+(falcon-mamba-7b, zamba2-2.7b) refuses those prompts as the reference's
+server does: its engine takes only contexts of a bucket's exact length, and
+the first prompt that is not raises ``ValueError`` with the reference's
+message. ``whisper-large-v3`` (encdec) and ``pixtral-12b`` (vlm) need the
+frontend stubs' inputs, which a prompt does not carry: the server exits
+with the reference's message, and ``Model.prefill`` / ``decode_step`` serve
+them (``data.synthetic.lm_batch`` makes the inputs).
 
 Image mode: one request is one batch of ``--slots`` synthetic frames
 (``data.synthetic.image_batch``) through :func:`repro_torch.api.edge_detect`
@@ -490,16 +495,15 @@ def main(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = Non
                          "if any submitted frame goes unaccounted")
     args = ap.parse_args(argv)
 
-    try:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family != "image":
         for flag, on in (("--edges", args.edges), ("--shard", args.shard),
                          ("--streams", args.streams), ("--chaos", args.chaos)):
             if on:
                 raise SystemExit(f"{flag} applies to image (detector) serving; arch "
                                  f"{cfg.name!r} is family {cfg.family!r}")
+        if cfg.family in ("encdec", "vlm"):
+            raise SystemExit(f"{cfg.family} serving needs frontend inputs; use examples/")
         return serve_lm(cfg.replace(dtype="float32"), args)
     if args.streams > 0:
         return serve_streams(cfg, args)

@@ -13,8 +13,9 @@ functional): a served model keeps one cache and never needs the old one.
 
 This port runs on one device, so the reference's tensor-parallel head
 layouts reduce to its single-device branch (KV heads kept, G query heads
-per KV head; MLA has KV = H, G = 1). Cross-attention (``whisper``) is not
-ported yet (ROADMAP queue 1 item 13).
+per KV head; MLA and cross-attention have KV = H, G = 1). Cross-attention
+(``whisper``'s decoder) reads the encoder's keys and values, projected once
+by :func:`cross_kv`, with no mask and no positions.
 
 Lanes (``backend``, as the edge path's): on a CUDA tensor the prefill and
 forward attention (S query positions over the same S keys) run K4,
@@ -24,7 +25,10 @@ leaves it to XLA. MLA's expanded prefill has q and k of
 ``qk_nope_head_dim + qk_rope_head_dim`` dims but v of ``v_head_dim``: K4
 takes v of k's width, so v is zero-padded to it and the output sliced
 back, which is exact (zero columns add nothing, and the softmax does not
-read v); K4's scale, 1/sqrt of q's width, is the reference's. K4 masks by
+read v); K4's scale, 1/sqrt of q's width, is the reference's. The
+prefill's cross-attention (S decoder positions over the encoder's T
+frames) runs K4 non-causal on the card; a single query row (the decode
+step's cross read) is plain PyTorch on both lanes. K4 masks by
 index, so on the card the causal prefill raises unless ``positions`` is
 ``arange(S)`` in every row, which is what ``transformer._prepare_inputs``
 and the engine give; it also raises for an ``attn_logit_softcap`` (K4 has
@@ -48,6 +52,9 @@ from repro_torch.models.layers import Spec, apply_rope
 __all__ = [
     "attention_params",
     "apply_attention",
+    "cross_attention_params",
+    "apply_cross_attention",
+    "cross_kv",
     "init_attn_cache",
     "dot_attention",
     "update_cache",
@@ -133,6 +140,16 @@ def attention_params(cfg: ModelConfig) -> Dict[str, Spec]:
         p["q_norm"] = Spec((hd,), (None,), "ones")
         p["k_norm"] = Spec((hd,), (None,), "ones")
     return p
+
+
+def cross_attention_params(cfg: ModelConfig) -> Dict[str, Spec]:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": Spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wv": Spec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wo": Spec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +441,39 @@ def _apply_mla(params, cfg: ModelConfig, x, positions, *, causal, cache, cache_i
         out = dot_attention(q5, k, v, pos_q=positions, pos_k=positions, causal=causal,
                             impl=impl)
     return out.reshape(b, s, h * vd) @ wo.reshape(h * vd, -1), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder); encoder k/v precomputed once.
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """"bsd,dhk->bshk" as one product."""
+    b, s, d = x.shape
+    return (x @ w.to(x.dtype).reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
+
+
+def apply_cross_attention(params, cfg: ModelConfig, x, enc_k, enc_v, *,
+                          backend: str = "auto") -> torch.Tensor:
+    """x (B, S, d_model) attends, unmasked, over the encoder's ``enc_k`` and
+    ``enc_v`` (B, T, H, D): K4 non-causal on the card for S > 1 (``auto``
+    on a CUDA tensor, or ``cuda``), plain PyTorch for one query row and
+    on the plain lane. The reference applies no softcap here, so K4 takes
+    every config."""
+    b, s = x.shape[0], x.shape[1]
+    q5 = _heads(x, params["wq"])[:, :, :, None, :]          # KV = H, G = 1
+    if resolve_backend(backend, x.device) == "cuda" and s > 1:
+        out = _k4_attention(q5, enc_k, enc_v, causal=False)
+    else:
+        out = dot_attention(q5, enc_k, enc_v, causal=False, impl="dense")
+    h, hd = cfg.num_heads, cfg.head_dim
+    return out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype).reshape(h * hd, -1)
+
+
+def cross_kv(params, cfg: ModelConfig, enc_out):
+    """The encoder output's keys and values for one layer's cross-attention,
+    each (B, T, H, D)."""
+    return _heads(enc_out, params["wk"]), _heads(enc_out, params["wv"])
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,7 @@ __all__ = [
 class Spec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "fan_in"        # fan_in | normal | zeros | ones | mamba1_alog | dt_bias
+    init: str = "fan_in"        # fan_in | normal | zeros | ones | mamba1_alog | mamba2_alog | dt_bias
     scale: float = 1.0
 
 
@@ -78,6 +78,10 @@ def _init_leaf(spec: Spec, gen: torch.Generator, dtype, device) -> torch.Tensor:
         n = shape[-1]
         row = torch.log(torch.arange(1, n + 1, dtype=dtype, device=device))
         return row.expand(shape).contiguous()
+    if spec.init == "mamba2_alog":
+        # A in [-16, -1]: A_log ~ log(uniform[1, 16])
+        u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
+        return torch.log(u * 15.0 + 1.0)
     if spec.init == "dt_bias":
         # softplus(dt_bias) ~ uniform in [1e-3, 1e-1] (mamba init)
         u = torch.rand(shape, generator=gen, dtype=dtype, device=device)

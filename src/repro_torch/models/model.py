@@ -1,6 +1,6 @@
-"""Public model API: init / forward / cache / prefill / decode for the dense
-(GQA or MLA), moe and ssm families, and :func:`carry_params`, which takes
-the reference's weights.
+"""Public model API: init / forward / cache / prefill / decode for every LM
+family (dense with GQA or MLA, moe, ssm, hybrid, encdec, vlm), and
+:func:`carry_params`, which takes the reference's weights.
 
 The port of ``repro.models.model.Model`` without the training half
 (``loss_fn``, ``cross_entropy``, ``cast_params``: ROADMAP queue 1 item 13).
@@ -28,9 +28,10 @@ class Model:
     """Thin functional wrapper binding a ModelConfig to the layer stack.
 
     ``backend`` picks the kernel lane of every call: ``auto`` (kernel K4
-    for a dense or moe model's prefill attention and K5 for an ssm model's
-    scan on CUDA tensors, their plain versions on CPU ones), ``cuda`` or
-    ``torch`` (the plain versions on any device).
+    for every prefill attention, the encoder's and the cross-attention
+    included, and K5 for an ssm model's scan on CUDA tensors, their plain
+    versions on CPU ones), ``cuda`` or ``torch`` (the plain versions on any
+    device).
     """
 
     def __init__(self, cfg: ModelConfig, *, backend: str = "auto"):
@@ -70,8 +71,10 @@ class Model:
 def carry_params(tree: Any, cfg: ModelConfig, device=None) -> Dict:
     """The reference's parameter tree, as numpy arrays (``jax.tree.map(
     np.asarray, params)``), as the port's: the same names, shapes and stacked
-    layer axis, on ``device`` (``None`` = the CUDA device). Raises when a
-    name or a shape differs from the port's specs."""
+    layer axis (the hybrid's ``shared`` block, an encdec model's ``encoder``
+    stack and its layers' ``ln_x`` and ``cross`` among them), on ``device``
+    (``None`` = the CUDA device). Raises when a name or a shape differs from
+    the port's specs."""
     dev = resolve_device(device)
 
     def leaf(path: str, spec: Spec) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""State-space models: Mamba-1, with kernel K5 for the prefill's scan.
+"""State-space models: Mamba-1, with kernel K5 for the prefill's scan, and
+Mamba-2 (SSD) in plain PyTorch.
 
-The port of the Mamba-1 half of ``repro.models.ssm`` (Mamba-2 waits for the
-hybrid family, ROADMAP queue 1 item 13). The reference computes the
+The port of ``repro.models.ssm``. For Mamba-1 the reference computes the
 prefill's scan with an outer ``lax.scan`` over chunks carrying the
 ``(B, d_inner, N)`` state and a parallel associative scan inside each
 chunk; the port runs the same recurrence through
@@ -16,6 +16,16 @@ Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
 The reference's ``ssm_scan_dtype="bfloat16"`` (bf16 associative-scan
 elements, a TPU memory-traffic option) has no counterpart: the port's scan
 keeps its elements in f32, and a config that asks for bf16 raises.
+
+Mamba-2 (zamba2's backbone) follows the reference's SSD block
+decomposition: within a chunk a masked quadratic term, across chunks a
+recurrence of the chunk states. The reference computes it with XLA ops
+outside any Pallas kernel, so the port keeps it in PyTorch ops on both
+lanes. Each three-operand einsum of the reference is contracted pairwise,
+the sum over the chunk's positions (or the state) as a batched matmul, so
+no ``(b, c, q, q, h, p)`` product is ever built (~10.7 GB at zamba2's FULL
+width and 2,048 tokens); the reference's associative scan over chunks is a
+loop over them (the same recurrence, ``h = h * decay + state``).
 """
 from __future__ import annotations
 
@@ -34,6 +44,10 @@ __all__ = [
     "apply_mamba1",
     "mamba1_decode",
     "init_mamba1_cache",
+    "mamba2_params",
+    "apply_mamba2",
+    "mamba2_decode",
+    "init_mamba2_cache",
 ]
 
 
@@ -153,5 +167,138 @@ def mamba1_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict):
     y = (h * c_mat[:, 0, None, :]).sum(-1)
     y = y + params["d_skip"].float() * xc[:, 0].float()
     y = y.to(dtype)[:, None, :] * F.silu(z)
+    out = y @ params["out_proj"].to(dtype)
+    return out, {"h": h, "conv": new_tail}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_params(cfg: ModelConfig) -> Dict[str, Spec]:
+    d, di, n, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    nh = cfg.ssm_heads
+    return {
+        "wz": Spec((d, di), ("embed", "ssm_inner")),
+        "wx": Spec((d, di), ("embed", "ssm_inner")),
+        "wb": Spec((d, n), ("embed", None)),
+        "wc": Spec((d, n), ("embed", None)),
+        "wdt": Spec((d, nh), ("embed", "ssm_heads")),
+        "conv_w": Spec((di + 2 * n, k), (None, None), "normal"),
+        "conv_b": Spec((di + 2 * n,), (None,), "zeros"),
+        "a_log": Spec((nh,), (None,), "mamba2_alog"),
+        "dt_b": Spec((nh,), (None,), "dt_bias"),
+        "d_skip": Spec((nh,), (None,), "ones"),
+        "norm": Spec((di,), ("ssm_inner",), "ones"),
+        "out_proj": Spec((di, d), ("ssm_inner", "embed")),
+    }
+
+
+def _mamba2_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
+    """(x, z, dt, A, B, C, new conv tail, the conv's raw input) of one
+    Mamba-2 block on x (B, L, d_model); dt (per head), A, B and C in f32."""
+    dtype = x.dtype
+    di, n = cfg.d_inner, cfg.ssm_state
+    z = x @ params["wz"].to(dtype)
+    xin = x @ params["wx"].to(dtype)
+    b_in = x @ params["wb"].to(dtype)
+    c_in = x @ params["wc"].to(dtype)
+    dt_in = x @ params["wdt"].to(dtype)
+    xbc_raw = torch.cat([xin, b_in, c_in], dim=-1)
+    xbc, new_tail = _causal_conv(xbc_raw, params["conv_w"].to(dtype),
+                                 params["conv_b"].to(dtype), conv_tail)
+    xbc = F.silu(xbc)
+    xin, b_mat, c_mat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    dt = F.softplus(dt_in.float() + params["dt_b"].float())
+    a = -torch.exp(params["a_log"].float())                 # (nh,)
+    return xin, z, dt, a, b_mat.float(), c_mat.float(), new_tail, xbc_raw
+
+
+def _gated_norm(params, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm: norm(y * silu(z)), in f32, back to y's dtype."""
+    y = y * F.silu(z)
+    yf = y.float()
+    yf = yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    return (yf * params["norm"].float()).to(y.dtype)
+
+
+def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False):
+    """SSD forward. x: (B, L, d_model). With ``return_cache``, also the
+    decode cache ``{"h": the state after the last chunk (B, heads, head_dim,
+    N), "conv": the last K-1 rows of the conv's zero-padded input}``."""
+    b, l, _ = x.shape
+    dtype = x.dtype
+    nh, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xin, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba2_inputs(params, cfg, x)
+    q = _pick_chunk(l, cfg.ssm_chunk)
+    nc = l // q
+
+    xh = xin.float().reshape(b, nc, q, nh, p)
+    dt_c = dt.reshape(b, nc, q, nh)
+    b_c = b_mat.reshape(b, nc, q, n)
+    c_c = c_mat.reshape(b, nc, q, n)
+
+    cum = torch.cumsum(dt_c * a, dim=2)                      # (b, c, q, h)
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j. Masked BEFORE the
+    # exp: the i < j region has positive exponents that overflow.
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (b, c, qi, qj, h)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], seg, -1e30))
+    xdt = xh * dt_c[..., None]                               # (b, c, q, h, p)
+    cb = c_c @ b_c.transpose(-1, -2)                         # "bcin,bcjn->bcij"
+    # "bcij,bcijh,bcjhp->bcihp": the weights first, then the sum over j.
+    w = (cb[..., None] * l_mat).permute(0, 1, 4, 2, 3)       # (b, c, h, i, j)
+    y_diag = (w @ xdt.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)   # (b, c, i, h, p)
+
+    # chunk states: "bcjn,bcjh,bcjhp->bchpn", the sum over j as a matmul
+    decay_state = torch.exp(cum[:, :, -1:, :] - cum)         # (b, c, q, h)
+    u = (xdt * decay_state[..., None]).permute(0, 1, 3, 4, 2).reshape(b, nc, nh * p, q)
+    states = (u @ b_c).reshape(b, nc, nh, p, n)
+    # the state entering each chunk: h_c = h_{c-1} * exp(cum_last) + states_c
+    chunk_decay = torch.exp(cum[:, :, -1, :])                # (b, c, h)
+    h = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(prev, dim=1)                          # (b, c, h, p, n)
+    # "bcin,bchpn,bcih->bcihp": C against the entering state, then the decay
+    y_off = (c_c @ prev.reshape(b, nc, nh * p, n).transpose(-1, -2)).reshape(b, nc, q, nh, p)
+    y_off = y_off * torch.exp(cum)[..., None]
+
+    y = (y_diag + y_off).reshape(b, l, nh, p)
+    y = y + params["d_skip"].float()[:, None] * xin.float().reshape(b, l, nh, p)
+    y = _gated_norm(params, cfg, y.reshape(b, l, nh * p).to(dtype), z)
+    out = y @ params["out_proj"].to(dtype)
+    if return_cache:
+        return out, {"h": h, "conv": new_tail}
+    return out
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None) -> Dict:
+    """Zero state (f32) and conv tail for ``batch`` sequences, on ``device``
+    (``None`` = the CUDA device)."""
+    dev = resolve_device(device)
+    return {
+        "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                         dtype=torch.float32, device=dev),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                            dtype=dtype, device=dev),
+    }
+
+
+def mamba2_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, cache: Dict):
+    """One token. x: (B, 1, d_model). Returns (out, new cache) and leaves
+    ``cache`` as it was."""
+    dtype = x.dtype
+    nh, p = cfg.ssm_heads, cfg.ssm_head_dim
+    xin, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba2_inputs(params, cfg, x, cache["conv"])
+    xh = xin[:, 0].float().reshape(-1, nh, p)
+    da = torch.exp(dt[:, 0] * a)                             # (B, nh)
+    bx = (dt[:, 0, :, None] * xh)[..., None] * b_mat[:, 0, None, None, :]
+    h = cache["h"] * da[..., None, None] + bx                # (B, nh, p, n)
+    y = (h @ c_mat[:, 0, None, :, None])[..., 0]             # "bhpn,bn->bhp"
+    y = y + params["d_skip"].float()[:, None] * xh
+    y = _gated_norm(params, cfg, y.reshape(x.shape[0], 1, nh * p).to(dtype), z)
     out = y @ params["out_proj"].to(dtype)
     return out, {"h": h, "conv": new_tail}

@@ -1,37 +1,62 @@
-"""Transformer assembly for the dense, moe and ssm families: embed, a loop
-over the stacked layers, final norm, unembed.
+"""Transformer assembly for every LM family: embed, a loop over the stacked
+layers, final norm, unembed.
 
-The port of ``repro.models.transformer`` for ``dense`` (pre-norm
-[attention, MLP] blocks, RoPE, causal; GQA or MLA), ``moe`` (the same with
-the MoE FFN of ``models/moe.py``) and ``ssm`` (pre-norm [Mamba-1] blocks,
-attention-free). The reference's ``lax.scan`` over the stacked parameters
-is a Python loop over the leading layer axis here; remat is a training
-matter and is not ported. The other families (hybrid, encdec, vlm) raise,
-naming their ROADMAP item. A moe model's forward returns the per-layer
-auxiliary losses summed over the layers (``moe_aux``, ``moe_z``); its
-prefill and decode step drop them, as the reference's do.
+The port of ``repro.models.transformer``. Families:
+  dense / moe / vlm : pre-norm [attention, MLP or MoE] blocks, RoPE, causal
+                      (GQA or MLA); a VLM prepends the stub frontend's
+                      ``patch_embeds`` to the text embeddings and attends
+                      over both;
+  ssm (mamba1)      : pre-norm [Mamba-1] blocks, attention-free;
+  hybrid (zamba2)   : a Mamba-2 backbone plus ONE shared attention block
+                      applied after every ``attn_every`` Mamba-2 layers
+                      (zamba2: 54 / 6 = 9 applications of one set of
+                      weights, each with its own cache);
+  encdec (whisper)  : a bidirectional encoder over the stub frontend's
+                      ``enc_embeds`` and a causal decoder with
+                      cross-attention; sinusoidal positions added to both
+                      stacks' inputs (no RoPE).
+
+The reference's ``lax.scan`` over the stacked parameters (nested, outer
+over the hybrid's groups) is a Python loop over the leading layer axis
+here; remat is a training matter and is not ported. A moe model's forward
+returns the per-layer auxiliary losses summed over the layers (``moe_aux``,
+``moe_z``); its prefill and decode step drop them, as the reference's do.
 
 Every function takes ``backend`` (``auto`` | ``cuda`` | ``torch``) and hands
-it to ``attention.apply_attention`` or ``ssm.apply_mamba1``: on a CUDA
-tensor ``auto`` runs the prefill and forward attention through kernel K4
-and the prefill and forward scan through kernel K5.
+it to ``attention.apply_attention``, ``attention.apply_cross_attention`` or
+``ssm.apply_mamba1``: on a CUDA tensor ``auto`` runs every prefill and
+forward attention through kernel K4 (the encoder's and the cross-attention
+non-causal) and the Mamba-1 prefill and forward scan through kernel K5.
+Mamba-2's SSD is plain PyTorch on both lanes, as the reference's is XLA.
 
 Caches are written in place, a layer at a time: the attention families'
 k/v (MLA: the latent and the rope key) at the prefill's and decode's
-positions, the ssm family's state ``h`` and conv tail (the reference
-returns new caches). An ssm model keeps no positions: its prefill starts
-every sequence from the zero state, and its decode step ignores
-``index``.
+positions, the ssm and hybrid families' state ``h`` and conv tail, the
+hybrid's shared-block k/v per application (``shared``). An encdec prefill
+replaces the cache's ``cross_k``/``cross_v`` with the encoder's keys and
+values, as long as the encoder's input (the reference's prefill does the
+same), so the decode step never reads keys past it. An ssm model keeps no
+positions: its prefill starts every sequence from the zero state, and its
+decode step ignores ``index``; a hybrid prefill starts its Mamba-2 layers
+from the zero state too.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import UNPORTED, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm
-from repro_torch.models.attention import apply_attention, attention_params, init_attn_cache
+from repro_torch.models.attention import (
+    apply_attention,
+    apply_cross_attention,
+    attention_params,
+    cross_attention_params,
+    cross_kv,
+    init_attn_cache,
+)
 from repro_torch.models.layers import (
     Spec,
     apply_mlp,
@@ -52,17 +77,16 @@ __all__ = [
     "embed_tokens",
     "unembed",
     "check_family",
+    "LM_FAMILIES",
 ]
+
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet, naming its ROADMAP item."""
-    if cfg.family in ("dense", "moe", "ssm"):
-        return
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP {UNPORTED[cfg.family]}")
-    raise ValueError(f"{cfg.name!r} is family {cfg.family!r}, not a language model")
+    """Raise for a config that is not a language model."""
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.name!r} is family {cfg.family!r}, not a language model")
 
 
 # ---------------------------------------------------------------------------
@@ -78,28 +102,43 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["embed"]["lm_head"].to(x.dtype)
 
 
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) -> (B, S, d) sinusoidal embedding (whisper-style), f32."""
+    half = d // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * idx / max(1, half - 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Per-layer specs
 # ---------------------------------------------------------------------------
 
-def _attn_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+def _attn_layer_specs(cfg: ModelConfig, moe: bool, cross: bool = False) -> Dict[str, Any]:
+    lp: Dict[str, Any] = {
         "ln1": norm_params(cfg),
         "attn": attention_params(cfg),
         "ln2": norm_params(cfg),
-        "ffn": moe_params(cfg) if cfg.family == "moe" else mlp_params(cfg),
+        "ffn": moe_params(cfg) if moe else mlp_params(cfg),
     }
+    if cross:
+        lp["ln_x"] = norm_params(cfg)
+        lp["cross"] = cross_attention_params(cfg)
+    return lp
 
 
 def _layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family == "ssm":
         return {"ln": norm_params(cfg), "mamba": ssm.mamba1_params(cfg)}
-    return _attn_layer_specs(cfg)
+    if cfg.family == "hybrid":
+        return {"ln": norm_params(cfg), "mamba": ssm.mamba2_params(cfg)}
+    return _attn_layer_specs(cfg, moe=cfg.family == "moe", cross=cfg.family == "encdec")
 
 
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     check_family(cfg)
-    return {
+    specs: Dict[str, Any] = {
         "embed": {
             "embedding": Spec((cfg.vocab_size, cfg.d_model), ("table_vocab", "embed_td"), "normal"),
             "lm_head": Spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
@@ -107,6 +146,14 @@ def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "layers": stack_specs(_layer_specs(cfg), cfg.num_layers),
         "final_norm": norm_params(cfg),
     }
+    if cfg.family == "hybrid":
+        specs["shared"] = _attn_layer_specs(cfg, moe=False)
+    if cfg.family == "encdec":
+        specs["encoder"] = {
+            "layers": stack_specs(_attn_layer_specs(cfg, moe=False), cfg.encoder_layers),
+            "final_norm": norm_params(cfg),
+        }
+    return specs
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -116,19 +163,31 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _groups(cfg: ModelConfig) -> int:
+    """The hybrid's groups: ``attn_every`` Mamba-2 layers, then the shared block."""
+    if cfg.attn_every <= 0 or cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: num_layers={cfg.num_layers} is not a multiple of "
+                         f"attn_every={cfg.attn_every}")
+    return cfg.num_layers // cfg.attn_every
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 def _apply_attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, cache=None,
-                      index=None, backend="auto"):
-    """One pre-norm [attention, MLP or MoE] block. Returns (x, new cache or
-    None, the MoE's auxiliary losses or {})."""
+                      index=None, enc_kv=None, backend="auto"):
+    """One pre-norm [attention, (cross-attention over ``enc_kv``,) MLP or
+    MoE] block. Returns (x, new cache or None, the MoE's auxiliary losses
+    or {})."""
     h, new_cache = apply_attention(
         lp["attn"], cfg, apply_norm(lp["ln1"], cfg, x), positions,
         causal=causal, cache=cache, cache_index=index, backend=backend,
     )
     x = x + h
+    if enc_kv is not None:
+        x = x + apply_cross_attention(lp["cross"], cfg, apply_norm(lp["ln_x"], cfg, x), *enc_kv,
+                                      backend=backend)
     y = apply_norm(lp["ln2"], cfg, x)
     if cfg.family == "moe":
         h, aux = apply_moe(lp["ffn"], cfg, y)
@@ -139,29 +198,46 @@ def _apply_attn_block(lp, cfg: ModelConfig, x, positions, *, causal=True, cache=
 
 def _apply_mamba_block(lp, cfg: ModelConfig, x, *, cache=None, return_cache=False,
                        backend="auto"):
-    """One pre-norm Mamba-1 block: decode one token against ``cache``, or
-    run the prefill forward (K5 on the card), with its new cache when
+    """One pre-norm Mamba block (Mamba-1 for the ssm family, Mamba-2 for the
+    hybrid): decode one token against ``cache``, or run the prefill forward
+    (Mamba-1's scan on K5 on the card), with its new cache when
     ``return_cache``. Returns (x, new cache or None)."""
     y = apply_norm(lp["ln"], cfg, x)
+    mamba1 = cfg.family == "ssm"
     if cache is not None:
-        h, new_cache = ssm.mamba1_decode(lp["mamba"], cfg, y, cache)
+        dec = ssm.mamba1_decode if mamba1 else ssm.mamba2_decode
+        h, new_cache = dec(lp["mamba"], cfg, y, cache)
         return x + h, new_cache
+    if mamba1:
+        out = ssm.apply_mamba1(lp["mamba"], cfg, y, return_cache=return_cache, backend=backend)
+    else:
+        out = ssm.apply_mamba2(lp["mamba"], cfg, y, return_cache=return_cache)
     if return_cache:
-        h, new_cache = ssm.apply_mamba1(lp["mamba"], cfg, y, return_cache=True, backend=backend)
+        h, new_cache = out
         return x + h, new_cache
-    return x + ssm.apply_mamba1(lp["mamba"], cfg, y, backend=backend), None
+    return x + out, None
 
 
-def _scan_decoder(params, cfg: ModelConfig, x, positions, backend="auto"):
+def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend="auto"):
     """The main layer stack without a cache (the reference's ``lax.scan``).
     Returns (x, the auxiliary losses summed over the layers)."""
+    if cfg.family == "hybrid":
+        for g in range(_groups(cfg)):
+            for j in range(cfg.attn_every):
+                lp = _layer(params["layers"], g * cfg.attn_every + j)
+                x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
+            x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=True,
+                                        backend=backend)
+        return x, {}
     auxs: Dict[str, list] = {}
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         if cfg.family == "ssm":
             x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
             continue
-        x, _, aux = _apply_attn_block(lp, cfg, x, positions, causal=True, backend=backend)
+        enc_kv = cross_kv(lp["cross"], cfg, enc_out) if cfg.family == "encdec" else None
+        x, _, aux = _apply_attn_block(lp, cfg, x, positions, causal=True, enc_kv=enc_kv,
+                                      backend=backend)
         for name, v in aux.items():
             auxs.setdefault(name, []).append(v)
     # the reference sums each loss over its scan's stacked per-layer values
@@ -169,27 +245,49 @@ def _scan_decoder(params, cfg: ModelConfig, x, positions, backend="auto"):
 
 
 def _prepare_inputs(params, cfg: ModelConfig, batch: Dict, dtype):
-    """tokens -> (x, positions); positions default to arange(S) in every row.
-    An ssm model takes no positions: they come back None."""
+    """tokens (and a VLM's ``patch_embeds``, prepended) -> (x, positions);
+    positions default to arange over every position in every row, and an
+    encdec model's sinusoid is added to x. An ssm model takes no
+    positions: they come back None."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens, dtype)
+    if cfg.family == "vlm" and cfg.frontend == "vision_stub":
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)      # (B, P + S, d)
     if cfg.family == "ssm":
         return x, None
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    if cfg.family == "encdec":
+        x = x + _sinusoid(positions, cfg.d_model).to(dtype)
     return x, positions
+
+
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, dtype, backend="auto"):
+    """The bidirectional encoder over (B, T, d_model) frame embeddings (K4
+    non-causal on the card). Returns its normed output."""
+    b, t, _ = enc_embeds.shape
+    pos = torch.arange(t, dtype=torch.int32, device=enc_embeds.device)[None].expand(b, t)
+    x = enc_embeds.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        x, _, _ = _apply_attn_block(_layer(enc["layers"], i), cfg, x, pos, causal=False,
+                                    backend=backend)
+    return apply_norm(enc["final_norm"], cfg, x)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict, *,
             backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Full (prefill-style) forward. Returns (logits, aux_losses): a moe
-    model's ``moe_aux`` and ``moe_z`` summed over its layers, ``{}`` for a
-    dense or ssm model."""
+    """Full (prefill-style) forward over every position (a VLM's patches
+    included). Returns (logits, aux_losses): a moe model's ``moe_aux`` and
+    ``moe_z`` summed over its layers, ``{}`` for the other families."""
     check_family(cfg)
-    x, positions = _prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
-    x, aux = _scan_decoder(params, cfg, x, positions, backend)
+    dtype = torch_dtype(cfg.dtype)
+    enc_out = (_encode(params, cfg, batch["enc_embeds"], dtype, backend)
+               if cfg.family == "encdec" else None)
+    x, positions = _prepare_inputs(params, cfg, batch, dtype)
+    x, aux = _scan_decoder(params, cfg, x, positions, enc_out, backend)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params, cfg, x), aux
 
@@ -198,58 +296,120 @@ def forward(params, cfg: ModelConfig, batch: Dict, *,
 # KV-cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _stacked_zeros(n: int, one: Dict) -> Dict:
+    return {name: torch.zeros((n,) + a.shape, dtype=a.dtype, device=a.device)
+            for name, a in one.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Dict:
-    """``{"layers": {"k", "v"}}`` (GQA), ``{"layers": {"ckv", "k_rope"}}``
-    (MLA) or ``{"layers": {"h", "conv"}}`` (ssm: ``max_len`` unused, ``h``
-    always f32) zeros with a leading layer axis, on ``device`` (``None`` =
-    the CUDA device)."""
+    """Zeros with a leading layer axis, on ``device`` (``None`` = the CUDA
+    device): ``{"layers": {"k", "v"}}`` (GQA), ``{"layers": {"ckv",
+    "k_rope"}}`` (MLA), ``{"layers": {"h", "conv"}}`` (ssm: ``max_len``
+    unused, ``h`` always f32); the hybrid's Mamba-2 ``layers`` beside
+    ``shared`` (the shared block's k/v, one per group); an encdec model's
+    ``layers`` beside ``cross_k``/``cross_v`` of ``encoder_len`` frames."""
     check_family(cfg)
     if cfg.family == "ssm":
-        one = ssm.init_mamba1_cache(cfg, batch, dtype, device)
+        return {"layers": _stacked_zeros(cfg.num_layers,
+                                         ssm.init_mamba1_cache(cfg, batch, dtype, device))}
+    if cfg.family == "hybrid":
+        return {
+            "layers": _stacked_zeros(cfg.num_layers,
+                                     ssm.init_mamba2_cache(cfg, batch, dtype, device)),
+            "shared": _stacked_zeros(_groups(cfg),
+                                     init_attn_cache(cfg, batch, max_len, dtype, device)),
+        }
+    cache = {"layers": _stacked_zeros(cfg.num_layers,
+                                      init_attn_cache(cfg, batch, max_len, dtype, device))}
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, batch, cfg.encoder_len, cfg.num_heads, cfg.head_dim)
+        dev = cache["layers"]["k"].device
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
+
+
+def _mamba_layer(params, cfg: ModelConfig, x, cache: Dict, i: int, *, decode: bool, backend):
+    """Mamba layer ``i`` with a cache: its new state and conv tail are
+    written into the stacked cache in place (cast to its dtypes)."""
+    lp = _layer(params["layers"], i)
+    if decode:
+        x, new = _apply_mamba_block(lp, cfg, x, cache=_layer(cache["layers"], i))
     else:
-        one = init_attn_cache(cfg, batch, max_len, dtype, device)
-    return {"layers": {name: torch.zeros((cfg.num_layers,) + a.shape, dtype=a.dtype,
-                                         device=a.device)
-                       for name, a in one.items()}}
-
-
-def _ssm_stack(params, cfg: ModelConfig, x, cache: Dict, *, decode: bool, backend):
-    """The Mamba-1 stack with a cache: each layer's new state and conv tail
-    are written into the stacked cache in place (cast to its dtypes)."""
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        if decode:
-            x, new = _apply_mamba_block(lp, cfg, x, cache=_layer(cache["layers"], i))
-        else:
-            x, new = _apply_mamba_block(lp, cfg, x, return_cache=True, backend=backend)
-        for name, t in new.items():
-            cache["layers"][name][i].copy_(t)
+        x, new = _apply_mamba_block(lp, cfg, x, return_cache=True, backend=backend)
+    for name, t in new.items():
+        cache["layers"][name][i].copy_(t)
     return x
 
 
-def _cached_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, backend):
+def _ssm_stack(params, cfg: ModelConfig, x, cache: Dict, *, decode: bool, backend):
     for i in range(cfg.num_layers):
-        x, _, _ = _apply_attn_block(_layer(params["layers"], i), cfg, x, positions,
-                                    causal=True, cache=_layer(cache["layers"], i), index=index,
+        x = _mamba_layer(params, cfg, x, cache, i, decode=decode, backend=backend)
+    return x
+
+
+def _hybrid_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, *,
+                  decode: bool, backend):
+    """The hybrid's groups with a cache: each group's Mamba-2 layers, then
+    the shared block with group ``g``'s k/v cache."""
+    for g in range(_groups(cfg)):
+        for j in range(cfg.attn_every):
+            x = _mamba_layer(params, cfg, x, cache, g * cfg.attn_every + j, decode=decode,
+                             backend=backend)
+        x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=True,
+                                    cache=_layer(cache["shared"], g), index=index,
                                     backend=backend)
+    return x
+
+
+def _cached_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, backend,
+                  enc_out=None):
+    """The attention families' stack with a cache. An encdec prefill
+    (``enc_out`` given) projects each layer's cross k/v from the encoder's
+    output and replaces the cache's with them; an encdec decode step reads
+    them from the cache."""
+    cross = {"cross_k": [], "cross_v": []}
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        enc_kv = None
+        if cfg.family == "encdec" and enc_out is not None:
+            enc_kv = cross_kv(lp["cross"], cfg, enc_out)
+            cross["cross_k"].append(enc_kv[0])
+            cross["cross_v"].append(enc_kv[1])
+        elif cfg.family == "encdec":
+            enc_kv = (cache["cross_k"][i], cache["cross_v"][i])
+        x, _, _ = _apply_attn_block(lp, cfg, x, positions, causal=True,
+                                    cache=_layer(cache["layers"], i), index=index,
+                                    enc_kv=enc_kv, backend=backend)
+    for name, ts in cross.items():
+        if ts:
+            cache[name] = torch.stack(ts).to(cache[name].dtype)
     return x
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict, cache: Dict, *,
             backend: str = "auto") -> Tuple[torch.Tensor, Dict]:
     """Process a prompt, filling the cache (in place) from position 0, or at
-    ``batch["cache_positions"]`` per token (dense, moe); an ssm prompt runs from
-    the zero state and writes each layer's final state and conv tail.
-    Returns (last-position logits, cache)."""
+    ``batch["cache_positions"]`` per token (the attention families); an ssm
+    or hybrid prompt's Mamba layers run from the zero state and write each
+    layer's final state and conv tail; an encdec prompt also encodes
+    ``batch["enc_embeds"]`` into the cache's cross k/v. Returns
+    (last-position logits, cache)."""
     check_family(cfg)
-    x, positions = _prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    enc_out = (_encode(params, cfg, batch["enc_embeds"], dtype, backend)
+               if cfg.family == "encdec" else None)
+    x, positions = _prepare_inputs(params, cfg, batch, dtype)
+    # Engine path: per-token cache destinations (pad tokens -> trash slot).
+    index = batch.get("cache_positions", 0)
     if cfg.family == "ssm":
         x = _ssm_stack(params, cfg, x, cache, decode=False, backend=backend)
+    elif cfg.family == "hybrid":
+        x = _hybrid_stack(params, cfg, x, positions, cache, index, decode=False,
+                          backend=backend)
     else:
-        # Engine path: per-token cache destinations (pad tokens -> trash slot).
-        index = batch.get("cache_positions", 0)
-        x = _cached_stack(params, cfg, x, positions, cache, index, backend)
+        x = _cached_stack(params, cfg, x, positions, cache, index, backend, enc_out)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params, cfg, x[:, -1:, :]), cache
 
@@ -260,7 +420,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, ind
     position or (B,) per-slot positions (unused by an ssm model). Writes
     the cache in place."""
     check_family(cfg)
-    x = embed_tokens(params, cfg, tokens, torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    x = embed_tokens(params, cfg, tokens, dtype)
     if cfg.family == "ssm":
         x = _ssm_stack(params, cfg, x, cache, decode=True, backend=backend)
     else:
@@ -270,6 +431,12 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, ind
             positions = torch.full((b, 1), int(index), dtype=torch.int32, device=x.device)
         else:                      # per-slot positions (continuous batching)
             positions = index.to(torch.int32)[:, None]
-        x = _cached_stack(params, cfg, x, positions, cache, index, backend)
+        if cfg.family == "encdec":
+            x = x + _sinusoid(positions, cfg.d_model).to(dtype)
+        if cfg.family == "hybrid":
+            x = _hybrid_stack(params, cfg, x, positions, cache, index, decode=True,
+                              backend=backend)
+        else:
+            x = _cached_stack(params, cfg, x, positions, cache, index, backend)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params, cfg, x), cache

@@ -1,7 +1,8 @@
 """Batched serving engine: continuous batching over a slotted KV cache.
 
-The port of ``repro.serve.engine`` (dense, moe and ssm families), detail
-for detail:
+The port of ``repro.serve.engine`` (the dense, moe, ssm and hybrid
+families; the encdec and vlm families need frontend inputs that a prompt
+does not carry, in the reference's engine as here), detail for detail:
   * ``max_batch`` slots share one batched cache of ``max_len + 1`` positions —
     the extra position is a *trash slot*: padded prompt tokens write their
     k/v (MLA: latent) there, so bucket-padded prefill never pollutes attention (the causal
@@ -20,16 +21,21 @@ for detail:
     finished slots are refilled from the queue without stalling the others
     (continuous batching).
 
-SSM families keep running state rather than positional caches, so padded
-prefill is unsound there: as the reference's, the engine takes an ssm
-prompt's context only at a bucket's exact length and raises
+SSM and hybrid families keep running state rather than positional caches,
+so padded prefill is unsound there: as the reference's, the engine takes an
+ssm or hybrid prompt's context only at a bucket's exact length and raises
 ``ValueError`` otherwise (the reference server's own random prompt lengths
 are refused so). A one-token prompt has no context and no prefill, so its
 slot keeps the state its last occupant and the idle decode steps left
 there, as the reference's does.
 
-On the card the prefill's attention runs kernel K4 (dense and moe) and
-its scan kernel K5 (ssm); the decode step is plain PyTorch
+Every entry of the cache tree (the hybrid's shared-block ``shared``
+beside its ``layers``) is prefilled in a one-slot copy and copied into the
+slot, as the reference's ``jax.tree.map`` does.
+
+On the card the prefill's attention runs kernel K4 (dense, moe, and the
+hybrid's shared block) and its Mamba-1 scan kernel K5 (ssm); the decode
+step is plain PyTorch
 (``models/attention.py``, ``models/ssm.py``). ``device=None`` means the CUDA
 device; ``backend="torch"`` runs the plain lane on any device. Host-clock
 times of every prefill and decode step, each ended by a device synchronise,
@@ -59,6 +65,14 @@ class Request:
     eos_id: Optional[int] = None
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict of tensors (and of ``rest``,
+    trees of the same keys); returns the results in the same tree."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _bucket(n: int, buckets) -> int:
@@ -157,12 +171,13 @@ class Engine:
                         f"got {n}, buckets={self.buckets}"
                     )
                 batch = {"tokens": self._tensor(np.asarray(ctx, np.int32)[None])}
-            small = {"layers": {name: torch.zeros((big.shape[0], 1) + big.shape[2:],
-                                                  dtype=big.dtype, device=big.device)
-                                for name, big in self.cache["layers"].items()}}
+            # A one-slot cache of every entry of the tree (the hybrid's
+            # ``shared`` beside ``layers``), copied back into the slot.
+            small = _tree_map(lambda big: torch.zeros((big.shape[0], 1) + big.shape[2:],
+                                                      dtype=big.dtype, device=big.device),
+                              self.cache)
             _, small = self.model.prefill(self.params, batch, small)
-            for name, big in self.cache["layers"].items():
-                big[:, slot] = small["layers"][name][:, 0]
+            _tree_map(lambda big, s: big[:, slot].copy_(s[:, 0]), self.cache, small)
             self._sync()
             self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
         self.positions[slot] = len(ctx)

@@ -1,5 +1,6 @@
 """K1-K5 on the card: the CUDA kernels against their plain PyTorch versions,
-and the LM engine's K4 and K5 lanes against its plain lane.
+and the LM engine's K4 and K5 lanes (and the hybrid, encdec and vlm
+models' K4 lane) against the plain lane.
 
 These tests need a CUDA device and ``nvcc`` (the kernel is built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they skip.
@@ -706,6 +707,90 @@ def test_ssm_engine_k5_lane_equals_plain_lane(cuda_device):
     for name in ("h", "conv"):
         torch.testing.assert_close(got["auto"][1]["layers"][name],
                                    got["torch"][1]["layers"][name], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The hybrid, encdec and vlm families (zamba2, whisper, pixtral) on K4
+# ---------------------------------------------------------------------------
+
+# K4 at the three families' prefill shapes, (B, H, S, T, D) and causal, cut
+# in B and S where the FULL run's shapes would only repeat the same tiles:
+# zamba2's shared block (D = 80 on the D <= 128 instance), whisper's
+# encoder, decoder self- and cross-attention, pixtral's 1,024 patches + text.
+NEW_K4_SHAPES = [((1, 32, 2048, 2048, 80), True), ((1, 32, 8, 8, 80), True),
+                 ((2, 20, 1500, 1500, 64), False), ((2, 20, 32, 1500, 64), False),
+                 ((2, 20, 32, 32, 64), True), ((1, 32, 1056, 1056, 128), True)]
+
+
+@pytest.mark.parametrize("shape,causal", NEW_K4_SHAPES,
+                         ids=lambda a: "x".join(map(str, a)) if isinstance(a, tuple) else
+                         ("causal" if a else "full"))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_cuda_at_the_new_families_shapes(cuda_device, shape, causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = _qkv(shape, dtype, cuda_device)
+    got = flash_attention(q, k, v, causal=causal, block_q=shape[2], block_kv=shape[3])
+    want = flash_attention_plain(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        assert bool(((got.float() - w).abs() <= ulp + 2e-5).all())
+
+
+def _k4_per_prefill(cfg) -> int:
+    """K4 launches of one prefill: one a layer (dense, vlm), one a shared
+    block application (hybrid), encoder + decoder self + cross (encdec)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ("zamba2-2.7b", "whisper-large-v3", "pixtral-12b"))
+def test_new_families_k4_lane_equals_plain_lane(cuda_device, arch):
+    """The smoke zamba2, whisper and pixtral on the card, K4 lane and plain
+    lane on the same weights: a prefill of 2 prompts (with the frontend
+    stubs' inputs, whisper's 3 frames short of encoder_len) launches K4 as
+    many times as the family's attention calls, logits within 1e-4, then 4
+    greedy decode steps launch nothing and give the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(0)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9), generator=g).to(cuda_device)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["enc_embeds"] = (torch.randn(2, cfg.encoder_len - 3, cfg.d_model, generator=g)
+                               * 0.5).to(cuda_device)
+    if cfg.family == "vlm":
+        extra["patch_embeds"] = (torch.randn(2, cfg.num_patches, cfg.d_model, generator=g)
+                                 * 0.5).to(cuda_device)
+    off = cfg.num_patches if cfg.family == "vlm" else 0
+    logits, toks, launches = {}, {}, {}
+    for backend in ("auto", "torch"):
+        model = Model(cfg, backend=backend)
+        cache = model.init_cache(2, off + 16, dtype=torch.float32)
+        before = flash_attention.launches
+        logits[backend], cache = model.prefill(params, {"tokens": tokens, **extra}, cache)
+        launches[backend] = flash_attention.launches - before
+        nxt, out = logits[backend][:, -1].argmax(-1), []
+        for i in range(4):
+            step, cache = model.decode_step(params, cache, nxt[:, None], off + 9 + i)
+            nxt = step[:, -1].argmax(-1)
+            out.append(nxt)
+        toks[backend] = torch.stack(out, 1)
+        assert flash_attention.launches - before == launches[backend]
+    assert launches == {"auto": _k4_per_prefill(cfg), "torch": 0}
+    torch.testing.assert_close(logits["auto"], logits["torch"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(toks["auto"], toks["torch"])
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 inputs and weights: ``update_cache`` in its three index forms,
 ``dot_attention`` dense and chunked (with and without a softcap), and
 ``apply_attention`` in prefill and decode, GQA and MLA (minicpm3-4b's
-expanded prefill and absorbed decode), on the plain lane (CPU); and the
-card lane's zero-padded v for MLA, run through K4's plain version."""
+expanded prefill and absorbed decode), whisper's cross-attention
+(``cross_kv``, ``apply_cross_attention``) and ``transformer._sinusoid``, on
+the plain lane (CPU); and the card lane's routes through K4 (MLA's
+zero-padded v, the cross-attention non-causal) run with K4's plain
+version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,17 +157,101 @@ def test_params_and_cache_match_reference():
 
 
 def test_mla_and_unported_parts_raise():
-    """MLA is ported (its specs and caches build); cross-attention and the
-    encoder-decoder family are not, and raise naming their ROADMAP item."""
+    """MLA is ported (its specs and caches build), and so are cross-attention
+    and the encoder-decoder family (their specs are the reference's); what
+    is not a language model still raises."""
+    from repro.models import transformer as RT
     from repro_torch.models import transformer as T
 
     cfg, _ = _cfgs("minicpm3-4b")
     assert {"wkv_a", "kv_norm", "wk_b", "wv_b", "wo", "wq_a", "q_norm", "wq_b"} == set(
         A.attention_params(cfg))
     assert set(A.init_attn_cache(cfg, 1, 4, device="cpu")) == {"ckv", "k_rope"}
-    assert not hasattr(A, "apply_cross_attention")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13: encoder-decoder"):
-        T.check_family(get_config("llama3.2-1b", smoke=True).replace(family="encdec"))
+    wcfg, rwcfg = _cfgs("whisper-large-v3")
+    assert {k: tuple(s) for k, s in A.cross_attention_params(wcfg).items()} == {
+        k: tuple(s) for k, s in RA.cross_attention_params(rwcfg).items()}
+    for family in T.LM_FAMILIES:
+        T.check_family(get_config("llama3.2-1b", smoke=True).replace(family=family))
+    assert set(T.LM_FAMILIES) == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
+    enc = T._attn_layer_specs(wcfg, moe=False, cross=True)
+    assert set(enc) == set(RT._attn_layer_specs(rwcfg, moe=False, cross=True)) == {
+        "ln1", "attn", "ln2", "ffn", "ln_x", "cross"}
+    with pytest.raises(ValueError, match="not a language model"):
+        T.check_family(get_config("sobel-hd"))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper) and the sinusoid
+# ---------------------------------------------------------------------------
+
+def _cross_params(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return {k: (rng.normal(0, 1, s.shape) / np.sqrt(s.shape[0])).astype(np.float32)
+            for k, s in A.cross_attention_params(cfg).items()}
+
+
+@pytest.mark.parametrize("s,t", [(1, 16), (5, 16), (7, 3)], ids=["decode", "prefill", "t<s"])
+def test_cross_kv_and_cross_attention_match_reference(s, t):
+    cfg, rcfg = _cfgs("whisper-large-v3")
+    params = _cross_params(cfg)
+    rng = np.random.default_rng(11)
+    enc = rng.normal(0, 1, (2, t, cfg.d_model)).astype(np.float32)
+    x = rng.normal(0, 1, (2, s, cfg.d_model)).astype(np.float32)
+    rk, rv = RA.cross_kv(_j(params), rcfg, jnp.asarray(enc))
+    k, v = A.cross_kv(_t(params), cfg, torch.from_numpy(enc))
+    assert tuple(k.shape) == rk.shape == (2, t, cfg.num_heads, cfg.head_dim)
+    np.testing.assert_allclose(k.numpy(), np.asarray(rk), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=TOL, atol=TOL)
+    want = RA.apply_cross_attention(_j(params), rcfg, jnp.asarray(x), rk, rv)
+    got = A.apply_cross_attention(_t(params), cfg, torch.from_numpy(x), k, v)
+    assert tuple(got.shape) == (2, s, cfg.d_model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("d", [16, 64, 1280, 7])
+def test_sinusoid_matches_reference(d):
+    from repro.models import transformer as RT
+    from repro_torch.models import transformer as T
+
+    # positions up to whisper's 1,500 encoder frames
+    pos = np.array([[0, 1, 5, 1499], [31, 32, 448, 1056]], np.int32)
+    want = np.asarray(RT._sinusoid(jnp.asarray(pos), d))
+    got = T._sinusoid(torch.from_numpy(pos), d)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (2, 4, 2 * (d // 2))
+    # The libraries' f32 exp may part a frequency by one ulp (6e-8 of it),
+    # which 1,499 positions turn into ~1e-4 of an angle.
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_cross_attention_card_lane_runs_k4_noncausal(monkeypatch, s):
+    """On the card lane the prefill's cross-attention (S > 1) is one K4
+    call, non-causal, over the encoder's T keys with KV = H; a single query
+    row (the decode step) stays plain. K4 replaced by its plain version:
+    the same output as the plain lane."""
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg, _ = _cfgs("whisper-large-v3")
+    params = _t(_cross_params(cfg))
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(0, 1, (2, s, cfg.d_model)).astype(np.float32))
+    enc = torch.from_numpy(rng.normal(0, 1, (2, 11, cfg.d_model)).astype(np.float32))
+    k, v = A.cross_kv(params, cfg, enc)
+    calls = []
+
+    def plain_k4(q, kk, vv, *, causal, block_q, block_kv, backend):
+        calls.append((tuple(q.shape), tuple(kk.shape), causal, block_q, block_kv, backend))
+        return FA.flash_attention(q, kk, vv, causal=causal, block_q=block_q,
+                                  block_kv=block_kv, backend="torch")
+
+    monkeypatch.setattr(A, "flash_attention", plain_k4)
+    monkeypatch.setattr(A, "resolve_backend", lambda backend, device: "cuda")
+    got = A.apply_cross_attention(params, cfg, x, k, v)
+    h, d = cfg.num_heads, cfg.head_dim
+    assert calls == ([((2, h, s, d), (2, h, 11, d), False, s, 11, "cuda")] if s > 1 else [])
+    monkeypatch.undo()
+    want = A.apply_cross_attention(params, cfg, x, k, v, backend="torch")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,12 @@ tokens on the same weights (carried by ``carry_params``), in the three
 cases of ``tests/test_engine.py``: continuous batching, EOS, and more
 requests than slots; the same for the MoE archs' and minicpm3-4b's
 (MLA) smoke configs, whose bucket-padded prefills drop tokens at the
-experts' capacity; and, for falcon-mamba-7b's smoke config, on
+experts' capacity; for falcon-mamba-7b's smoke config, on
 bucket-length prompts, with one-token prompts that keep a used slot's
-state and the reference's refusal of other lengths."""
+state and the reference's refusal of other lengths; and for zamba2-2.7b's
+(the hybrid: Mamba-2 layers and a shared attention block), on
+bucket-length prompts, with every entry of the cache tree copied into a
+slot at admission."""
 import jax
 import numpy as np
 import pytest
@@ -178,3 +181,61 @@ def test_moe_mla_more_requests_than_slots_match_reference(setup_moe_mla):
     got = _both(setup_moe_mla, [(i, [i + 1, i + 2, i + 3], 3, None) for i in range(6)],
                 max_batch=2, max_len=64, prompt_buckets=(8,))
     assert sorted(got) == list(range(6))
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family: zamba2-2.7b smoke, bucket-length prompts only
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def setup_hybrid():
+    rcfg = ref_get_config("zamba2-2.7b", smoke=True).replace(dtype="float32")
+    cfg = get_config("zamba2-2.7b", smoke=True).replace(dtype="float32")
+    rparams = RefModel(rcfg).init(jax.random.key(0))
+    return cfg, carry_params(jax.tree.map(np.asarray, rparams), cfg, device="cpu"), rcfg, rparams
+
+
+def test_hybrid_engine_matches_reference_with_more_requests_than_slots(setup_hybrid):
+    """Six requests through two slots, contexts of a bucket's exact length
+    (one-token prompts included, which keep their slot's state): the same
+    tokens and finishing order as the reference's engine."""
+    rng = np.random.default_rng(1)
+    lens = [8, 4, 16, 0, 8, 4]
+    prompts = [rng.integers(0, 256, n + 1).tolist() for n in lens]
+    got = _both(setup_hybrid, [(i, p, 3 + i % 3, None) for i, p in enumerate(prompts)],
+                max_batch=2, max_len=64, prompt_buckets=(4, 8, 16))
+    assert sorted(got) == list(range(6)) and all(len(got[i]) == 3 + i % 3 for i in got)
+
+
+def test_hybrid_admission_fills_the_slots_shared_cache(setup_hybrid):
+    """Admitting a prompt prefills every entry of the cache tree into its
+    slot: the shared block's k/v of each group (``shared``) as well as the
+    Mamba-2 layers' state (``layers``), equal to a one-slot prefill's, and
+    the other slots left at zero."""
+    cfg, params = setup_hybrid[:2]
+    eng = Engine(cfg, params, max_batch=3, max_len=32, prompt_buckets=(8,), device="cpu")
+    prompt = list(range(3, 12))                              # a context of 8 tokens
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=2))
+    eng._admit()
+    one = Model(cfg).init_cache(1, 33, dtype=torch.float32, device="cpu")
+    Model(cfg).prefill(params, {"tokens": torch.tensor([prompt[:-1]], dtype=torch.int32)}, one)
+    assert set(eng.cache) == {"layers", "shared"}
+    for key in ("layers", "shared"):
+        for name, big in eng.cache[key].items():
+            assert torch.equal(big[:, 0], one[key][name][:, 0]), f"{key}/{name}"
+            assert not big[:, 1:].any(), f"{key}/{name}"
+    assert eng.cache["shared"]["k"][:, 0, :8].abs().min() > 0     # 9 groups' keys, 8 positions
+
+
+def test_hybrid_engine_refuses_non_bucket_prompts_as_reference(setup_hybrid):
+    cfg, params, rcfg, rparams = setup_hybrid
+    msgs = []
+    for engine_cls, request_cls, c, p, kw in ((Engine, Request, cfg, params, {"device": "cpu"}),
+                                             (RefEngine, RefRequest, rcfg, rparams, {})):
+        eng = engine_cls(c, p, max_batch=2, max_len=64, prompt_buckets=(8, 16, 32, 64), **kw)
+        eng.submit(request_cls(uid=0, prompt=list(range(1, 12)), max_new_tokens=2))
+        with pytest.raises(ValueError, match="needs bucket-length prompts") as err:
+            eng.run()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] == ("hybrid engine needs bucket-length prompts; got 10, "
+                                  "buckets=(8, 16, 32, 64)")

@@ -196,7 +196,11 @@ def test_lm_server_cli_and_unported_archs():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "tok/s; prefill p50=" in proc.stdout and "K4 launches 0" in proc.stdout
-    for argv, msg in ((["--arch", "zamba2-2.7b"], "ROADMAP queue 1 item 13: the hybrid"),
+    # whisper and pixtral need frontend inputs: the reference server's exit
+    for argv, msg in ((["--arch", "whisper-large-v3"], "^encdec serving needs frontend "
+                                                       "inputs; use examples/$"),
+                      (["--arch", "pixtral-12b", "--smoke"], "^vlm serving needs frontend "
+                                                             "inputs; use examples/$"),
                       (["--arch", "llama3.2-1b", "--smoke", "--streams", "2"], "--streams")):
         with pytest.raises(SystemExit, match=msg):
             serve.main(argv + ["--device", "cpu"])
@@ -219,6 +223,45 @@ def test_ssm_server_refuses_the_reference_servers_prompts():
                      args)
     assert str(err.value) == str(ref_err.value) == (
         "ssm engine needs bucket-length prompts; got 19, buckets=(8, 16, 32, 64)")
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_hybrid_server_refuses_the_reference_servers_prompts(smoke, monkeypatch):
+    """``--arch zamba2-2.7b``: the hybrid engine, like the ssm one, takes
+    contexts of a bucket's exact length only, and the port's server refuses
+    the reference server's prompts in the reference's words. At FULL the
+    weights are not drawn (the refusal comes from the first prompt, as
+    it does on the card)."""
+    import argparse
+
+    from repro.launch.serve import serve_lm as ref_serve_lm
+    from repro_torch.models import Model
+
+    if not smoke:   # the first prefill refuses; drawing 9.7 GB here is not the point
+        monkeypatch.setattr(Model, "init", lambda self, seed=0, **kw: None)
+    argv = ["--arch", "zamba2-2.7b", "--device", "cpu"] + (["--smoke"] if smoke else [])
+    with pytest.raises(ValueError, match="needs bucket-length prompts") as err:
+        serve.main(argv)
+    args = argparse.Namespace(requests=16, slots=4, max_new=16, max_len=256)
+    with pytest.raises(ValueError) as ref_err:
+        ref_serve_lm(ref_get_config("zamba2-2.7b", smoke=True).replace(dtype="float32"), args)
+    assert str(err.value) == str(ref_err.value) == (
+        "hybrid engine needs bucket-length prompts; got 19, buckets=(8, 16, 32, 64)")
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_frontend_archs_exit_as_the_reference_server(arch, monkeypatch, capsys):
+    """``--arch whisper-large-v3|pixtral-12b``: both servers exit with the
+    same message before drawing any weights."""
+    from repro.launch import serve as ref_serve
+
+    with pytest.raises(SystemExit) as err:
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--smoke"])
+    with pytest.raises(SystemExit) as ref_err:
+        ref_serve.main()
+    assert str(err.value) == str(ref_err.value) == (
+        f"{get_config(arch).family} serving needs frontend inputs; use examples/")
 
 
 # --- The elastic, chaos-tested image server on a logical mesh of 8 CPUs -----

@@ -1,9 +1,10 @@
-"""The port's Mamba-1 functions (``repro_torch.models.ssm``) against
-``repro.models.ssm`` on the same weights, at the reference's own tolerance
-(``tests/test_ssm.py``: 2e-4): the causal conv with and without a tail,
-the chunk rule, the specs, the block's inputs, the prefill forward (the
-port's scan is K5's plain version; the reference's a chunked associative
-scan), its decode cache, and decode after prefill."""
+"""The port's Mamba-1 and Mamba-2 functions (``repro_torch.models.ssm``)
+against ``repro.models.ssm`` on the same weights, at the reference's own
+tolerance (``tests/test_ssm.py``: 2e-4): the causal conv with and without a
+tail, the chunk rule, the specs and inits, the block's inputs, the prefill
+forward (Mamba-1: the port's scan is K5's plain version, the reference's a
+chunked associative scan; Mamba-2: the SSD at one chunk and at several),
+its decode cache, and decode after prefill."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,3 +127,109 @@ def test_init_cache_and_refusals(block):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ssm.init_mamba1_cache(cfg, 1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD): zamba2's backbone
+# ---------------------------------------------------------------------------
+
+def _cfgs2(chunk=4, d_model=16, state=4, head_dim=8):
+    kw = dict(name="m2", family="hybrid", num_layers=1, d_model=d_model, vocab_size=7,
+              num_heads=2, num_kv_heads=2, ssm_type="mamba2", ssm_state=state,
+              ssm_head_dim=head_dim, ssm_chunk=chunk, attn_every=1, dtype="float32")
+    return ModelConfig(**kw), RefConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def block2():
+    cfg, rcfg = _cfgs2()
+    rparams = ref_init_tree(rssm.mamba2_params(rcfg), jax.random.key(0))
+    # The conv's N(0, 0.02) init leaves the SSD's inputs near 0; taps of
+    # N(0, 0.5) give states of order 1, so the comparison weighs them.
+    rparams = dict(rparams, conv_w=rparams["conv_w"] * 25.0)
+    x = np.random.default_rng(1).normal(0, 1, (2, 12, cfg.d_model)).astype(np.float32)
+    return cfg, rcfg, _carry(rparams), rparams, x
+
+
+def test_mamba2_specs_and_inits_match_reference():
+    cfg, rcfg = _cfgs2(d_model=32, state=16, head_dim=16)
+    assert cfg.ssm_heads == rcfg.ssm_heads == 4 and cfg.d_inner == rcfg.d_inner == 64
+    specs, rspecs = ssm.mamba2_params(cfg), rssm.mamba2_params(rcfg)
+    assert {k: tuple(s) for k, s in specs.items()} == {k: tuple(s) for k, s in rspecs.items()}
+    ref = ref_init_tree(rspecs, jax.random.key(0))
+    mine, again = init_tree(specs, 0), init_tree(specs, 0)
+    assert all(torch.equal(mine[k], again[k]) for k in mine)
+    for name in ("conv_b", "d_skip", "norm"):
+        np.testing.assert_array_equal(mine[name].numpy(), np.asarray(ref[name]))
+    # A = -exp(a_log) in [-16, -1] in both initializers (the draws differ)
+    for a_log in (mine["a_log"].numpy(), np.asarray(ref["a_log"])):
+        assert a_log.min() >= 0.0 and a_log.max() <= np.log(16.0) + 1e-6
+    assert len(np.unique(mine["a_log"].numpy())) == cfg.ssm_heads
+
+
+def test_mamba2_inputs_match_reference(block2):
+    cfg, rcfg, params, rparams, x = block2
+    got = ssm._mamba2_inputs(params, cfg, torch.from_numpy(x))
+    want = rssm._mamba2_inputs(rparams, rcfg, jnp.asarray(x))
+    for name, g, w in zip(("x", "z", "dt", "a", "b", "c", "tail", "xbc"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [12, 4, 3], ids=["1-chunk", "3-chunks", "4-chunks"])
+def test_apply_mamba2_matches_reference(block2, chunk):
+    cfg, rcfg, params, rparams, x = block2
+    cfg, rcfg = cfg.replace(ssm_chunk=chunk), rcfg.replace(ssm_chunk=chunk)
+    want = np.asarray(rssm.apply_mamba2(rparams, rcfg, jnp.asarray(x)))
+    got = ssm.apply_mamba2(params, cfg, torch.from_numpy(x))
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("plen,chunk", [(8, 4), (5, 5), (8, 8)], ids=["2-chunks", "5", "8"])
+def test_mamba2_prefill_cache_and_decode_match_reference(block2, plen, chunk):
+    cfg, rcfg, params, rparams, x = block2
+    cfg, rcfg = cfg.replace(ssm_chunk=chunk), rcfg.replace(ssm_chunk=chunk)
+    rout, rcache = rssm.apply_mamba2(rparams, rcfg, jnp.asarray(x[:, :plen]), return_cache=True)
+    out, cache = ssm.apply_mamba2(params, cfg, torch.from_numpy(x[:, :plen]), return_cache=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(rout), rtol=TOL, atol=TOL)
+    # The state is a sum of dt * x * B with dt in [1e-3, 1e-1]: of order
+    # 1e-2, so it is held to an absolute tolerance 100x tighter.
+    atol = {"h": TOL / 100, "conv": TOL}
+    for name in ("h", "conv"):
+        assert tuple(cache[name].shape) == rcache[name].shape
+        np.testing.assert_allclose(cache[name].numpy(), np.asarray(rcache[name]), rtol=TOL,
+                                   atol=atol[name], err_msg=name)
+    assert cache["h"].dtype == torch.float32 and float(cache["h"].abs().max()) > 0.01
+    for t in range(plen, 12):
+        ry, rcache = rssm.mamba2_decode(rparams, rcfg, jnp.asarray(x[:, t:t + 1]), rcache)
+        y, new = ssm.mamba2_decode(params, cfg, torch.from_numpy(x[:, t:t + 1]), cache)
+        assert new["h"] is not cache["h"]          # the old cache is left as it was
+        cache = new
+        np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=TOL, atol=TOL)
+        for name in ("h", "conv"):
+            np.testing.assert_allclose(cache[name].numpy(), np.asarray(rcache[name]),
+                                       rtol=TOL, atol=atol[name], err_msg=f"{name} at {t}")
+
+
+def test_mamba2_decode_after_prefill_equals_the_longer_forward(block2):
+    """Prefill 7 tokens, decode the rest one by one: the same outputs as
+    the SSD forward over all 12 (state carried across chunk borders)."""
+    cfg, _rcfg, params, _rparams, x = block2
+    full = ssm.apply_mamba2(params, cfg, torch.from_numpy(x))
+    _, cache = ssm.apply_mamba2(params, cfg, torch.from_numpy(x[:, :7]), return_cache=True)
+    for t in range(7, 12):
+        y, cache = ssm.mamba2_decode(params, cfg, torch.from_numpy(x[:, t:t + 1]), cache)
+        np.testing.assert_allclose(y[:, 0].numpy(), full[:, t].numpy(), rtol=TOL, atol=TOL)
+
+
+def test_init_mamba2_cache(block2):
+    cfg, rcfg = block2[:2]
+    cache = ssm.init_mamba2_cache(cfg, 3, torch.float32, device="cpu")
+    rcache = rssm.init_mamba2_cache(rcfg, 3, jnp.float32)
+    for name in ("h", "conv"):
+        assert tuple(cache[name].shape) == rcache[name].shape and not cache[name].any()
+    assert ssm.init_mamba2_cache(cfg, 1, torch.bfloat16, device="cpu")["h"].dtype == torch.float32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ssm.init_mamba2_cache(cfg, 1)
