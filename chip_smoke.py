@@ -288,8 +288,25 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    49.0 GB, after every earlier model is freed): the same with 4 prompts
    of 1,024 stub patches + 32 text tokens (``lm_batch``), 40 K4 launches a
    prefill.
+16. Training (after every earlier model is freed). 16a: ``k4_attention``
+   (``K4Attention``: K4 forward, the plain version recomputed for the
+   backward) at llama3.2-1b's training shape (8, 32, 128, 64) causal in f32
+   and bf16 and at (2, 20, 64, 1500, 64) non-causal, and ``k5_scan`` at
+   (1, 128, 512, 16): forward within phase 6's tolerances, gradients within
+   ``FN_GRAD_REL`` of plain autograd's; a bare ``backend="cuda"`` call
+   under grad raises. 16b, the training slice's main path:
+   ``repro_torch.launch.train.main(["--arch", "llama3.2-1b", "--steps",
+   "8", "--batch", "8", "--seq", "128"])`` at FULL width and depth (f32
+   master weights and AdamW moments, the forward in bf16), counts set to
+   0 just before and read just after: K4 exactly 16 a step, nothing else,
+   no plain attention call; losses and grad norms finite, grad norms > 0,
+   every parameter moved; step p50, tok/s, ``max_memory_allocated`` and
+   one step under the profiler. 16c: one f32 step at FULL width on both
+   lanes from the same weights, the loss and each leaf's gradient held
+   beside a one-ulp control. 16d: the reference's injected-failure
+   restart at SMOKE size on the card, checkpoints under ``build/``.
 
-Phases 6-9b run after 4d, then 11-15, then phase 5, then 10 and 10b. The last line is
+Phases 6-9b run after 4d, then 11-15, then 16, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -2332,7 +2349,9 @@ def phase_k4_timing(dev, lm, long_launches, main_err, paths):
                    "decode_steps", "param_count", "logit_err", "near_ties", "decode_idle",
                    "decode_busy_us", "k4_share", "k4_profile_us", "plain_prefill_ms",
                    "attn_err", "cross_err", "free_logit_err", "control_logit_err",
-                   "decode_logit_err", "decode_control_err")
+                   "decode_logit_err", "decode_control_err", "step_p50_ms", "step_ms",
+                   "peak_gb", "step_idle", "loss", "grad_norm", "phase_seconds", "lanes",
+                   "functions", "restart", "k4_train")
     return {
         "name": "K4 flash_attention (online-softmax attention)",
         "route": "cuda",
@@ -3471,6 +3490,417 @@ def phase_plan_timing(full_inputs, dev, plan_counts):
         plans=k2_rows, launches_plan_facade=plan_counts["k2_plan"])
 
 
+# --- Training (phase 16) ----------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_PARAMS = 1_498_482_688     # the reference's Model.param_count() at FULL
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128    # the reference launcher's batch and seq
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ)]
+# Phase 16a: K4's Function at llama's training shape (B, H, S, T, D), causal,
+# and at a non-causal one (whisper's cross-attention over its 1,500 frames).
+K4_GRAD_CASES = (((8, 32, 128, 128, 64), True, torch.float32),
+                 ((8, 32, 128, 128, 64), True, torch.bfloat16),
+                 ((2, 20, 64, 1500, 64), False, torch.float32))
+K5_GRAD_SHAPE = (1, 128, 512, 16)
+# The Functions' gradients against plain autograd on the same inputs: their
+# backward recomputes the plain version, so they differ only in the order
+# cuBLAS takes the recompute's products (bit-equal when it takes the same):
+# within 1e-5 of each gradient's largest value.
+FN_GRAD_REL = 1e-5
+# Phase 16c, one f32 step at FULL width on both lanes from the same weights:
+# the loss within 1e-4, each leaf's gradient within 1e-3 of its largest
+# value. A leaf may part further only where the one-ulp control parts it
+# past 1e-3 too (the model's own rounding: random weights make attention
+# sharp); the lanes are then held block by block (``train_layer_local``):
+# each block's attention output, and its gradients for its weights and
+# its input, within TRAIN_GRAD_TOL of the plain lane's largest value.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_CKPT = ROOT / "build" / "chip_smoke" / "train_ckpt"
+
+
+def phase_train_functions(dev) -> dict:
+    """Phase 16a: ``k4_attention`` and ``k5_scan`` (the autograd Functions)
+    against the plain versions under autograd on the card, and a bare
+    ``backend="cuda"`` call under grad raising. Launches made here are
+    comparisons: they count toward no path."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     k4_attention)
+    from repro_torch.kernels.selective_scan import k5_scan, selective_scan, selective_scan_plain
+
+    def grad_err(got, want):
+        return max(float((a.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(
+            1e-30)) for a, w in zip(got, want))
+
+    out = {}
+    for shape, causal, dtype in K4_GRAD_CASES:
+        b, h, s, t, d = shape
+        q, k, v = (x.requires_grad_() for x in attention_inputs(shape, dtype, dev, seed=t))
+        go = torch.randn((b, h, s, d), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(s)).to(dtype)
+        before = flash_attention.launches
+        o = k4_attention(q, k, v, causal=causal, block_q=s, block_kv=t)
+        got = torch.autograd.grad(o, (q, k, v), go)
+        torch.cuda.synchronize()
+        check(flash_attention.launches == before + 1, "k4_attention did not launch K4 once")
+        plain = flash_attention_plain(q, k, v, causal=causal)
+        want = torch.autograd.grad(plain, (q, k, v), go)
+        diff = (o.detach().float() - plain.detach().float()).abs()
+        fwd = float(diff.max())
+        bound = K4_TOL + (bf16_ulp(plain.detach()) if dtype == torch.bfloat16 else 0.0)
+        check(bool((diff <= bound).all()),
+              f"K4's forward at {shape} {dtype} differs from the plain version by {fwd}")
+        err = grad_err(got, want)
+        equal = all(torch.equal(a, w) for a, w in zip(got, want))
+        check(err <= FN_GRAD_REL, f"K4Attention's q/k/v gradients at {shape} {dtype} differ from "
+                                  f"plain autograd's by {err:.3g} of their largest > {FN_GRAD_REL}")
+        label = f"{'x'.join(map(str, shape))} {'causal' if causal else 'non-causal'} " + (
+            "bf16" if dtype == torch.bfloat16 else "f32")
+        out[label] = dict(forward_err=fwd, grad_rel_err=err, grads_bit_equal=equal)
+        print(f"phase 16a K4Attention {label}: forward within {fwd:.3g}, q/k/v gradients within "
+              f"{err:.3g} of their largest ({'bit-equal' if equal else 'not bit-equal'})")
+    args = [x.requires_grad_() for x in scan_inputs(K5_GRAD_SHAPE, torch.float32, dev, seed=5)]
+    bsz, l, di, n = K5_GRAD_SHAPE
+    g = torch.Generator(device=dev).manual_seed(6)
+    gy, gh = torch.randn((bsz, l, di), device=dev, generator=g), torch.randn(
+        (bsz, di, n), device=dev, generator=g)
+    before = selective_scan.launches
+    y, hl = k5_scan(*args, chunk=l, block_d=di)
+    got = torch.autograd.grad((y, hl), args, (gy, gh))
+    torch.cuda.synchronize()
+    check(selective_scan.launches == before + 1, "k5_scan did not launch K5 once")
+    want = torch.autograd.grad(selective_scan_plain(*args), args, (gy, gh))
+    err = grad_err(got, want)
+    check(err <= FN_GRAD_REL, f"K5Scan's gradients differ from plain autograd's by {err:.3g}")
+    out["k5 " + "x".join(map(str, K5_GRAD_SHAPE))] = dict(grad_rel_err=err)
+    print(f"phase 16a K5Scan {K5_GRAD_SHAPE}: x/dt/B/C/A gradients within {err:.3g} of their "
+          "largest")
+    refused = []
+    q = attention_inputs((1, 2, 16, 16, 64), torch.float32, dev, seed=1)[0].requires_grad_()
+    for name, call in (("flash_attention", lambda: flash_attention(q, q, q, backend="cuda")),
+                       ("selective_scan", lambda: selective_scan(*args, chunk=l, block_d=di,
+                                                                 backend="cuda"))):
+        try:
+            call()
+        except RuntimeError as err:
+            refused.append(name if "under autograd" in str(err) else f"{name}: {err}")
+    check(refused == ["flash_attention", "selective_scan"],
+          f"a bare backend='cuda' call under grad did not raise: {refused}")
+    print("phase 16a: flash_attention and selective_scan on the kernel raise under autograd")
+    return out
+
+
+def redraw_leaf(model, path: str, dev) -> torch.Tensor:
+    """The initial value of one parameter, drawn again (``init_tree`` seeds
+    each leaf by its path alone)."""
+    from repro_torch.models.layers import init_tree
+
+    keys = path.split("/")
+    tree = model.param_specs()
+    for key in keys:
+        tree = tree[key]
+    for key in reversed(keys):
+        tree = {key: tree}
+    leaf = init_tree(tree, 0, device=dev)
+    for key in keys:
+        leaf = leaf[key]
+    return leaf
+
+
+def phase_train(dev) -> dict:
+    """Phase 16b, the training slice's main path: ``repro_torch.launch.
+    train.main`` on llama3.2-1b at FULL width and depth (1,498,482,688
+    parameters; f32 master weights and AdamW moments, the forward in bf16
+    through ``cast_params``), the reference launcher's batch 8 x 128 tokens,
+    ``TRAIN_STEPS`` steps, counts set to 0 just before and read just after:
+    K4 exactly 16 layers x 1 microbatch a step and nothing else, no
+    ``dot_attention`` (the plain lane) call; every loss and grad norm
+    finite, the grad norm > 0, lr 0 at step 0 (``warmup_cosine``), every
+    parameter moved from its initial value. Prints the step p50 (host clock,
+    each step ended by reading its loss), tokens/s, the peak of
+    ``max_memory_allocated`` and one step under the profiler (device idle
+    share, K4's share)."""
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.tree import leaves_with_path
+
+    plain_calls = []
+    real_dot = attn_mod.dot_attention
+
+    def counted_dot(*a, **kw):
+        plain_calls.append(1)
+        return real_dot(*a, **kw)
+
+    free_weights()
+    torch.cuda.reset_peak_memory_stats()
+    attn_mod.dot_attention = counted_dot
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = launch_train.main(TRAIN_ARGS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        attn_mod.dot_attention = real_dot
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist, trainer = out["history"], out["trainer"]
+    cfg = trainer.cfg
+    check(out["param_count"] == TRAIN_PARAMS, f"{cfg.name} has {out['param_count']:,} params")
+    want = cfg.num_layers * trainer.tc.microbatches * TRAIN_STEPS
+    check(counts["k4"] == want, f"training launched K4 {counts['k4']} times, not {want}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"training launched {counts}")
+    check(not plain_calls, f"training called the plain attention {len(plain_calls)} times")
+    check(hist["step"] == list(range(1, TRAIN_STEPS + 1)), f"steps logged {hist['step']}")
+    check(all(np.isfinite(hist["loss"])) and all(np.isfinite(hist["grad_norm"])),
+          f"non-finite loss or grad norm: {hist['loss']}, {hist['grad_norm']}")
+    check(min(hist["grad_norm"]) > 0, f"a zero grad norm: {hist['grad_norm']}")
+    check(hist["lr"][0] == 0.0 and hist["lr"][1] > 0, f"lr {hist['lr'][:2]}")
+    unmoved = [path for path, leaf in leaves_with_path(trainer.state.params)
+               if torch.equal(leaf, redraw_leaf(trainer.model, "/".join(path), dev))]
+    check(not unmoved, f"parameters unchanged after {TRAIN_STEPS} steps: {unmoved}")
+    step_ms = [1e3 * s for s in trainer.monitor.history[1:]]      # the first step warms up
+    p50 = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    loader = DataLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=dev)
+    batch = next(loader)
+    loader.close()
+    state = trainer.state
+
+    def one_step():
+        new_state, metrics = trainer.step_fn(state, batch)
+        float(metrics["loss"])
+
+    busy_us, span_us, k4_us = device_profile("one training step", one_step, top=12,
+                                             kernel="flash_kernel")
+    k4_row = k4_training_shape(dev, cfg)
+    k4_row["device_us"] = k4_us / (cfg.num_layers * trainer.tc.microbatches)
+    stats = dict(k4=counts["k4"], steps=TRAIN_STEPS, loss=hist["loss"],
+                 grad_norm=hist["grad_norm"], lr=hist["lr"], step_ms=step_ms, step_p50_ms=p50,
+                 tok_s=tokens / (p50 / 1e3), peak_gb=peak_gb, seconds=seconds,
+                 step_idle=1 - busy_us / span_us, step_busy_us=busy_us,
+                 k4_share=k4_us / busy_us, param_count=out["param_count"], k4_train=k4_row)
+    print(f"phase 16b: {cfg.name} FULL ({out['param_count']:,} params) trained {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in {seconds:.1f} s: loss "
+          f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}, grad norm "
+          f"{min(hist['grad_norm']):.4g}-{max(hist['grad_norm']):.4g}; step p50 {p50:.2f} ms "
+          f"({', '.join(f'{m:.1f}' for m in step_ms)}), {stats['tok_s']:.0f} tok/s; K4 "
+          f"{counts['k4']} launches ({counts['k4'] // TRAIN_STEPS} a step), plain attention "
+          f"calls 0; max_memory_allocated {peak_gb:.2f} GB; one step's device idle "
+          f"{100 * stats['step_idle']:.1f}%, K4 {100 * stats['k4_share']:.2f}% of its device "
+          f"time ({k4_row['device_us']:.1f} us a launch)")
+    del out, trainer, state, batch
+    free_weights()
+    return stats
+
+
+def k4_training_shape(dev, cfg) -> dict:
+    """K4 at the training step's attention shape, bf16 (B, H, S, S, D) =
+    (8, 32, 128, 128, 64), causal: CUDA-event medians in turns with
+    F.scaled_dot_product_attention (the yardstick; the port never calls
+    it), the plain version, and ``flash_bound``."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    shape = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim)
+    q, k, v = attention_inputs(shape, torch.bfloat16, dev, seed=TRAIN_SEQ)
+    with torch.no_grad():
+        kern = lambda: flash_attention(q, k, v, block_q=TRAIN_SEQ, block_kv=TRAIN_SEQ)  # noqa
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        lib1, ms1, ms2, lib2 = median_ms(sdpa), median_ms(kern), median_ms(kern), median_ms(sdpa)
+        plain_ms = median_ms(lambda: flash_attention_plain(q, k, v))
+    fb = flash_bound(shape, True, 2)
+    row = dict(ms=statistics.median([ms1, ms2]), ms_runs=[ms1, ms2], plain_ms=plain_ms,
+               library_ms=statistics.median([lib1, lib2]), library_ms_runs=[lib1, lib2],
+               shape=list(shape), dtype="bfloat16", **fb)
+    print(f"K4 at the training shape {shape} causal bf16: {ms1:.4f} / {ms2:.4f} ms; "
+          f"scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"bound {fb['bound_ms']:.4f} ms by {fb['bound_by']}")
+    return row
+
+
+def lane_grads(cfg, params, batch, backend):
+    """(per-leaf gradients, loss) of one step of ``cfg``'s ``loss_fn`` on
+    ``backend``."""
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves, unflatten
+
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = Model(cfg, backend=backend).loss_fn(unflatten(params, flat), batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+    return grads, float(loss.detach())
+
+
+def train_layer_local(cfg, params, batch) -> dict:
+    """A dense model's two lanes under autograd, block by block: each block
+    run on both lanes from the plain lane's hidden state and differentiated
+    against one cotangent drawn on the card (seed 0, a new one a block).
+    Held: the K4 lane's attention output, and its gradients for each of the
+    block's weights and for the block's input, within ``TRAIN_GRAD_TOL`` of
+    the plain lane's largest value. Returns the worst of each."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.models.layers import apply_norm, torch_dtype
+    from repro_torch.tree import leaves, leaves_with_path, unflatten
+
+    x, pos = T._prepare_inputs(params, cfg, batch, torch_dtype(cfg.dtype))
+    x = x.detach()
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    out = dict(attn_err=0.0, grad_err=0.0, grad_leaf="")
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        names = ["/".join(p) for p, _ in leaves_with_path(lp)] + ["input"]
+        cot = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        attn, grads, y = {}, {}, {}
+        for backend in ("torch", "auto"):
+            flat = [t.detach().requires_grad_(True) for t in leaves(lp) + [x]]
+            lpb, xin = unflatten(lp, flat[:-1]), flat[-1]
+            with torch.no_grad():
+                attn[backend], _ = apply_attention(lpb["attn"], cfg, apply_norm(lpb["ln1"], cfg, xin),
+                                                   pos, backend=backend)
+            y[backend], _, _ = T._apply_attn_block(lpb, cfg, xin, pos, backend=backend)
+            grads[backend] = torch.autograd.grad((y[backend] * cot).sum(), flat)
+        attn_err = max_rel(attn["auto"], attn["torch"])
+        check(attn_err <= TRAIN_GRAD_TOL, f"layer {i}: K4's attention output differs from the "
+                                          f"plain lane's by {attn_err:.3g} > {TRAIN_GRAD_TOL}")
+        out["attn_err"] = max(out["attn_err"], attn_err)
+        for name, got, want in zip(names, grads["auto"], grads["torch"]):
+            err = max_rel(got, want)
+            check(err <= TRAIN_GRAD_TOL, f"layer {i} {name}: the lanes' block gradients differ "
+                                         f"by {err:.3g} of its largest > {TRAIN_GRAD_TOL}")
+            if err >= out["grad_err"]:
+                out["grad_err"], out["grad_leaf"] = err, f"{i}/{name}"
+        x = y["torch"].detach()
+    return out
+
+
+def phase_train_lanes(dev) -> dict:
+    """Phase 16c: one f32 step's loss and gradients at FULL width on the K4
+    lane (its backward: the plain version recomputed) and on the plain lane
+    (``dot_attention``), from the same weights drawn on the card (seed 0)
+    and the same batch; the plain lane with the embeddings moved by one ulp
+    (``ulp_params``) is the control. Held: the loss within
+    ``TRAIN_LOSS_TOL``; each leaf's gradient within ``TRAIN_GRAD_TOL`` of
+    its largest value, or, for a leaf that the control parts past
+    ``TRAIN_GRAD_TOL`` too (the model's own rounding), by the blocks
+    (``train_layer_local``), which run in every call."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32")
+    params = Model(cfg).init(0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+    reset_counts()
+    k4_grads, k4_loss = lane_grads(cfg, params, batch, "auto")
+    check(read_counts()["k4"] == cfg.num_layers,
+          "the K4 lane's step did not launch K4 once a layer")
+    plain_grads, plain_loss = lane_grads(cfg, params, batch, "torch")
+    check(read_counts()["k4"] == cfg.num_layers, "the plain lane's step launched K4")
+
+    def rel(a, b):
+        return [max_rel(x, y) for x, y in zip(a, b)]
+
+    lanes = rel(k4_grads, plain_grads)
+    paths = ["/".join(p) for p, _ in leaves_with_path(params)]
+    del k4_grads
+    ctrl_grads, ctrl_loss = lane_grads(cfg, ulp_params(params), batch, "torch")
+    control = rel(ctrl_grads, plain_grads)
+    del ctrl_grads, plain_grads
+    loss_err = abs(k4_loss - plain_loss)
+    check(np.isfinite(k4_loss) and loss_err <= TRAIN_LOSS_TOL,
+          f"the f32 step's loss differs between the lanes by {loss_err} > {TRAIN_LOSS_TOL}")
+    by_blocks = [p for p, err, ctl in zip(paths, lanes, control) if err > TRAIN_GRAD_TOL]
+    for path, err, ctl in zip(paths, lanes, control):
+        check(err <= TRAIN_GRAD_TOL or ctl > TRAIN_GRAD_TOL,
+              f"{path}: the lanes' gradients differ by {err:.3g} of its largest, where the "
+              f"one-ulp control parts them by {ctl:.3g}; > {TRAIN_GRAD_TOL}")
+    local = train_layer_local(cfg, params, batch)
+    del params
+    worst = max(range(len(paths)), key=lambda i: lanes[i])
+    stats = dict(loss=k4_loss, loss_err=loss_err, control_loss_err=abs(ctrl_loss - plain_loss),
+                 grad_err=lanes[worst], grad_err_leaf=paths[worst], control_grad_err=max(control),
+                 held_by_blocks=by_blocks, block_attn_err=local["attn_err"],
+                 block_grad_err=local["grad_err"], block_grad_leaf=local["grad_leaf"])
+    print(f"phase 16c: one f32 step of {cfg.name} FULL, K4 lane against the plain lane: loss "
+          f"{k4_loss:.6f}, within {loss_err:.3g} (control {stats['control_loss_err']:.3g}); "
+          f"gradients within {lanes[worst]:.3g} of their largest ({paths[worst]}; control "
+          f"up to {max(control):.3g}); {len(by_blocks)} leaves held by the blocks; block by "
+          f"block: attention outputs within {local['attn_err']:.3g}, gradients within "
+          f"{local['grad_err']:.3g} ({local['grad_leaf']})")
+    free_weights()
+    return stats
+
+
+def phase_train_restart(dev) -> dict:
+    """Phase 16d: the reference's ``test_train_restart_after_injected_failure``
+    (``tests/test_checkpoint_fault.py``) at SMOKE size on the card: 14 steps,
+    a checkpoint every 5 (keep 2) under ``build/``, three failures at step 8
+    that outlast one retry, so the trainer restores step 5's checkpoint and
+    replays. Held: at least one restart, finite losses, the last loss
+    within 0.5 of the first, ``latest_step() == 14``, and step 14's
+    checkpoint restored to the card equal to the final state bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.runtime import FaultPolicy, StepFailure
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, leaves_with_path
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    tc = TrainConfig(batch=4, seq_len=16, steps=14, peak_lr=5e-3, warmup_steps=2,
+                     checkpoint_every=5, log_every=2)
+    trainer = Trainer(cfg, tc, device=dev)
+    mgr = CheckpointManager(str(TRAIN_CKPT), keep=2)
+    fails = {"n": 0}
+
+    def inject(step):
+        if step == 8 and fails["n"] < 3:
+            fails["n"] += 1
+            raise StepFailure("injected")
+
+    reset_counts()
+    hist = trainer.fit(DataLoader(cfg, tc.batch, tc.seq_len, seed=0, device=dev), manager=mgr,
+                       fail_injector=inject,
+                       policy=FaultPolicy(max_retries_per_step=1, max_total_failures=8))
+    k4 = read_counts()["k4"]
+    check(hist["restarts"] >= 1, "no checkpoint-restart after the injected failures")
+    check(bool(np.isfinite(hist["loss"]).all()) and hist["loss"][-1] < hist["loss"][0] + 0.5,
+          f"losses {hist['loss']}")
+    check(mgr.latest_step() == 14, f"latest checkpoint {mgr.latest_step()}, not 14")
+    restored, meta = mgr.restore(trainer.abstract_state(), device=dev)
+    same = [torch.equal(a, b) for a, b in zip(leaves(restored), leaves(trainer.state))]
+    check(all(same) and len(same) == len(leaves_with_path(trainer.state)),
+          "step 14's checkpoint does not restore to the final state bit for bit")
+    check(meta["meta"]["loader_state"] == {"step": 14, "seed": 0}, f"loader state {meta}")
+    print(f"phase 16d: {cfg.name} on the card, 14 steps with 3 injected failures at step 8: "
+          f"restarts={hist['restarts']}, checkpoints {mgr.all_steps()}, loss "
+          f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}, K4 {k4} launches; step 14 "
+          f"restored bit-equal ({len(same)} leaves)")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return dict(restarts=hist["restarts"], k4=k4, loss=hist["loss"])
+
+
+def phase_training(dev) -> dict:
+    """Phase 16: 16a-16d. Returns the main path's numbers (16b) with the
+    others' beside them."""
+    t0 = time.perf_counter()
+    functions = timed("16a K4/K5 Functions", phase_train_functions, dev)
+    train = timed("16b training", phase_train, dev)
+    lanes = timed("16c f32 step on both lanes", phase_train_lanes, dev)
+    restart = timed("16d restart from a checkpoint", phase_train_restart, dev)
+    seconds = time.perf_counter() - t0
+    print(f"[phase 16: {seconds:.1f}s]")
+    return dict(train, functions=functions, lanes=lanes, restart=restart, phase_seconds=seconds)
+
+
 def phase_analyzer():
     """Phase 10: the contract analyzer's whole sweep, CPU and card halves,
     against the committed baseline. Returns its summary."""
@@ -3617,15 +4047,17 @@ def main() -> None:
     vlm = timed("15 vlm prefill and decode", frontend_serve, VLM_ARCH, dev)
     free_weights()
     print(f"[phases 13-15: {time.perf_counter() - t_new:.1f}s]")
+    training = phase_training(dev)
     paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
                           f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
                           f"{MLA_ARCH} long prefills": mla["long_launches"],
                           f"{HYBRID_ARCH} engine": hybrid["k4"],
                           f"{HYBRID_ARCH} long prefills": hybrid["long_launches"],
                           f"{ENCDEC_ARCH} prefills": encdec["k4"],
-                          f"{VLM_ARCH} prefills": vlm["k4"]},
+                          f"{VLM_ARCH} prefills": vlm["k4"],
+                          f"{TRAIN_ARCH} training": training["k4"]},
              "servers": {"moe_server": moe, "mla_server": mla, "hybrid_engine": hybrid,
-                         "encdec_prefill": encdec, "vlm_prefill": vlm}}
+                         "encdec_prefill": encdec, "vlm_prefill": vlm, "training": training}}
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)

@@ -5,9 +5,11 @@ hybrid's shared attention, the encoder-decoder's and the modality frontend
 stubs'.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests. The training fields
-(``remat``, ``scan_layers``) and ``ShapeConfig`` are not ported (ROADMAP
-queue 1 item 13.6).
+form and a ``smoke`` reduction for CPU tests. The reference's ``remat``
+and ``scan_layers`` have no counterpart: the port's trainer runs eagerly
+and keeps every activation for the backward (``train/loop.py``;
+``remat_policy`` is kept, unread). ``ShapeConfig`` waits for the dry run
+(ROADMAP queue 1 item 13.7).
 """
 from __future__ import annotations
 

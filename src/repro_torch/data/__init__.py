@@ -1,1 +1,2 @@
-"""Deterministic synthetic inputs (numpy, shared frame-for-frame with ``repro``)."""
+"""Deterministic synthetic inputs (numpy, shared frame-for-frame with
+``repro``) and the prefetching loader that puts them on the device."""

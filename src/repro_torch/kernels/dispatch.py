@@ -63,6 +63,7 @@ __all__ = [
     "BACKENDS",
     "resolve_device",
     "resolve_backend",
+    "refuse_detached",
     "resolve_precision",
     "choose_block_shape",
     "stream_block_shape",
@@ -99,6 +100,16 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
             f"got {device}"
         )
     return b
+
+
+def refuse_detached(name: str, instead: str, *inputs: torch.Tensor) -> None:
+    """Raise where a kernel's output would cut the autograd graph: grad
+    mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}(backend='cuda') under autograd: the kernel's output carries no gradient, "
+            f"so every parameter upstream would silently get none; call {instead} (its "
+            "autograd Function), or run under torch.no_grad()")
 
 
 def resolve_precision(precision: str, backend: str, *, spec, rgb: bool, input_dtype,

@@ -16,6 +16,17 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes
 :func:`flash_attention_plain`. ``backend="torch"`` names the plain version
 on any device (the counterpart of the reference's ``interpret=True``), for
 checking the kernel on the card.
+
+The kernel's output is written through ``ctypes`` and carries no
+``grad_fn``, so :func:`flash_attention` on the kernel raises under autograd
+(grad mode on and an input that requires grad) instead of cutting the
+graph. :func:`k4_attention` (:class:`K4Attention`) is the differentiable
+call: K4 runs the forward; the backward recomputes
+:func:`flash_attention_plain` on the saved q, k, v and differentiates it.
+The reference's kernel has no backward (no ``custom_vjp``; its trainer
+differentiates XLA ops), so neither has the port's: the recompute holds
+S x T f32 scores a head, 16 MB a layer at llama3.2-1b's training shape (8,
+32, 128, 64).
 """
 from __future__ import annotations
 
@@ -26,9 +37,9 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.kernels.dispatch import refuse_detached, resolve_backend
 
-__all__ = ["flash_attention", "flash_attention_plain", "DMAX"]
+__all__ = ["flash_attention", "flash_attention_plain", "k4_attention", "K4Attention", "DMAX"]
 
 DMAX = 128               # largest head dim csrc/flash_attention.cu instantiates
 _NEG = -1e30
@@ -136,7 +147,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     _check(q, k, v, block_q, block_kv)
     if resolve_backend(backend, q.device) == "torch":
         return flash_attention_plain(q, k, v, causal=causal)
+    refuse_detached("flash_attention", "k4_attention", q, k, v)
     return _launch(q, k, v, causal)
 
 
 flash_attention.launches = 0
+
+
+class K4Attention(torch.autograd.Function):
+    """K4 under autograd. Forward: one launch of the kernel (counted in
+    ``flash_attention.launches``). Backward: :func:`flash_attention_plain`
+    recomputed on the saved q, k, v under ``torch.enable_grad()`` and
+    differentiated by ``torch.autograd.grad``; it launches nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*ins, causal=ctx.causal)
+            grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad],
+                                             grad_out))
+        return tuple(next(grads) if n else None for n in need) + (None,)
+
+
+def k4_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                 block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """:func:`flash_attention` on the kernel, differentiable: the reference's
+    shape rule, then :class:`K4Attention`. Takes what ``_launch`` takes
+    (CUDA tensors); with no input that requires grad it is one launch and
+    records no graph."""
+    _check(q, k, v, block_q, block_kv)
+    return K4Attention.apply(q, k, v, causal)

@@ -23,6 +23,12 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes
 :func:`selective_scan_plain`. ``backend="torch"`` names the plain version
 on any device (the counterpart of the reference's ``interpret=True``), for
 checking the kernel on the card.
+
+As K4's, the kernel's outputs carry no ``grad_fn``: :func:`selective_scan`
+on the kernel raises under autograd, and :func:`k5_scan`
+(:class:`K5Scan`) is the differentiable call, K5 forward and the plain
+scan recomputed and differentiated for the backward (the reference's
+kernel has no backward either).
 """
 from __future__ import annotations
 
@@ -32,9 +38,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.dispatch import resolve_backend
+from repro_torch.kernels.dispatch import refuse_detached, resolve_backend
 
-__all__ = ["selective_scan", "selective_scan_plain", "NMAX"]
+__all__ = ["selective_scan", "selective_scan_plain", "k5_scan", "K5Scan", "NMAX"]
 
 NMAX = 1024              # largest state size N csrc/selective_scan.cu instantiates
 PLAIN_CHUNK = 256        # time steps whose decay and input terms the plain version holds at once
@@ -161,8 +167,43 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor,
     _check(x, dt, b_mat, c_mat, a, chunk, block_d)
     if resolve_backend(backend, x.device) == "torch":
         return selective_scan_plain(x, dt, b_mat, c_mat, a)
+    refuse_detached("selective_scan", "k5_scan", x, dt, b_mat, c_mat, a)
     return _launch(x, dt, b_mat, c_mat, a)
 
 
 selective_scan.launches = 0
 selective_scan.async_launches = 0
+
+
+class K5Scan(torch.autograd.Function):
+    """K5 under autograd. Forward: one launch of the kernel (counted in
+    ``selective_scan.launches``), returning ``(y, h_last)``. Backward:
+    :func:`selective_scan_plain` recomputed on the saved inputs under
+    ``torch.enable_grad()`` and differentiated for both outputs; it
+    launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b_mat, c_mat, a):
+        ctx.save_for_backward(x, dt, b_mat, c_mat, a)
+        return _launch(x, dt, b_mat, c_mat, a)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            y, h_last = selective_scan_plain(*ins)
+            grads = iter(torch.autograd.grad((y, h_last), [t for t in ins if t.requires_grad],
+                                             (grad_y, grad_h), allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def k5_scan(x: torch.Tensor, dt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+            a: torch.Tensor, *, chunk: int = 256, block_d: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan` on the kernel, differentiable: the reference's
+    shape rule, then :class:`K5Scan`. Takes what ``_launch`` takes (CUDA
+    tensors); with no input that requires grad it is one launch and records
+    no graph."""
+    _check(x, dt, b_mat, c_mat, a, chunk, block_d)
+    return K5Scan.apply(x, dt, b_mat, c_mat, a)

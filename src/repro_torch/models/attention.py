@@ -46,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_backend, resolve_device
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import k4_attention
 from repro_torch.models.layers import Spec, apply_rope
 
 __all__ = [
@@ -236,13 +236,14 @@ def _k4_attention(q5: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``dot_attention`` over ``pos_q = pos_k = arange(S)`` through K4: fold
     (KV, G) into H, repeat each KV head for its G query heads, and call the
     kernel with ``block_q = S`` and ``block_kv = T``, which its shape rule
-    accepts at any length. Returns (B, S, KV, G, D)."""
+    accepts at any length. The call is :func:`k4_attention`, so the card
+    lane trains: K4 forward, the plain version recomputed for the
+    backward. Returns (B, S, KV, G, D)."""
     b, s, kv, g, d = q5.shape
     qh = q5.permute(0, 2, 3, 1, 4).reshape(b, kv * g, s, d)
     kh = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
-    out = flash_attention(qh, kh, vh, causal=causal, block_q=s, block_kv=kh.shape[2],
-                          backend="cuda")
+    out = k4_attention(qh, kh, vh, causal=causal, block_q=s, block_kv=kh.shape[2])
     return out.reshape(b, kv, g, s, d).permute(0, 3, 1, 2, 4)
 
 

@@ -1,17 +1,16 @@
-"""Public model API: init / forward / cache / prefill / decode for every LM
-family (dense with GQA or MLA, moe, ssm, hybrid, encdec, vlm), and
+"""Public model API: init / forward / loss / cache / prefill / decode for
+every LM family (dense with GQA or MLA, moe, ssm, hybrid, encdec, vlm), and
 :func:`carry_params`, which takes the reference's weights.
 
-The port of ``repro.models.model.Model`` without the training half
-(``loss_fn``, ``cross_entropy``, ``cast_params``: ROADMAP queue 1 item 13).
-Parameters are a nested dict of tensors under the reference's names, with
-the stacked leading layer axis, so the reference's tree carries across name
-for name.
+The port of ``repro.models.model``: ``Model`` (its training half too:
+``cast_params``, ``loss_fn``) and :func:`cross_entropy`. Parameters are a
+nested dict of tensors under the reference's names, with the stacked
+leading layer axis, so the reference's tree carries across name for name.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +18,25 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import Spec, init_tree, map_specs
+from repro_torch.models.layers import Spec, init_tree, map_specs, torch_dtype
+from repro_torch.tree import tree_map
 
-__all__ = ["Model", "carry_params"]
+__all__ = ["Model", "carry_params", "cross_entropy"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean masked token cross-entropy, in f32. The label logit is taken
+    with a masked sum over the vocabulary, as the reference takes it (its
+    vocab-sharded form), not with a gather."""
+    logits = logits.float()
+    log_z = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.where(iota == labels[..., None].long(), logits, 0.0).sum(dim=-1)
+    xent = log_z - ll
+    weights = torch.ones_like(xent) if weights is None else weights.float()
+    total = torch.clamp(weights.sum(), min=1e-6)
+    return (xent * weights).sum() / total
 
 
 class Model:
@@ -53,9 +68,32 @@ class Model:
         map_specs(lambda _p, s: total.append(math.prod(s.shape)), self.param_specs())
         return int(sum(total))
 
-    # -- forward ------------------------------------------------------------
+    # -- forward / loss -------------------------------------------------------
     def forward(self, params, batch: Dict):
         return T.forward(params, self.cfg, batch, backend=self.backend)
+
+    def cast_params(self, params):
+        """Mixed precision: one cast of every f32 leaf to ``cfg.dtype`` up
+        front, so the products run in it; autograd carries the gradients
+        back to the f32 tree (an f32 config casts nothing)."""
+        dtype = torch_dtype(self.cfg.dtype)
+        return tree_map(lambda p: p.to(dtype) if p.dtype == torch.float32 else p, params)
+
+    def loss_fn(self, params, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics): the cross-entropy of the cast model's logits
+        against ``batch["labels"]`` (weighted by ``loss_weights`` where the
+        batch has them), plus each auxiliary loss of the forward (a moe
+        model's ``moe_aux`` and ``moe_z``), as the reference adds them.
+        ``loss`` carries the graph; the metrics are detached."""
+        logits, aux = self.forward(self.cast_params(params), batch)
+        xent = cross_entropy(logits, batch["labels"], batch.get("loss_weights"))
+        loss = xent
+        metrics = {"xent": xent.detach()}
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v.detach()
+        metrics["loss"] = loss.detach()
+        return loss, metrics
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

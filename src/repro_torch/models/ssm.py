@@ -4,10 +4,11 @@ Mamba-2 (SSD) in plain PyTorch.
 The port of ``repro.models.ssm``. For Mamba-1 the reference computes the
 prefill's scan with an outer ``lax.scan`` over chunks carrying the
 ``(B, d_inner, N)`` state and a parallel associative scan inside each
-chunk; the port runs the same recurrence through
-:func:`repro_torch.kernels.selective_scan.selective_scan`: K5 on a CUDA
-tensor (one launch a layer), its plain sequential version on a CPU one or
-with ``backend="torch"``. K5 also returns the final state, which the
+chunk; the port runs the same recurrence through K5 on a CUDA tensor (one
+launch a layer, through :func:`repro_torch.kernels.selective_scan.k5_scan`,
+whose backward recomputes the plain scan), its plain sequential version
+(:func:`~repro_torch.kernels.selective_scan.selective_scan`) on a CPU one
+or with ``backend="torch"``. K5 also returns the final state, which the
 decode cache needs (the reference takes it from its scan's carry).
 
 Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
@@ -35,8 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.dispatch import resolve_backend, resolve_device
+from repro_torch.kernels.selective_scan import k5_scan, selective_scan
 from repro_torch.models.layers import Spec
 
 __all__ = [
@@ -135,8 +136,11 @@ def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     dtype = x.dtype
     xc, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba1_inputs(params, cfg, x)
     xf = xc.float()
-    y, h_last = selective_scan(xf, dt, b_mat, c_mat, a, chunk=_pick_chunk(l, cfg.ssm_chunk),
-                               block_d=cfg.d_inner, backend=backend)
+    gates = dict(chunk=_pick_chunk(l, cfg.ssm_chunk), block_d=cfg.d_inner)
+    if resolve_backend(backend, x.device) == "cuda":
+        y, h_last = k5_scan(xf, dt, b_mat, c_mat, a, **gates)       # differentiable
+    else:
+        y, h_last = selective_scan(xf, dt, b_mat, c_mat, a, backend="torch", **gates)
     y = y + params["d_skip"].float() * xf
     y = y.to(dtype) * F.silu(z)
     out = y @ params["out_proj"].to(dtype)

@@ -163,6 +163,20 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _layers(tree: Any, n: int) -> list:
+    """Every layer of a stacked tree, as ``_layer`` gives them, cut with one
+    ``unbind`` a leaf. Under autograd the leaf's gradient is then one
+    ``stack`` of the layers' gradients; indexing layer by layer would
+    make each layer's gradient a zero-filled copy of the whole stack and
+    add the n copies up."""
+    if isinstance(tree, dict):
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"a stacked leaf of {tree.shape[0]} layers, not {n}")
+    return list(torch.unbind(tree, 0))
+
+
 def _groups(cfg: ModelConfig) -> int:
     """The hybrid's groups: ``attn_every`` Mamba-2 layers, then the shared block."""
     if cfg.attn_every <= 0 or cfg.num_layers % cfg.attn_every:
@@ -221,17 +235,18 @@ def _apply_mamba_block(lp, cfg: ModelConfig, x, *, cache=None, return_cache=Fals
 def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend="auto"):
     """The main layer stack without a cache (the reference's ``lax.scan``).
     Returns (x, the auxiliary losses summed over the layers)."""
+    layers = _layers(params["layers"], cfg.num_layers)
     if cfg.family == "hybrid":
         for g in range(_groups(cfg)):
             for j in range(cfg.attn_every):
-                lp = _layer(params["layers"], g * cfg.attn_every + j)
+                lp = layers[g * cfg.attn_every + j]
                 x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
             x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=True,
                                         backend=backend)
         return x, {}
     auxs: Dict[str, list] = {}
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = layers[i]
         if cfg.family == "ssm":
             x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
             continue
@@ -271,8 +286,8 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, dtype, backend="
     pos = torch.arange(t, dtype=torch.int32, device=enc_embeds.device)[None].expand(b, t)
     x = enc_embeds.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
     enc = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        x, _, _ = _apply_attn_block(_layer(enc["layers"], i), cfg, x, pos, causal=False,
+    for lp in _layers(enc["layers"], cfg.encoder_layers):
+        x, _, _ = _apply_attn_block(lp, cfg, x, pos, causal=False,
                                     backend=backend)
     return apply_norm(enc["final_norm"], cfg, x)
 

@@ -1,0 +1,228 @@
+"""Training loop: train step, grad accumulation, checkpoint/restart,
+straggler monitoring. The port of ``repro.train.loop`` on one device (the
+reference's ``mesh=None`` path).
+
+``Trainer`` owns the step; ``fit`` drives it with the fault-tolerant
+runner's policy, so injected or real step failures trigger retry, then
+checkpoint-restore. One step: ``Model.loss_fn`` (the f32 master weights
+cast to ``cfg.dtype``, the forward on the model's lane: kernel K4 for the
+attention and K5 for a Mamba-1 scan on a CUDA tensor, through their
+autograd Functions), ``torch.autograd.grad`` back to the f32 tree, the
+microbatches' gradients summed in f32 and divided by their count, then
+``adamw.update`` at the ``warmup_cosine`` learning rate of the step.
+
+Not ported: the mesh (TP+FSDP shardings, ZeRO-1's optimizer-state axes)
+waits for the sharding rules (ROADMAP queue 1 item 13.7), and so does the
+reference's donation of the state to the step; ``remat_policy``
+(``configs/base.py``) has no counterpart: PyTorch keeps every activation
+of the forward for the backward, as the reference's policy-free step
+would. ``TrainConfig`` leaves out the reference's ``checkpoint_dir`` and
+``keep_checkpoints``, which nothing there reads: the ``CheckpointManager``
+given to ``fit`` holds the directory and the retention.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.loader import DataLoader
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import Model
+from repro_torch.models.layers import map_specs
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime.fault import FaultPolicy, StepFailure
+from repro_torch.runtime.monitor import StepMonitor
+from repro_torch.tree import leaves, tree_map, unflatten
+
+log = logging.getLogger("repro_torch.train")
+
+__all__ = ["TrainConfig", "TrainState", "Trainer"]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch: int = 8
+    seq_len: int = 128
+    steps: int = 100
+    microbatches: int = 1
+    peak_lr: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 50
+    log_every: int = 10
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor        # int32 scalar
+    params: Any               # f32 master weights
+    opt: adamw.AdamWState
+
+
+class Trainer:
+    """``model_cfg`` trained by ``train_cfg`` on ``device`` (``None`` = the
+    CUDA device). After ``fit``, ``self.state`` is the last state."""
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None):
+        self.cfg = model_cfg
+        self.tc = train_cfg
+        self.device = resolve_device(device)
+        self.model = Model(model_cfg)
+        self.monitor = StepMonitor()
+        self.state: Optional[TrainState] = None
+
+    # -- the step ---------------------------------------------------------------
+    def lr(self, step: int) -> float:
+        tc = self.tc
+        return warmup_cosine(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
+                             total_steps=tc.steps)
+
+    def grads_of(self, params, batch: Dict) -> Tuple[Any, Dict[str, torch.Tensor]]:
+        """(gradients of ``loss_fn`` w.r.t. the f32 tree, metrics)."""
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss, metrics = self.model.loss_fn(unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+        return unflatten(params, grads), metrics
+
+    def step_fn(self, state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        tc = self.tc
+        lr = self.lr(int(state.step))               # read before the step is queued
+        if tc.microbatches > 1:
+            n = tc.microbatches
+            grads, per_mb = None, []
+            for i in range(n):
+                one = {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+                g, metrics = self.grads_of(state.params, one)
+                grads = (tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                        device=p.device), state.params)
+                         if grads is None else grads)
+                grads = tree_map(torch.add, grads, g)
+                per_mb.append(metrics)
+            grads = tree_map(lambda g: g / n, grads)
+            metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        else:
+            grads, metrics = self.grads_of(state.params, batch)
+
+        new_params, new_opt, stats = adamw.update(
+            grads, state.opt, state.params, lr,
+            weight_decay=tc.weight_decay, clip_norm=tc.clip_norm,
+        )
+        metrics = dict(metrics, **stats, lr=lr)
+        return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    # -- state init / restore -----------------------------------------------
+    def init_state(self, params: Any = None) -> TrainState:
+        """Step 0: ``params`` (a tree of the model's shapes, e.g. weights
+        carried from the reference) or weights drawn from ``tc.seed``,
+        with fresh AdamW moments."""
+        if params is None:
+            params = self.model.init(self.tc.seed, device=self.device)
+        else:
+            params = tree_map(lambda p: p.detach().to(self.device, torch.float32), params)
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        return TrainState(step, params, adamw.init(params))
+
+    def abstract_state(self) -> TrainState:
+        """The state's shapes and dtypes on the ``meta`` device (a restore
+        template; no memory)."""
+        meta = torch.device("meta")
+        params = map_specs(lambda _p, s: torch.empty(s.shape, device=meta),
+                           self.model.param_specs())
+        scalar = torch.empty((), dtype=torch.int32, device=meta)
+        return TrainState(scalar, params, adamw.AdamWState(scalar, params, params))
+
+    def restore_or_init(self, manager: Optional[CheckpointManager],
+                        params: Any = None) -> Tuple[TrainState, Dict]:
+        if manager is not None and manager.latest_step() is not None:
+            state, meta = manager.restore(self.abstract_state(), device=self.device)
+            log.info("restored checkpoint at step %s", meta["step"])
+            return state, meta.get("meta", {})
+        return self.init_state(params), {}
+
+    # -- the fit loop ---------------------------------------------------------
+    def fit(
+        self,
+        loader: DataLoader,
+        *,
+        steps: Optional[int] = None,
+        manager: Optional[CheckpointManager] = None,
+        fail_injector=None,
+        policy: Optional[FaultPolicy] = None,
+        params: Any = None,
+    ) -> Dict[str, list]:
+        """Train to ``steps`` (default ``tc.steps``) from the newest
+        checkpoint of ``manager``, else from ``params`` (else drawn
+        weights). Returns the history: ``loss``, ``grad_norm``, ``lr`` and
+        ``step`` every ``log_every`` steps and at the last, and
+        ``restarts``."""
+        steps = steps or self.tc.steps
+        policy = policy or FaultPolicy()
+        state, meta = self.restore_or_init(manager, params)
+        if meta.get("loader_state"):
+            loader.restore(meta["loader_state"])
+        history: Dict[str, Any] = {"loss": [], "grad_norm": [], "lr": [], "step": [],
+                                   "restarts": 0}
+        step = int(state.step)
+        it = iter(loader)
+        total_failures = 0
+
+        while step < steps:
+            batch = next(it)
+            retries = 0
+            restored = False
+            while True:
+                try:
+                    self.monitor.start()
+                    if fail_injector is not None:
+                        fail_injector(step)        # may raise StepFailure
+                    new_state, metrics = self.step_fn(state, batch)
+                    loss = float(metrics["loss"])  # waits for the device: honest step timing
+                    self.monitor.stop()
+                    break
+                except StepFailure as err:
+                    total_failures += 1
+                    retries += 1
+                    if total_failures > policy.max_total_failures:
+                        raise RuntimeError(
+                            f"failure budget exhausted ({total_failures})"
+                        ) from err
+                    if retries <= policy.max_retries_per_step:
+                        log.warning("step %d failed (%s); retry %d", step, err, retries)
+                        continue
+                    # persistent failure: checkpoint-restart
+                    if manager is None:
+                        raise
+                    log.warning("step %d persistently failing; restoring", step)
+                    state, m = self.restore_or_init(manager, params)
+                    if m.get("loader_state"):
+                        loader.restore(m["loader_state"])
+                    step = int(state.step)
+                    history["restarts"] += 1
+                    restored = True
+                    break
+            if restored:
+                continue                            # refetch batch at restored step
+
+            state = new_state
+            step += 1
+            if step % self.tc.log_every == 0 or step == steps:
+                history["loss"].append(loss)
+                history["grad_norm"].append(float(metrics["grad_norm"]))
+                history["lr"].append(float(metrics["lr"]))
+                history["step"].append(step)
+                log.info("step %d loss %.4f", step, loss)
+            if manager is not None and (
+                step % self.tc.checkpoint_every == 0 or step == steps
+            ):
+                manager.save(step, state, meta={"loader_state": loader.state()})
+        loader.close()
+        self.state = state
+        return history

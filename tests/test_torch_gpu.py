@@ -1238,3 +1238,113 @@ def test_fig7_ssim_on_the_card(cuda_device):
                                         block_w=128)).magnitude
         assert ekern.edge_cuda.launches == launches + 1
         assert float(ssim(mag, ref).mean()) > 0.999999, variant
+
+
+# ---------------------------------------------------------------------------
+# Training: K4 and K5 under autograd (their Functions), and a step on the card
+# ---------------------------------------------------------------------------
+
+# K4's forward against the plain version (phase 6's tolerances: f32 2e-5,
+# bf16 one ulp + 2e-5); the backward recomputes the plain version, so the
+# gradients differ from plain autograd's only by the products' order on the
+# card: within 1e-5 of each gradient's largest value.
+K4_FWD_TOL, GRAD_REL = 2e-5, 1e-5
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("shape,causal", [((8, 32, 128, 128, 64), True),
+                                          ((2, 20, 64, 300, 64), False),
+                                          ((1, 3, 37, 37, 8), True)],
+                         ids=["llama-train", "noncausal", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_function_on_the_card_gives_the_plain_gradients(cuda_device, shape, causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, \
+        k4_attention
+
+    b, h, s, t, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(s * t)
+    q, k, v = (torch.randn(n, generator=g, device=cuda_device).to(dtype).requires_grad_()
+               for n in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+    go = torch.randn((b, h, s, d), generator=g, device=cuda_device).to(dtype)
+    before = flash_attention.launches
+    out = k4_attention(q, k, v, causal=causal, block_q=s, block_kv=t)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    want = torch.autograd.grad(plain, (q, k, v), go)
+    err = (out.float() - plain.float()).abs()
+    bound = K4_FWD_TOL + (_bf16_ulp(plain) if dtype == torch.bfloat16 else 0.0)
+    assert bool((err <= bound).all())
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= GRAD_REL * float(
+            w.float().abs().max())
+
+
+def test_k5_function_on_the_card_gives_the_plain_gradients(cuda_device):
+    from repro_torch.kernels.selective_scan import k5_scan, selective_scan, selective_scan_plain
+
+    shape = (1, 128, 512, 16)
+    args = [t.requires_grad_() for t in _scan_inputs(shape, torch.float32, cuda_device)]
+    gy = torch.randn(shape[:3], device=cuda_device)
+    gh = torch.randn((1, 512, 16), device=cuda_device)
+    before = selective_scan.launches
+    y, h = k5_scan(*args, chunk=128, block_d=512)
+    got = torch.autograd.grad((y, h), args, (gy, gh))
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    want = torch.autograd.grad(selective_scan_plain(*args), args, (gy, gh))
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= GRAD_REL * float(w.abs().max())
+
+
+def test_bare_kernel_calls_under_autograd_raise(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    q = torch.randn(1, 2, 16, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="k4_attention"):
+        flash_attention(q, q, q)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+    args = [t.requires_grad_() for t in _scan_inputs((1, 8, 32, 4), torch.float32, cuda_device)]
+    with pytest.raises(RuntimeError, match="k5_scan"):
+        selective_scan(*args, chunk=8, block_d=32)
+
+
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "falcon-mamba-7b", "whisper-large-v3"))
+def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, arch):
+    """SMOKE f32: one step's loss and gradients through K4 (K5 for the ssm
+    model) against the plain lane on the card; the kernels launch once a
+    layer (whisper: encoder, decoder and cross-attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves, unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = Model(cfg).init(1, device=cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in lm_batch(cfg, 2, 32).items()}
+
+    def step(backend):
+        flat = [p.clone().requires_grad_(True) for p in leaves(params)]
+        loss, _ = Model(cfg, backend=backend).loss_fn(unflatten(params, flat), batch)
+        return loss.detach(), torch.autograd.grad(loss, flat, allow_unused=True)
+
+    k4, k5 = flash_attention.launches, selective_scan.launches
+    loss, grads = step("auto")
+    torch.cuda.synchronize()
+    launched = (flash_attention.launches - k4, selective_scan.launches - k5)
+    want = {"ssm": (0, cfg.num_layers), "encdec": (cfg.encoder_layers + 2 * cfg.num_layers, 0)}
+    assert launched == want.get(cfg.family, (cfg.num_layers, 0))
+    plain_loss, plain = step("torch")
+    assert abs(float(loss) - float(plain_loss)) <= 1e-4
+    for g, w in zip(grads, plain):
+        if w is not None:
+            assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max().clamp_min(1e-30))

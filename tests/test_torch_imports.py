@@ -45,7 +45,11 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.configs.olmo_1b, repro_torch.configs.glm4_9b, "
         "repro_torch.kernels.selective_scan, repro_torch.models.ssm, "
         "repro_torch.configs.falcon_mamba_7b, repro_torch.analysis, repro_torch.analysis.device, "
-        "repro_torch.analysis.__main__, repro_torch.core.ssim, repro_torch.kernels.ref; "
+        "repro_torch.analysis.__main__, repro_torch.core.ssim, repro_torch.kernels.ref, "
+        "repro_torch.tree, repro_torch.optim, repro_torch.optim.adamw, "
+        "repro_torch.optim.schedule, repro_torch.data.loader, repro_torch.checkpoint, "
+        "repro_torch.checkpoint.manager, repro_torch.train, repro_torch.train.loop, "
+        "repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

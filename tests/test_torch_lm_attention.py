@@ -239,16 +239,16 @@ def test_cross_attention_card_lane_runs_k4_noncausal(monkeypatch, s):
     k, v = A.cross_kv(params, cfg, enc)
     calls = []
 
-    def plain_k4(q, kk, vv, *, causal, block_q, block_kv, backend):
-        calls.append((tuple(q.shape), tuple(kk.shape), causal, block_q, block_kv, backend))
+    def plain_k4(q, kk, vv, *, causal, block_q, block_kv):
+        calls.append((tuple(q.shape), tuple(kk.shape), causal, block_q, block_kv))
         return FA.flash_attention(q, kk, vv, causal=causal, block_q=block_q,
                                   block_kv=block_kv, backend="torch")
 
-    monkeypatch.setattr(A, "flash_attention", plain_k4)
+    monkeypatch.setattr(A, "k4_attention", plain_k4)
     monkeypatch.setattr(A, "resolve_backend", lambda backend, device: "cuda")
     got = A.apply_cross_attention(params, cfg, x, k, v)
     h, d = cfg.num_heads, cfg.head_dim
-    assert calls == ([((2, h, s, d), (2, h, 11, d), False, s, 11, "cuda")] if s > 1 else [])
+    assert calls == ([((2, h, s, d), (2, h, 11, d), False, s, 11)] if s > 1 else [])
     monkeypatch.undo()
     want = A.apply_cross_attention(params, cfg, x, k, v, backend="torch")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
@@ -355,14 +355,14 @@ def test_mla_zero_padded_v_route_equals_unpadded_attention(monkeypatch, s, causa
     v = torch.from_numpy(rng.normal(0, 1, (b, s, h, dv)).astype(np.float32))
     outs = []
 
-    def plain_k4(q, kk, vv, *, causal, block_q, block_kv, backend):
-        assert backend == "cuda" and vv.shape == kk.shape
+    def plain_k4(q, kk, vv, *, causal, block_q, block_kv):
+        assert vv.shape == kk.shape
         out = FA.flash_attention(q, kk, vv, causal=causal, block_q=block_q,
                                  block_kv=block_kv, backend="torch")
         outs.append(out)
         return out
 
-    monkeypatch.setattr(A, "flash_attention", plain_k4)
+    monkeypatch.setattr(A, "k4_attention", plain_k4)
     got = A._k4_attention_narrow_v(q5, k, v, causal)
     pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
     want = A.dot_attention(q5, k, v, pos_q=pos, pos_k=pos, causal=causal)

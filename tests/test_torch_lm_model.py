@@ -9,6 +9,7 @@ prefill + token-by-token decode logits, at the reference's own tolerances
 or tighter; the configs, the parameter counts (FULL ones too) and
 ``data.synthetic.lm_batch`` equal the reference's."""
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -504,3 +505,134 @@ def test_lm_batch_equals_reference(arch, seq_len):
     if cfg.family == "vlm":
         with pytest.raises(ValueError, match="text tokens"):
             lm_batch(cfg, 1, cfg.num_patches + 1)
+
+
+# ---------------------------------------------------------------------------
+# The training half: cross_entropy, cast_params, loss_fn
+# ---------------------------------------------------------------------------
+
+LOSS_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "minicpm3-4b", "falcon-mamba-7b",
+              "zamba2-2.7b", "whisper-large-v3", "pixtral-12b")
+# f32 loss_fn: the loss within 1e-5 (observed <= 2.4e-6, whisper), each
+# leaf's gradient within 1e-3 of the leaf's largest (observed <= 1.9e-4,
+# whisper's cross-attention: random weights make its attention sharp).
+TOL_LOSS, TOL_GRAD = 1e-5, 1e-3
+# bf16 (cast_params): the two libraries round the bf16 casts and products
+# at other places. The loss within 2e-2 (an ulp of bf16 at 6 is 3.1e-2;
+# observed <= 7.3e-3); the whole gradient tree's difference from the
+# reference's within 1.5x the reference's own bf16-against-f32 difference
+# (observed 0.19-0.94 of it; whisper's encoder gradients are rounding
+# through and through in both), and nearer to the reference's bf16 tree
+# than to its f32 one (observed 0.08-0.94 of that distance; an f32
+# forward would sit nearer the f32 tree).
+TOL_LOSS_BF16, CONTROL_FACTOR = 2e-2, 1.5
+
+
+def test_cross_entropy_matches_reference():
+    from repro.models.model import cross_entropy as ref_xent
+    from repro_torch.models import cross_entropy
+
+    rng = np.random.default_rng(7)
+    logits = (rng.standard_normal((3, 5, 11)) * 4).astype(np.float32)
+    labels = rng.integers(0, 11, (3, 5)).astype(np.int32)
+    weights = (rng.random((3, 5)) < 0.6).astype(np.float32)
+    for w in (None, weights, np.zeros_like(weights)):
+        want = float(ref_xent(jnp.asarray(logits), jnp.asarray(labels),
+                              None if w is None else jnp.asarray(w)))
+        got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                            None if w is None else torch.from_numpy(w))
+        assert got.dtype == torch.float32
+        assert float(got) == pytest.approx(want, rel=1e-6, abs=1e-6)
+    bf16 = cross_entropy(torch.from_numpy(logits).to(torch.bfloat16), torch.from_numpy(labels),
+                         None)
+    assert bf16.dtype == torch.float32
+
+
+def test_cast_params_casts_f32_leaves_only_and_keeps_the_graph():
+    cfg = get_config("llama3.2-1b", smoke=True)          # dtype bfloat16
+    params = Model(cfg).init(0, device="cpu")
+    params["extra"] = torch.arange(3, dtype=torch.int32)
+    leaf = params["layers"]["attn"]["wq"].requires_grad_(True)
+    cast = Model(cfg).cast_params(params)
+    assert cast["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    assert cast["extra"].dtype == torch.int32
+    (cast["layers"]["attn"]["wq"].float().sum()).backward()
+    assert leaf.grad is not None and leaf.grad.dtype == torch.float32
+    f32 = Model(cfg.replace(dtype="float32")).cast_params(params)
+    assert f32["layers"]["attn"]["wq"] is leaf
+
+
+def _loss_and_grads(arch, dtype):
+    """The port's and the reference's (loss, metrics, per-leaf gradients)
+    from the port's seed-1 weights (f32 master weights, ``cast_params`` to
+    ``dtype``) on ``lm_batch``'s batch of 2 x 16 text tokens, and the
+    dtypes of the float weights that the port's forward was given."""
+    from repro.data.synthetic import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, leaves_with_path, unflatten
+
+    rcfg = ref_get_config(arch, smoke=True).replace(dtype=dtype)
+    cfg = get_config(arch, smoke=True).replace(dtype=dtype)
+    params = Model(cfg).init(1, device="cpu")
+    seq = 16 + (cfg.num_patches if cfg.family == "vlm" else 0)
+    batch = lm_batch(rcfg, 2, seq, seed=0)
+    rparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    (rloss, rmetrics), rgrads = jax.value_and_grad(RefModel(rcfg).loss_fn, has_aux=True)(
+        rparams, _jnp(batch))
+    paths = [p for p, _ in leaves_with_path(params)]
+    flat = [t.clone().requires_grad_(True) for _, t in leaves_with_path(params)]
+    with mock.patch.object(T, "forward", wraps=T.forward) as spy:
+        loss, metrics = Model(cfg).loss_fn(unflatten(params, flat), _torch(batch))
+    seen = {t.dtype for t in leaves(spy.call_args.args[0]) if t.is_floating_point()}
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    want = dict(leaves_with_path(jax.tree.map(np.asarray, rgrads)))
+    return {"loss": (float(loss.detach()), float(rloss)),
+            "metrics": ({k: float(v) for k, v in metrics.items()},
+                        {k: float(v) for k, v in rmetrics.items()}),
+            "grads": [(p, None if g is None else g.numpy(), want[p])
+                      for p, g in zip(paths, grads)],
+            "forward_dtypes": seen}
+
+
+@pytest.fixture(scope="module", params=LOSS_ARCHS)
+def losses(request):
+    return {dt: _loss_and_grads(request.param, dt) for dt in ("float32", "bfloat16")}
+
+
+def test_loss_fn_and_grads_match_reference_f32(losses):
+    out = losses["float32"]
+    got, want = out["loss"]
+    assert got == pytest.approx(want, rel=TOL_LOSS, abs=TOL_LOSS)
+    assert out["forward_dtypes"] == {torch.float32}
+    metrics, rmetrics = out["metrics"]
+    assert set(metrics) == set(rmetrics) and "xent" in metrics
+    for k in metrics:
+        assert metrics[k] == pytest.approx(rmetrics[k], rel=TOL_LOSS, abs=TOL_LOSS), k
+    for path, g, w in out["grads"]:
+        g = np.zeros_like(w) if g is None else g
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert float(np.abs(g - w).max()) <= TOL_GRAD * scale, path
+
+
+def _tree_rel(a, b):
+    num = sum(float(((x - y).astype(np.float64) ** 2).sum()) for x, y in zip(a, b))
+    return (num / sum(float((y.astype(np.float64) ** 2).sum()) for y in b)) ** 0.5
+
+
+def test_loss_fn_and_grads_match_reference_bf16_cast(losses):
+    """``loss_fn`` runs the forward on ``cast_params``'s bf16 weights (the
+    gradient bound alone would pass an f32 forward: the reference's own
+    bf16-against-f32 difference is its scale), with the loss and the
+    gradient tree near the reference's bf16 ones."""
+    f32, bf16 = losses["float32"], losses["bfloat16"]
+    assert bf16["forward_dtypes"] == {torch.bfloat16}
+    got, want = bf16["loss"]
+    assert abs(got - want) <= TOL_LOSS_BF16
+    port = [np.zeros_like(w) if g is None else g for _p, g, w in bf16["grads"]]
+    ref = [w for _p, _g, w in bf16["grads"]]
+    ref32 = [w for _p, _g, w in f32["grads"]]
+    control = _tree_rel(ref, ref32)
+    assert _tree_rel(port, ref) <= CONTROL_FACTOR * control, (_tree_rel(port, ref), control)
+    assert _tree_rel(port, ref) < _tree_rel(port, ref32), (_tree_rel(port, ref),
+                                                           _tree_rel(port, ref32))
+    assert all(np.isfinite(g).all() for g in port)
