@@ -305,8 +305,21 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    lanes from the same weights, the loss and each leaf's gradient held
    beside a one-ulp control. 16d: the reference's injected-failure
    restart at SMOKE size on the card, checkpoints under ``build/``.
+17. Training on a mesh (after phase 16's weights are freed). 17a, the mesh
+   slice's main path: ``repro_torch.launch.train.main([..., "--steps", "6",
+   "--model-parallel", "2"], devices=[cuda:0] * 4)`` at llama3.2-1b's FULL
+   width and depth on a 2x2 (data, model) mesh (TP + FSDP, ZeRO-1
+   moments), counts set to 0 just before and read just after: K4 exactly
+   16 layers x 4 positions = 64 a step, nothing else, no plain attention
+   call; losses and grad norms finite, every parameter moved; step p50,
+   tok/s, ``max_memory_allocated`` and one step under the profiler, beside
+   phase 16b's. 17b: the state resharded onto a 1x2 mesh, every gathered
+   leaf bit-equal. 17c: one f32 step's loss and gathered gradients on the
+   2x2 mesh against one device, beside the one-ulp control, and every block
+   on its own (``mesh_layer_local``). 17d: SMOKE on
+   a (2, 2, 2) (pod, data, model) mesh of ``[cuda:0] * 8``.
 
-Phases 6-9b run after 4d, then 11-15, then 16, then phase 5, then 10 and 10b. The last line is
+Phases 6-9b run after 4d, then 11-15, then 16 and 17, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -1827,11 +1840,14 @@ K4_CASES = (
     # engine's buckets and the long prefills; whisper's encoder, decoder
     # self- and cross-attention (20 heads of 64; 4 prompts of 32 tokens
     # over the 1,500-frame window); pixtral's 1,024 patches + 32 tokens
-    # (8 KV heads repeated to 32 of 128).
+    # (8 KV heads repeated to 32 of 128). The mesh trainer's shard (phase 17a:
+    # llama3.2-1b's 8 x 128 batch on a 2x2 mesh, 4 rows and 16 of the 32
+    # heads a position).
     + [((1, 32, s, s, 80), (s, s)) for s in (8, 16, 32, 64, 1000, 2048)]
     + [((4, 20, 1500, 1500, 64), (1500, 1500)), ((4, 20, 32, 1500, 64), (32, 1500)),
        ((4, 20, 32, 32, 64), (32, 32))]
     + [((4, 32, 1056, 1056, 128), (1056, 1056))]
+    + [((4, 16, 128, 128, 64), (128, 128))]
 )
 K4_TOL = 2e-5            # f32: tests/test_kernels.py's atol and rtol
 # minicpm3-4b's MLA prefill as K4 sees it: 40 heads, q and k of 64 nope + 32
@@ -2351,7 +2367,9 @@ def phase_k4_timing(dev, lm, long_launches, main_err, paths):
                    "attn_err", "cross_err", "free_logit_err", "control_logit_err",
                    "decode_logit_err", "decode_control_err", "step_p50_ms", "step_ms",
                    "peak_gb", "step_idle", "loss", "grad_norm", "phase_seconds", "lanes",
-                   "functions", "restart", "k4_train")
+                   "functions", "restart", "k4_train", "k4_per_step", "mesh", "reshard",
+                   "f32", "pod", "single_step_p50_ms", "single_tok_s", "single_peak_gb",
+                   "single_step_idle", "k4_device_us", "step_busy_us")
     return {
         "name": "K4 flash_attention (online-softmax attention)",
         "route": "cuda",
@@ -3498,9 +3516,13 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128    # the reference launcher's ba
 TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ)]
 # Phase 16a: K4's Function at llama's training shape (B, H, S, T, D), causal,
-# and at a non-causal one (whisper's cross-attention over its 1,500 frames).
+# at the mesh trainer's shard of it (phase 17a: 4 of the 8 rows and 16 of
+# the 32 heads a position), and at a non-causal one (whisper's
+# cross-attention over its 1,500 frames).
 K4_GRAD_CASES = (((8, 32, 128, 128, 64), True, torch.float32),
                  ((8, 32, 128, 128, 64), True, torch.bfloat16),
+                 ((4, 16, 128, 128, 64), True, torch.float32),
+                 ((4, 16, 128, 128, 64), True, torch.bfloat16),
                  ((2, 20, 64, 1500, 64), False, torch.float32))
 K5_GRAD_SHAPE = (1, 128, 512, 16)
 # The Functions' gradients against plain autograd on the same inputs: their
@@ -3901,6 +3923,391 @@ def phase_training(dev) -> dict:
     return dict(train, functions=functions, lanes=lanes, restart=restart, phase_seconds=seconds)
 
 
+# --- Training on a mesh (phase 17) ------------------------------------------
+
+MESH_STEPS, MESH_DEVICES = 6, 4                    # a 2x2 (data, model) mesh on one card
+MESH_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(MESH_STEPS), "--batch", str(TRAIN_BATCH),
+             "--seq", str(TRAIN_SEQ), "--model-parallel", "2"]
+POD_ARGS = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "4", "--batch", "8", "--seq", "32",
+            "--model-parallel", "2", "--pods", "2"]
+# Phase 17c, one f32 step at FULL width, mesh against one device: the loss
+# within 1e-4 relative; each leaf's gathered gradient within 1e-3 of its
+# largest value, or a leaf the one-ulp control parts past 1e-3 too (tensor
+# parallelism reorders f32 sums as a last-bit change would; phase 16c's
+# rule), and then by at most MESH_ESCAPE times the control's error: the
+# mesh reorders every sum, not one input's last bit, so it parts further
+# (at most 8.4 x the control on the H100, embed/embedding), but a fault
+# that is no rounding parts past any such multiple.
+MESH_LOSS_RTOL, MESH_GRAD_TOL, MESH_ESCAPE = 1e-4, 1e-3, 16.0
+
+
+def phase_mesh_train(dev, single: dict) -> dict:
+    """Phase 17a, the mesh slice's main path (see the module docstring);
+    ``single`` holds phase 16b's numbers from this run. Returns the mesh
+    trainer with its numbers (17b reshards its state)."""
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.sharding.placed import Placed, gather
+    from repro_torch.tree import leaves_with_path
+
+    plain_calls = []
+    real_dot = attn_mod.dot_attention
+
+    def counted_dot(*a, **kw):
+        plain_calls.append(1)
+        return real_dot(*a, **kw)
+
+    free_weights()
+    torch.cuda.reset_peak_memory_stats()
+    attn_mod.dot_attention = counted_dot
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = launch_train.main(MESH_ARGS, devices=[dev] * MESH_DEVICES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        attn_mod.dot_attention = real_dot
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist, trainer, mesh = out["history"], out["trainer"], out["mesh"]
+    cfg = trainer.cfg
+    check(mesh.shape == {"data": 2, "model": 2} and trainer.mesh is mesh,
+          f"the launcher built mesh {mesh.shape} (trainer mesh {trainer.mesh})")
+    check(out["param_count"] == TRAIN_PARAMS, f"{cfg.name} has {out['param_count']:,} params")
+    per_step = cfg.num_layers * mesh.size * trainer.tc.microbatches
+    check(counts["k4"] == per_step * MESH_STEPS,
+          f"mesh training launched K4 {counts['k4']} times, not {per_step * MESH_STEPS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"mesh training launched {counts}")
+    check(not plain_calls, f"mesh training called the plain attention {len(plain_calls)} times")
+    check(hist["step"] == list(range(1, MESH_STEPS + 1)), f"steps logged {hist['step']}")
+    check(all(np.isfinite(hist["loss"])) and all(np.isfinite(hist["grad_norm"]))
+          and min(hist["grad_norm"]) > 0, f"losses {hist['loss']}, grad norms {hist['grad_norm']}")
+    check(hist["lr"][0] == 0.0 and hist["lr"][1] > 0, f"lr {hist['lr'][:2]}")
+    unmoved, wrong = [], []
+    for path, leaf in leaves_with_path(trainer.state.params):
+        name = "/".join(path)
+        check(isinstance(leaf, Placed), f"{name} is not placed on the mesh")
+        wrong += [name for pos, t in leaf.shards.items() if t.device != mesh.device(pos)]
+        if torch.equal(gather(leaf), redraw_leaf(trainer.model, name, dev)):
+            unmoved.append(name)
+    check(not unmoved, f"parameters unchanged after {MESH_STEPS} steps: {unmoved}")
+    check(not wrong, f"shards off their positions' devices: {wrong}")
+    step_ms = [1e3 * t for t in trainer.monitor.history[1:]]      # the first step warms up
+    p50 = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    loader = DataLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, mesh=mesh, seed=0)
+    batch = next(loader)
+    loader.close()
+    state = trainer.state
+
+    def one_step():
+        new_state, metrics = trainer.step_fn(state, batch)
+        float(metrics["loss"])
+
+    busy_us, span_us, k4_us = device_profile("one mesh training step", one_step, top=12,
+                                             kernel="flash_kernel")
+    stats = dict(k4=counts["k4"], k4_per_step=counts["k4"] // MESH_STEPS, steps=MESH_STEPS,
+                 mesh=mesh.shape, loss=hist["loss"], grad_norm=hist["grad_norm"],
+                 step_ms=step_ms, step_p50_ms=p50, tok_s=tokens / (p50 / 1e3),
+                 peak_gb=peak_gb, seconds=seconds, step_idle=1 - busy_us / span_us,
+                 step_busy_us=busy_us, k4_share=k4_us / busy_us,
+                 k4_device_us=k4_us / per_step, single_step_p50_ms=single["step_p50_ms"],
+                 single_tok_s=single["tok_s"], single_peak_gb=single["peak_gb"],
+                 single_step_idle=single["step_idle"], single_busy_us=single["step_busy_us"])
+    print(f"phase 17a: {cfg.name} FULL on a {mesh.shape} mesh of {MESH_DEVICES} x {dev} "
+          f"trained {MESH_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in {seconds:.1f} s: "
+          f"loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; step p50 {p50:.2f} ms "
+          f"({', '.join(f'{m:.1f}' for m in step_ms)}), {stats['tok_s']:.0f} tok/s; K4 "
+          f"{counts['k4']} launches ({stats['k4_per_step']} a step), plain attention calls 0; "
+          f"max_memory_allocated {peak_gb:.2f} GB; one step's device time {busy_us / 1e3:.1f} "
+          f"ms, idle {100 * stats['step_idle']:.1f}%, K4 {100 * stats['k4_share']:.2f}% "
+          f"({stats['k4_device_us']:.1f} us a launch). Phase 16b on one device: step p50 "
+          f"{single['step_p50_ms']:.2f} ms ({p50 / single['step_p50_ms']:.2f}x), "
+          f"{single['tok_s']:.0f} tok/s, {single['peak_gb']:.2f} GB, device time "
+          f"{single['step_busy_us'] / 1e3:.1f} ms, idle {100 * single['step_idle']:.1f}%")
+    del batch, state
+    return stats, trainer
+
+
+def phase_mesh_reshard(dev, trainer) -> dict:
+    """Phase 17b: the trained 2x2 state resharded onto a 1x2 mesh of the
+    same card (``runtime.elastic.reshard``, its logical axes, train rules):
+    every leaf gathered from the new mesh equal bit for bit to the old,
+    every new shard on its position's device."""
+    from repro_torch.runtime.elastic import make_mesh, reshard
+    from repro_torch.sharding.placed import Placed, gather
+    from repro_torch.tree import leaves, leaves_with_path
+
+    small = make_mesh([dev] * 2, model_parallel=2)
+    t0 = time.perf_counter()
+    new = reshard(trainer.state, trainer.state_axes(), small, trainer.abstract_state(),
+                  rules="train")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    differ = []
+    for (path, a), b in zip(leaves_with_path(new), leaves(trainer.state)):
+        if isinstance(a, Placed):
+            check(a.mesh is small and all(t.device == small.device(p) for p, t in
+                                          a.shards.items()), f"{path} is not on the 1x2 mesh")
+        if not torch.equal(gather(a), gather(b)):
+            differ.append("/".join(path))
+    check(not differ, f"leaves changed by the reshard to 1x2: {differ}")
+    n = len(leaves(new))
+    print(f"phase 17b: reshard {trainer.mesh.shape} -> {small.shape}: {n} leaves bit-equal, "
+          f"{ms:.1f} ms")
+    del new
+    return dict(leaves=n, ms=ms, bit_equal=True)
+
+
+def mesh_layer_local(cfg, params, batch, trainer) -> dict:
+    """The mesh's parts against one device's, part by part (phase 16c's
+    ``train_layer_local`` for the mesh): the embedding, each block and the
+    head, each run once on one device and once on ``trainer``'s mesh from
+    the same input, and differentiated against cotangents drawn on the card
+    (seed 0, new ones a part). The embedding (``transformer.mesh_embed``:
+    the table FSDP-gathered over ``data``, its ``d_model`` columns
+    all-gathered over ``model``) takes a cotangent of its own at each
+    position, and one device the sum of its ``model`` group's; each block
+    (``transformer.mesh_block`` on the FSDP-gathered weights of that layer,
+    K4 on each position's heads, the all-reduces over ``model``) and the
+    head (``transformer.mesh_unembed``: the final norm and the
+    vocab-parallel logits, gathered over ``model``) start from one device's
+    f32 hidden state. Held: each part's output, its weights' gradients
+    (reduce-scattered and replica-summed onto their shards, then gathered)
+    and its input's gradient (summed over the ``model`` copies) within
+    ``TRAIN_GRAD_TOL`` of one device's largest value. Returns the worst of
+    each, and the embedding's and the head's on their own."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.sharding.placed import Placed, gather, place, reduce_replicas
+    from repro_torch.sharding.rules import PartitionSpec
+    from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
+
+    mesh = trainer.mesh
+    specs = trainer.state_shardings().params
+    dtype = torch_dtype(cfg.dtype)
+    tokens = place(batch["tokens"], trainer_batch_sharding(trainer, batch))
+    mi = mesh.axis_names.index("model")
+    active = T._active_positions(mesh, tokens)
+    heads = [p for p in active if p[mi] == 0]
+    rows = {p: tokens.bounds(p)[0] for p in active}
+    gen = torch.Generator(device=tokens.local(active[0]).device).manual_seed(0)
+    out = dict(out_err=0.0, grad_err=0.0, grad_leaf="")
+
+    def on_mesh(tree, sh):
+        """``tree``'s leaves placed by ``sh``, each shard a leaf of the graph."""
+        return tree_map(lambda t, s: place(t.detach(), s).map(lambda u: u.requires_grad_(True)),
+                        tree, sh)
+
+    def mesh_grads(placed, loss, inputs):
+        """The placed leaves' gradients, replica-summed and gathered, and the inputs'."""
+        shards = [t for leaf in leaves(placed) for t in leaf.shards.values()]
+        got = iter(torch.autograd.grad(loss, shards + inputs, allow_unused=True))
+        grads = []
+        for leaf in leaves(placed):
+            g = {p: (lambda t, s: torch.zeros_like(s) if t is None else t)(next(got), s)
+                 for p, s in leaf.shards.items()}
+            grads.append(gather(reduce_replicas(Placed(leaf.mesh, leaf.spec, leaf.shape, g))))
+        return grads, list(got)
+
+    def hold(part, y_mesh, y, names, got, want):
+        err = max_rel(y_mesh.detach(), y.detach())
+        check(err <= TRAIN_GRAD_TOL, f"{part}: the mesh's output differs from one device's "
+                                     f"by {err:.3g} > {TRAIN_GRAD_TOL}")
+        out["out_err"] = max(out["out_err"], err)
+        errs = [max_rel(g, w) for g, w in zip(got, want)]
+        out[part] = dict(out_err=err, grad_err=max(errs))
+        for name, err in zip(names, errs):
+            check(err <= TRAIN_GRAD_TOL, f"{part} {name}: the mesh's gradient differs from one "
+                                         f"device's by {err:.3g} > {TRAIN_GRAD_TOL}")
+            if err >= out["grad_err"]:
+                out["grad_err"], out["grad_leaf"] = err, f"{part}/{name}"
+
+    def row_sum(per_pos, like):
+        """Per-position tensors summed into one device's rows."""
+        whole = torch.zeros_like(like)
+        for p, t in per_pos.items():
+            if t is not None:
+                whole[rows[p][0]:rows[p][1]] += t
+        return whole
+
+    # The embedding, from the tokens.
+    emb = {"embed": {"embedding": params["embed"]["embedding"]}}
+    table = emb["embed"]["embedding"].detach().requires_grad_(True)
+    x = T.embed_tokens({"embed": {"embedding": table}}, cfg, batch["tokens"], dtype)
+    placed = on_mesh(emb, {"embed": {"embedding": specs["embed"]["embedding"]}})
+    xs = T.mesh_embed(T._position_weights(placed, mesh, dtype, active), placed, cfg, tokens,
+                      mesh, dtype)
+    cots = {p: torch.randn(xs[p].shape, generator=gen, device=xs[p].device, dtype=xs[p].dtype)
+            for p in active}
+    want = torch.autograd.grad((x * row_sum(cots, x)).sum(), [table])
+    got, _ = mesh_grads(placed, sum((xs[p] * cots[p]).sum() for p in active), [])
+    hold("embed", torch.cat([xs[p] for p in heads]), x, ["embedding"], got, want)
+    del emb, table, placed, xs, cots, got, want
+
+    # Each block, from one device's hidden state.
+    x, pos = T._prepare_inputs(params, cfg, batch, dtype)
+    x = x.detach()
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        names = ["/".join(p) for p, _ in leaves_with_path(lp)] + ["input"]
+        cot = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        flat = [t.detach().requires_grad_(True) for t in leaves(lp) + [x]]
+        y, _, _ = T._apply_attn_block(unflatten(lp, flat[:-1]), cfg, flat[-1], pos)
+        want = torch.autograd.grad((y * cot).sum(), flat)
+        # the layer's weights placed as the stacked leaves are, less the layer dim
+        placed = on_mesh(lp, tree_map(lambda sh: type(sh)(sh.mesh, PartitionSpec(
+            *tuple(sh.spec)[1:])), specs["layers"]))
+        w = T._position_weights(placed, mesh, dtype, active)
+        xs = {p: x[a:b].clone().requires_grad_(True) for p, (a, b) in rows.items()}
+        ys = T.mesh_block(w, cfg, xs, {p: pos[a:b] for p, (a, b) in rows.items()}, mesh)
+        loss = sum((ys[p] * cot[rows[p][0]:rows[p][1]]).sum() for p in heads)
+        grads, dxs = mesh_grads(placed, loss, [xs[p] for p in active])
+        hold(f"layer {i}", torch.cat([ys[p] for p in heads]), y, names,
+             grads + [row_sum(dict(zip(active, dxs)), x)], want)
+        x = y.detach()
+
+    # The head, from the last block's output.
+    head = {"embed": {"lm_head": params["embed"]["lm_head"]}, "final_norm": params["final_norm"]}
+    names = ["/".join(p) for p, _ in leaves_with_path(head)] + ["input"]
+    flat = [t.detach().requires_grad_(True) for t in leaves(head) + [x]]
+    one = unflatten(head, flat[:-1])
+    logits = T.unembed(one, cfg, T.apply_norm(one["final_norm"], cfg, flat[-1]))
+    cot = torch.randn(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
+    want = torch.autograd.grad((logits * cot).sum(), flat)
+    placed = on_mesh(head, {"embed": {"lm_head": specs["embed"]["lm_head"]},
+                            "final_norm": specs["final_norm"]})
+    xs = {p: x[a:b].clone().requires_grad_(True) for p, (a, b) in rows.items()}
+    ls = T.mesh_unembed(T._position_weights(placed, mesh, dtype, active), placed, cfg, xs, mesh)
+    loss = sum((ls[p] * cot[rows[p][0]:rows[p][1]]).sum() for p in ls)
+    grads, dxs = mesh_grads(placed, loss, [xs[p] for p in active])
+    hold("head", torch.cat([ls[p] for p in ls]), logits, names,
+         grads + [row_sum(dict(zip(active, dxs)), x)], want)
+    return out
+
+
+def trainer_batch_sharding(trainer, batch):
+    """The ``batch`` rule's placement of the tokens on ``trainer``'s mesh."""
+    from repro_torch.data.loader import batch_shardings
+
+    return batch_shardings({"tokens": batch["tokens"]}, trainer.mesh)["tokens"]
+
+
+def phase_mesh_f32_step(dev) -> dict:
+    """Phase 17c: one f32 step's loss and gradients at FULL width on the
+    2x2 mesh (K4 on every position) and on one device (K4), from the same
+    weights drawn on the card (seed 0) and the same batch; the one-device
+    step with the embeddings moved by one ulp (``ulp_params``) is the
+    control. Held: the loss within ``MESH_LOSS_RTOL``; K4 16 x 4 launches;
+    each leaf's gathered gradient within ``MESH_GRAD_TOL`` of its largest
+    value, or, as in phase 16c, a leaf that the control parts past
+    ``MESH_GRAD_TOL`` too, by at most ``MESH_ESCAPE`` times the control's
+    error; and the embedding, every block and the head each on its own
+    (:func:`mesh_layer_local`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import Model
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32")
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    params = Model(cfg).init(0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+    single = Trainer(cfg, tc, device=dev)
+    want, want_m = single.grads_of(params, batch)
+    mesh = make_mesh([dev] * MESH_DEVICES, model_parallel=2)
+    trainer = Trainer(cfg, tc, mesh=mesh)
+    placed = tree_map(place, params, trainer.state_shardings().params)
+    reset_counts()
+    got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
+    k4 = read_counts()["k4"]
+    check(k4 == cfg.num_layers * mesh.size, f"the mesh's f32 step launched K4 {k4} times")
+    del placed
+    paths = ["/".join(p) for p, _ in leaves_with_path(params)]
+    errs = [max_rel(gather(g), w) for g, w in zip(leaves(got), leaves(want))]
+    del got
+    ctrl, _ = single.grads_of(ulp_params(params), batch)
+    control = [max_rel(c, w) for c, w in zip(leaves(ctrl), leaves(want))]
+    del ctrl, want
+    local = mesh_layer_local(cfg, params, batch, trainer)
+    del params
+    loss, ref = float(got_m["loss"]), float(want_m["loss"])
+    loss_err = abs(loss - ref) / abs(ref)
+    check(np.isfinite(loss) and loss_err <= MESH_LOSS_RTOL,
+          f"the mesh's f32 loss {loss} differs from one device's {ref} by {loss_err:.3g}")
+    for path, err, ctl in zip(paths, errs, control):
+        check(err <= MESH_GRAD_TOL or MESH_GRAD_TOL < ctl and err <= MESH_ESCAPE * ctl,
+              f"{path}: the mesh's gradient differs from one device's by {err:.3g} of its "
+              f"largest, where the one-ulp control parts them by {ctl:.3g}; > {MESH_GRAD_TOL}, "
+              f"or > {MESH_ESCAPE} x the control")
+    worst = max(range(len(paths)), key=lambda i: errs[i])
+    past = [i for i, e in enumerate(errs) if e > MESH_GRAD_TOL]
+    ratio = max([errs[i] / control[i] for i in past], default=0.0)
+    past = [paths[i] for i in past]
+    print(f"phase 17c: one f32 step of {cfg.name} FULL on a {mesh.shape} mesh against one "
+          f"device: loss {loss:.6f}, within {loss_err:.3g} relative; K4 {k4} launches; "
+          f"gradients within {errs[worst]:.3g} of their largest ({paths[worst]}); the one-ulp "
+          f"control parts them by up to {max(control):.3g}; {len(past)} leaves past "
+          f"{MESH_GRAD_TOL}, each one the control parts past it too, by at most {ratio:.3g} x "
+          f"the control: {past}; the embedding, each block and the head on their own: "
+          f"outputs within {local['out_err']:.3g}, gradients within "
+          f"{local['grad_err']:.3g} ({local['grad_leaf']}); the embedding's output within "
+          f"{local['embed']['out_err']:.3g}, gradient within {local['embed']['grad_err']:.3g}; "
+          f"the head's logits within {local['head']['out_err']:.3g}, gradients within "
+          f"{local['head']['grad_err']:.3g}")
+    free_weights()
+    return dict(loss=loss, loss_rel_err=loss_err, grad_err=errs[worst],
+                grad_err_leaf=paths[worst], control_grad_err=max(control), past_tol=past,
+                past_control_ratio=ratio,
+                grad_errs=dict(zip(paths, errs)), control_errs=dict(zip(paths, control)),
+                block_out_err=local["out_err"], block_grad_err=local["grad_err"],
+                block_grad_leaf=local["grad_leaf"], embed_local=local["embed"],
+                head_local=local["head"])
+
+
+def phase_mesh_pod(dev) -> dict:
+    """Phase 17d: SMOKE on a (pod, data, model) = (2, 2, 2) mesh of 8 x the
+    card through the launcher: the batch split over (pod, data), the
+    weights replicated over pod (their gradients all-reduced over it), K4
+    2 layers x 8 positions a step."""
+    from repro_torch.launch import train as launch_train
+
+    reset_counts()
+    out = launch_train.main(POD_ARGS, devices=[dev] * 8)
+    torch.cuda.synchronize()
+    k4 = read_counts()["k4"]
+    hist, mesh, cfg = out["history"], out["mesh"], out["trainer"].cfg
+    check(mesh.shape == {"pod": 2, "data": 2, "model": 2}, f"pod mesh {mesh.shape}")
+    check(k4 == cfg.num_layers * mesh.size * len(hist["step"]), f"pod run K4 {k4}")
+    check(bool(np.isfinite(hist["loss"]).all()) and hist["loss"][-1] < hist["loss"][0] + 0.5,
+          f"pod run losses {hist['loss']}")
+    print(f"phase 17d: {cfg.name} on a {mesh.shape} mesh of 8 x {dev}: {len(hist['step'])} "
+          f"steps, loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}, K4 {k4} launches")
+    return dict(k4=k4, loss=hist["loss"], mesh=mesh.shape)
+
+
+def phase_mesh_training(dev, single: dict) -> dict:
+    """Phase 17: 17a-17d. Returns the main path's numbers (17a) with the
+    others' beside them."""
+    t0 = time.perf_counter()
+    stats, trainer = timed("17a mesh training", phase_mesh_train, dev, single)
+    reshard = timed("17b reshard to 1x2", phase_mesh_reshard, dev, trainer)
+    del trainer
+    free_weights()
+    f32 = timed("17c f32 step, mesh against one device", phase_mesh_f32_step, dev)
+    pod = timed("17d pod mesh", phase_mesh_pod, dev)
+    seconds = time.perf_counter() - t0
+    print(f"[phase 17: {seconds:.1f}s]")
+    return dict(stats, reshard=reshard, f32=f32, pod=pod, phase_seconds=seconds)
+
+
 def phase_analyzer():
     """Phase 10: the contract analyzer's whole sweep, CPU and card halves,
     against the committed baseline. Returns its summary."""
@@ -4048,6 +4455,9 @@ def main() -> None:
     free_weights()
     print(f"[phases 13-15: {time.perf_counter() - t_new:.1f}s]")
     training = phase_training(dev)
+    free_weights()
+    mesh_training = phase_mesh_training(dev, training)
+    free_weights()
     paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
                           f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
                           f"{MLA_ARCH} long prefills": mla["long_launches"],
@@ -4055,9 +4465,11 @@ def main() -> None:
                           f"{HYBRID_ARCH} long prefills": hybrid["long_launches"],
                           f"{ENCDEC_ARCH} prefills": encdec["k4"],
                           f"{VLM_ARCH} prefills": vlm["k4"],
-                          f"{TRAIN_ARCH} training": training["k4"]},
+                          f"{TRAIN_ARCH} training": training["k4"],
+                          f"{TRAIN_ARCH} mesh training": mesh_training["k4"]},
              "servers": {"moe_server": moe, "mla_server": mla, "hybrid_engine": hybrid,
-                         "encdec_prefill": encdec, "vlm_prefill": vlm, "training": training}}
+                         "encdec_prefill": encdec, "vlm_prefill": vlm, "training": training,
+                         "mesh_training": mesh_training}}
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)

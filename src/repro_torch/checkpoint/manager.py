@@ -10,9 +10,12 @@ NamedTuple field as ``.name``, as ``jax.tree_util`` prints it). A
 checkpoint is written to ``step_<N>.tmp`` and published with ``os.rename``,
 so readers never see a partial one. The newest ``keep`` are retained.
 ``latest_step`` / ``restore`` implement auto-resume; the data loader's
-state rides in ``meta``. ``restore`` puts the arrays on a device and in the
-template's dtypes; re-sharding onto a mesh waits for the sharding rules
-(ROADMAP queue 1 item 13.7).
+state rides in ``meta``. A leaf placed on a mesh
+(:class:`~repro_torch.sharding.placed.Placed`) is saved whole, gathered
+from its shards, so the file does not depend on the mesh. ``restore`` puts
+the arrays on a device in the template's dtypes or, given ``shardings``,
+places each onto a mesh, which may differ from the one that saved it (the
+reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.sharding.placed import Placed, gather, place
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["CheckpointManager"]
 
@@ -35,7 +39,10 @@ _SEP = "|"
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A tensor's host copy (never a view of a CPU tensor's memory, which
-    the caller may go on changing); an array as it is."""
+    the caller may go on changing), a placed leaf gathered whole; an array
+    as it is."""
+    if isinstance(leaf, Placed):
+        return gather(leaf, "cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         return np.array(leaf.detach().cpu())
     return np.asarray(leaf)
@@ -108,13 +115,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None,
+    def restore(self, template: Any, step: Optional[int] = None, shardings: Any = None,
                 device=None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``template`` (a tree whose leaves
         are tensors, or anything with ``dtype``): each array is checked
         against the leaf's shape and put on ``device`` (``None`` = the CUDA
-        device) in the leaf's torch dtype. Returns (state, meta.json)."""
-        dev = resolve_device(device)
+        device) in the leaf's torch dtype or, with ``shardings`` (a tree of
+        ``NamedSharding`` of the template's structure), placed onto its
+        mesh. Returns (state, meta.json)."""
+        dev = resolve_device(device) if shardings is None else None
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -125,7 +134,8 @@ class CheckpointManager:
             meta = json.load(f)
 
         restored = []
-        for path_t, leaf in leaves_with_path(template):
+        where = leaves(shardings) if shardings is not None else None
+        for i, (path_t, leaf) in enumerate(leaves_with_path(template)):
             key = _SEP.join(path_t)
             if key not in flat:
                 raise KeyError(f"checkpoint missing {key!r}")
@@ -134,5 +144,6 @@ class CheckpointManager:
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != template "
                                  f"{tuple(leaf.shape)}")
             arr = np.require(arr, requirements="C")        # keeps a 0-d array 0-d
-            restored.append(torch.from_numpy(arr).to(dev, leaf.dtype))
+            t = torch.from_numpy(arr).to(leaf.dtype)
+            restored.append(place(t, where[i]) if where is not None else t.to(dev))
         return unflatten(template, restored), meta

@@ -11,9 +11,13 @@ functional): a served model keeps one cache and never needs the old one.
     *absorbed* form (q projected into the latent space), so the cache is
     never expanded to per-head keys and values.
 
-This port runs on one device, so the reference's tensor-parallel head
-layouts reduce to its single-device branch (KV heads kept, G query heads
-per KV head; MLA and cross-attention have KV = H, G = 1). Cross-attention
+On one device the reference's tensor-parallel head layouts reduce to its
+single-device branch (KV heads kept, G query heads per KV head; MLA and
+cross-attention have KV = H, G = 1). On a mesh
+(``transformer.mesh_block``) each ``model`` position runs
+:func:`apply_attention` on its own query heads and the KV heads they read,
+with a config of those head counts, and its partial ``wo`` product is
+summed over the positions. Cross-attention
 (``whisper``'s decoder) reads the encoder's keys and values, projected once
 by :func:`cross_kv`, with no mask and no positions.
 

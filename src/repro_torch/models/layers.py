@@ -2,9 +2,9 @@
 
 The port of ``repro.models.layers``. Parameters are declared as
 ``Spec(shape, logical_axes, init)`` trees (nested dicts), and the same
-declaration drives initialization and the parameter count, so the two
-cannot drift apart. The logical axes are kept for the names' sake; this
-single-device port shards nothing.
+declaration drives initialization, the parameter count and the sharding:
+``Model.logical_axes()`` reads the axes, which the rules of
+``repro_torch.sharding`` map onto a mesh.
 
 :func:`init_tree` differs from the reference on purpose: the reference folds
 Python's per-process-salted ``hash`` of a leaf's path into its key, so its
@@ -31,6 +31,7 @@ __all__ = [
     "Spec",
     "map_specs",
     "init_tree",
+    "init_leaf",
     "stack_specs",
     "torch_dtype",
     "norm_params",
@@ -98,20 +99,23 @@ def _init_leaf(spec: Spec, gen: torch.Generator, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype, device=device).mul_(std)
 
 
+def init_leaf(path: str, spec: Spec, seed: int = 0, *, dtype=torch.float32,
+              device: "torch.device | str" = "cpu") -> torch.Tensor:
+    """One leaf of :func:`init_tree`, drawn on ``device`` from a
+    ``torch.Generator`` seeded with the crc32 of ``seed`` and ``path``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    # crc32 of "seed/path": 32 bits, all the CPU generator's seed keeps.
+    gen.manual_seed(zlib.crc32(f"{seed}/{path}".encode()))
+    return _init_leaf(spec, gen, dtype, device)
+
+
 def init_tree(specs: Any, seed: int = 0, *, dtype=torch.float32,
               device: "torch.device | str" = "cpu") -> Any:
-    """Materialize a Spec tree on ``device``: each leaf is drawn from a
-    ``torch.Generator`` on that device seeded with the crc32 of ``seed`` and
-    the leaf's path, so it is the same in every process."""
-    device = torch.device(device)
-
-    def leaf(path: str, spec: Spec) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        # crc32 of "seed/path": 32 bits, all the CPU generator's seed keeps.
-        gen.manual_seed(zlib.crc32(f"{seed}/{path}".encode()))
-        return _init_leaf(spec, gen, dtype, device)
-
-    return map_specs(leaf, specs)
+    """Materialize a Spec tree on ``device``: each leaf is drawn by
+    :func:`init_leaf` from its path, so it is the same in every process."""
+    return map_specs(lambda path, spec: init_leaf(path, spec, seed, dtype=dtype, device=device),
+                     specs)
 
 
 def stack_specs(specs: Any, n: int, axis_name: Optional[str] = "layers") -> Any:

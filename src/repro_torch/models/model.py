@@ -21,22 +21,28 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import Spec, init_tree, map_specs, torch_dtype
 from repro_torch.tree import tree_map
 
-__all__ = ["Model", "carry_params", "cross_entropy"]
+__all__ = ["Model", "carry_params", "cross_entropy", "xent_sums"]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean masked token cross-entropy, in f32. The label logit is taken
-    with a masked sum over the vocabulary, as the reference takes it (its
-    vocab-sharded form), not with a gather."""
+def xent_sums(logits: torch.Tensor, labels: torch.Tensor,
+              weights: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the weighted token cross-entropies, sum of the weights), in
+    f32. The label logit is taken with a masked sum over the vocabulary,
+    as the reference takes it (its vocab-sharded form), not with a gather."""
     logits = logits.float()
     log_z = torch.logsumexp(logits, dim=-1)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     ll = torch.where(iota == labels[..., None].long(), logits, 0.0).sum(dim=-1)
     xent = log_z - ll
     weights = torch.ones_like(xent) if weights is None else weights.float()
-    total = torch.clamp(weights.sum(), min=1e-6)
-    return (xent * weights).sum() / total
+    return (xent * weights).sum(), weights.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean masked token cross-entropy, in f32 (:func:`xent_sums`' ratio)."""
+    num, den = xent_sums(logits, labels, weights)
+    return num / torch.clamp(den, min=1e-6)
 
 
 class Model:
@@ -62,6 +68,17 @@ class Model:
         """Random weights drawn on ``device`` (``None`` = the CUDA device)
         from ``seed``; the same in every process."""
         return init_tree(self.param_specs(), seed, dtype=dtype, device=resolve_device(device))
+
+    def logical_axes(self):
+        """The parameter tree with each leaf's logical axes (a tuple of
+        names), which the sharding rules map onto a mesh."""
+        return map_specs(lambda _p, s: tuple(s.axes), self.param_specs())
+
+    def abstract_params(self, dtype=torch.float32):
+        """The parameter tree as ``meta`` tensors: shapes and dtype, no memory."""
+        meta = torch.device("meta")
+        return map_specs(lambda _p, s: torch.empty(s.shape, dtype=dtype, device=meta),
+                         self.param_specs())
 
     def param_count(self) -> int:
         total = []
@@ -94,6 +111,28 @@ class Model:
             metrics[k] = v.detach()
         metrics["loss"] = loss.detach()
         return loss, metrics
+
+    def mesh_loss_fn(self, params, batch: Dict, mesh) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """:meth:`loss_fn` on a mesh. ``params`` and ``batch`` hold
+        :class:`~repro_torch.sharding.placed.Placed` leaves (``batch`` split
+        over ``(pod, data)``); each batch shard's forward runs on its
+        positions (``transformer.mesh_forward``: FSDP gathers, the cast to
+        ``cfg.dtype``, tensor-parallel attention on K4 and MLP), and the
+        loss is the sum of the shards' weighted cross-entropies (in batch
+        shard order, on the mesh's lead device) over the sum of their
+        weights, which is :func:`cross_entropy` of the whole batch."""
+        logits = T.mesh_forward(params, self.cfg, batch, mesh, backend=self.backend)
+        num, den = [], []
+        for pos, lg in logits.items():
+            w = batch.get("loss_weights")
+            n, d = xent_sums(lg, batch["labels"].local(pos), None if w is None else w.local(pos))
+            num.append(n.to(mesh.lead))
+            den.append(d.to(mesh.lead))
+        total, weight = num[0], den[0]
+        for n, d in zip(num[1:], den[1:]):
+            total, weight = total + n, weight + d
+        loss = total / torch.clamp(weight, min=1e-6)
+        return loss, {"xent": loss.detach(), "loss": loss.detach()}
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

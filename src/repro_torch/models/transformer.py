@@ -39,6 +39,13 @@ same), so the decode step never reads keys past it. An ssm model keeps no
 positions: its prefill starts every sequence from the zero state, and its
 decode step ignores ``index``; a hybrid prefill starts its Mamba-2 layers
 from the zero state too.
+
+:func:`mesh_forward` is the dense family's forward on a mesh, for
+training: the reference jits its forward with the train rules' shardings
+and lets GSPMD split it; the port runs each mesh position's shard itself
+(FSDP all-gathers, tensor-parallel attention and MLP with their
+all-reduces over ``model``, vocab-parallel logits) and calls K4 on each
+position's own heads. The other families raise on a mesh.
 """
 from __future__ import annotations
 
@@ -77,6 +84,11 @@ __all__ = [
     "embed_tokens",
     "unembed",
     "check_family",
+    "check_mesh_family",
+    "mesh_block",
+    "mesh_embed",
+    "mesh_unembed",
+    "mesh_forward",
     "LM_FAMILIES",
 ]
 
@@ -455,3 +467,184 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, ind
             x = _cached_stack(params, cfg, x, positions, cache, index, backend)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# The dense family on a mesh (training)
+# ---------------------------------------------------------------------------
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise for a config the mesh forward does not cover: it covers the
+    dense family's GQA models (llama3.2-1b, olmo-1b, glm4-9b)."""
+    check_family(cfg)
+    if cfg.family != "dense" or cfg.attn_type == "mla":
+        kind = "MLA" if cfg.attn_type == "mla" else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} does not train on a mesh yet, only the dense family's GQA "
+            "models do (ROADMAP queue 1 item 13.7); train it on one device (mesh=None)")
+
+
+def _model_split(leaf, dim: int) -> bool:
+    return leaf.spec.axes(dim) == ("model",)
+
+
+def _position_weights(params, mesh, dtype, active) -> Dict[Any, Any]:
+    """Each active position's weights: a leaf's dims split over a mesh axis
+    other than ``model`` (FSDP's ``data``) are all-gathered in f32, then
+    every f32 leaf is cast to ``dtype`` (``Model.cast_params``); dims split
+    over ``model`` stay the position's own slice. Returns ``{position:
+    parameter tree}``."""
+    from repro_torch.sharding.placed import all_gather
+    from repro_torch.tree import leaves, unflatten
+
+    per_leaf = []
+    for leaf in leaves(params):
+        vals = dict(leaf.shards)
+        for dim in range(leaf.ndim):
+            axes = leaf.spec.axes(dim)
+            if not axes or axes == ("model",):
+                continue
+            if "model" in axes:
+                raise NotImplementedError(f"a dim split over {axes}: the mesh forward gathers "
+                                          "every axis but model, and keeps model's slices")
+            vals = all_gather(vals, mesh, axes, dim)
+        per_leaf.append({pos: vals[pos].to(dtype) if vals[pos].dtype == torch.float32
+                         else vals[pos] for pos in active})
+    return {pos: unflatten(params, [d[pos] for d in per_leaf]) for pos in active}
+
+
+def mesh_block(lps: Dict[Any, Any], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
+               pos_ids: Dict[Any, torch.Tensor], mesh, *,
+               backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """One pre-norm [attention, MLP] block of the dense family on a mesh.
+    ``lps`` holds each position's weights of the block (its query heads',
+    KV heads' and ``mlp`` columns where ``model`` splits them, the rest
+    whole: what :func:`_position_weights` gives), ``x`` each position's
+    copy of its batch shard's hidden state. Which weights are split is
+    read from their shapes: split query heads mean a row-parallel ``wo``
+    summed over ``model`` (an all-reduce), and a split ``mlp`` dim means a
+    row-parallel ``w_down`` summed over ``model``. Whole KV heads are cut
+    to the ones the position's query heads read (query head ``h`` reads KV
+    head ``h // G``, as on one device): a contiguous run where the local
+    heads group evenly, else one KV head per query head. Each position
+    then runs :func:`~repro_torch.models.attention.apply_attention` with
+    its local head counts: K4 once a position on the card. Returns each
+    position's block output."""
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.sharding.placed import all_reduce
+
+    mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
+    g = cfg.num_heads // cfg.num_kv_heads
+    part, heads_split = {}, False
+    for pos, lp in lps.items():
+        attn = lp["attn"]
+        h_l = attn["wq"].shape[1]
+        heads_split = h_l < cfg.num_heads
+        if attn["wk"].shape[1] == cfg.num_kv_heads:   # whole: the ones these query heads read
+            q0 = pos[mi] * h_l if heads_split else 0
+            idx = [(q0 + j) // g for j in range(h_l)]
+            kv0, kv_l = idx[0], idx[-1] + 1 - idx[0]
+            if h_l % kv_l == 0 and idx == [kv0 + j // (h_l // kv_l) for j in range(h_l)]:
+                wk, wv = attn["wk"][:, kv0:kv0 + kv_l], attn["wv"][:, kv0:kv0 + kv_l]
+            else:                                     # a KV head split across positions
+                sel = torch.tensor(idx, device=attn["wk"].device)
+                wk, wv = attn["wk"].index_select(1, sel), attn["wv"].index_select(1, sel)
+            attn = dict(attn, wk=wk, wv=wv)
+        local = cfg.replace(num_heads=h_l, num_kv_heads=attn["wk"].shape[1])
+        part[pos] = apply_attention(attn, local, apply_norm(lp["ln1"], cfg, x[pos]),
+                                    pos_ids[pos], backend=backend)[0]
+    if heads_split:
+        part = all_reduce(part, mesh, "model")
+    x = {pos: x[pos] + part[pos] for pos in lps}
+    part = {pos: apply_mlp(lp["ffn"], cfg, apply_norm(lp["ln2"], cfg, x[pos]))
+            for pos, lp in lps.items()}
+    if any(lp["ffn"]["w_down"].shape[0] < cfg.d_ff for lp in lps.values()):
+        part = all_reduce(part, mesh, "model")
+    return {pos: x[pos] + part[pos] for pos in lps}
+
+
+def mesh_embed(w: Dict[Any, Any], params, cfg: ModelConfig, tokens, mesh,
+               dtype) -> Dict[Any, torch.Tensor]:
+    """Each position of ``w`` (its weights, :func:`_position_weights`)
+    looks its batch shard of ``tokens`` (a placed leaf) up in its slice of
+    the table's ``d_model`` columns; where ``model`` splits them (the
+    placed ``params``' spec says), the slices are all-gathered over
+    ``model``. Returns ``{position: (B_l, S, d_model)}``."""
+    from repro_torch.sharding.placed import all_gather
+
+    x = {pos: embed_tokens(wp, cfg, tokens.local(pos), dtype) for pos, wp in w.items()}
+    if _model_split(params["embed"]["embedding"], 1) and mesh.shape.get("model", 1) > 1:
+        x = all_gather(x, mesh, "model", -1)
+    return x
+
+
+def mesh_unembed(w: Dict[Any, Any], params, cfg: ModelConfig, x: Dict[Any, torch.Tensor],
+                 mesh) -> Dict[Any, torch.Tensor]:
+    """The final norm and the logits of each batch shard's hidden state
+    ``x`` (a copy at each position of ``w``). Where ``model`` splits the
+    ``lm_head``'s vocab (the placed ``params``' spec says), every position
+    computes its slice and the slices are gathered onto the batch shard's
+    ``model`` index 0; else that position alone computes them whole.
+    Returns ``{that position: (B_l, S, vocab) logits}`` in position order."""
+    from repro_torch.sharding.placed import axis_groups
+
+    names = mesh.axis_names
+    mi = names.index("model") if "model" in names else None
+    active = list(w)
+    vocab_split = _model_split(params["embed"]["lm_head"], 1) and mesh.shape.get("model", 1) > 1
+    heads = [p for p in active if mi is None or p[mi] == 0]
+    logits = {pos: unembed(w[pos], cfg, apply_norm(w[pos]["final_norm"], cfg, x[pos]))
+              for pos in (active if vocab_split else heads)}
+    if not vocab_split:
+        return logits
+    out = {}
+    for members in axis_groups(mesh, "model", active):
+        dev = mesh.device(members[0])
+        out[members[0]] = torch.cat([logits[p].to(dev) for p in members], dim=-1)
+    return out
+
+
+def _active_positions(mesh, tokens) -> list:
+    """The positions whose batch shard of the placed ``tokens`` is distinct:
+    index 0 along every non-``model`` axis the batch is not split over."""
+    names, split = mesh.axis_names, set(tokens.spec.used())
+    return [p for p in mesh.positions()
+            if all(p[i] == 0 for i, a in enumerate(names) if a != "model" and a not in split)]
+
+
+def mesh_forward(params, cfg: ModelConfig, batch: Dict, mesh, *,
+                 backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """The dense family's forward on a mesh, for the loss: ``params`` and
+    ``batch`` hold :class:`~repro_torch.sharding.placed.Placed` leaves
+    (the train rules' specs; the batch split over ``(pod, data)``).
+
+    Every position whose batch shard is distinct (:func:`_active_positions`)
+    runs its shard: the FSDP-gathered, cast weights
+    (:func:`_position_weights`), the embedding (:func:`mesh_embed`), every
+    layer's :func:`mesh_block` (tensor-parallel attention, K4 on the
+    position's own query heads, and MLP; a weight whose heads or ``mlp``
+    dim does not split over ``model`` is computed whole at every ``model``
+    position, with no all-reduce), and the vocab-parallel logits
+    (:func:`mesh_unembed`). Returns ``{position: (B_l, S, vocab) logits}``
+    in position order. Autograd runs through the collectives, so the
+    gradient of each stored shard is the reduce-scatter of its gathered
+    copies' gradients."""
+    check_mesh_family(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    active = _active_positions(mesh, tokens)
+    w = _position_weights(params, mesh, dtype, active)
+    x = mesh_embed(w, params, cfg, tokens, mesh, dtype)
+    pos_ids, layers = {}, {}
+    for pos in active:
+        if "positions" in batch:
+            pos_ids[pos] = batch["positions"].local(pos)
+        else:
+            b, s = x[pos].shape[:2]
+            pos_ids[pos] = torch.arange(s, dtype=torch.int32, device=x[pos].device)[None].expand(
+                b, s)
+        layers[pos] = _layers(w[pos]["layers"], cfg.num_layers)
+    for i in range(cfg.num_layers):
+        x = mesh_block({pos: layers[pos][i] for pos in active}, cfg, x, pos_ids, mesh,
+                       backend=backend)
+    return mesh_unembed(w, params, cfg, x, mesh)

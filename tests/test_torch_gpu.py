@@ -1348,3 +1348,35 @@ def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, ar
     for g, w in zip(grads, plain):
         if w is not None:
             assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max().clamp_min(1e-30))
+
+
+def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device):
+    """SMOKE f32 on a 2x2 (data, model) mesh of ``[cuda] * 4``: K4 once a
+    layer a position, the loss and every gathered gradient against the
+    one-device step on the card, every shard on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    tc = TrainConfig(batch=4, seq_len=32)
+    params = Model(cfg).init(1, device=cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in lm_batch(cfg, 4, 32).items()}
+    want, want_m = Trainer(cfg, tc, device=cuda_device).grads_of(params, batch)
+    mesh = make_mesh([cuda_device] * 4, model_parallel=2)
+    trainer = Trainer(cfg, tc, mesh=mesh)
+    placed = tree_map(place, params, trainer.state_shardings().params)
+    before = flash_attention.launches
+    got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.num_layers * mesh.size
+    assert abs(float(got_m["loss"]) - float(want_m["loss"])) <= 1e-4 * float(want_m["loss"])
+    for g, w in zip(leaves(got), leaves(want)):
+        assert all(t.device.type == "cuda" for t in g.shards.values())
+        assert float((gather(g) - w).abs().max()) <= 1e-3 * float(w.abs().max().clamp_min(1e-30))

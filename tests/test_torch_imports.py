@@ -49,7 +49,9 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.tree, repro_torch.optim, repro_torch.optim.adamw, "
         "repro_torch.optim.schedule, repro_torch.data.loader, repro_torch.checkpoint, "
         "repro_torch.checkpoint.manager, repro_torch.train, repro_torch.train.loop, "
-        "repro_torch.launch.train; "
+        "repro_torch.launch.train, repro_torch.launch.mesh, repro_torch.sharding.rules, "
+        "repro_torch.sharding.partition, repro_torch.sharding.placed, "
+        "repro_torch.optim.compress; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
