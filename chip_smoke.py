@@ -291,10 +291,13 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
 16. Training (after every earlier model is freed). 16a: ``k4_attention``
    (``K4Attention``: K4 forward, the plain version recomputed for the
    backward) at llama3.2-1b's training shape (8, 32, 128, 64) causal in f32
-   and bf16 and at (2, 20, 64, 1500, 64) non-causal, and ``k5_scan`` at
-   (1, 128, 512, 16): forward within phase 6's tolerances, gradients within
-   ``FN_GRAD_REL`` of plain autograd's; a bare ``backend="cuda"`` call
-   under grad raises. 16b, the training slice's main path:
+   and bf16, the mesh shards of phases 17 and 18 ((4, 16, 128, 64),
+   minicpm3-4b's (4, 20, 128, 96) with v of 64 zero-padded, qwen3-moe's
+   (4, 16, 128, 128) bf16) and at (2, 20, 64, 1500, 64) non-causal, and
+   ``k5_scan`` at (1, 128, 512, 16), phase 18's shard (4, 128, 4096, 16)
+   and one device's (8, 128, 8192, 16): forward within phase 6's and 8's
+   tolerances, gradients within ``FN_GRAD_REL`` of plain autograd's; a
+   bare ``backend="cuda"`` call under grad raises. 16b, the training slice's main path:
    ``repro_torch.launch.train.main(["--arch", "llama3.2-1b", "--steps",
    "8", "--batch", "8", "--seq", "128"])`` at FULL width and depth (f32
    master weights and AdamW moments, the forward in bf16), counts set to
@@ -318,8 +321,27 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    2x2 mesh against one device, beside the one-ulp control, and every block
    on its own (``mesh_layer_local``). 17d: SMOKE on
    a (2, 2, 2) (pod, data, model) mesh of ``[cuda:0] * 8``.
+18. The ssm, MLA and moe families on a mesh (after phase 17's weights are
+   freed, each model's before the next): falcon-mamba-7b (8 of 64 layers,
+   K5 on each position's 4,096 channels), minicpm3-4b (16 of 62, K4 on
+   each position's 20 MLA heads) and qwen3-moe-30b-a3b (2 of 48, K4 on 16
+   heads, 64 of the 128 experts a position), each at FULL width on a 2x2
+   mesh of ``[cuda:0] * 4`` through the ``Trainer`` and ``DataLoader``
+   that ``launch.train`` builds (it has no depth flag), 4 steps of 8 x 128
+   tokens, counts set to 0 just before and read just after: K5 exactly 32
+   a step, K4 64, K4 8, nothing else, no plain attention or scan call;
+   losses finite (qwen3-moe's ``moe_aux`` and ``moe_z`` too), every
+   parameter moved; step p50, tok/s, ``max_memory_allocated`` and one step
+   under the device-only profiler, beside phase 16b's. Then one f32 step
+   of each at 2 layers, FULL width, mesh against one device: the loss
+   within 1e-4, each leaf's gradient within 1e-3 or within 16x a one-ulp
+   control's (``FAMILY_F64_TOL``'s comment says why), every block alone
+   the same way, aux losses included; for qwen3-moe, layer 0's MoE on one
+   input keeps the same (token, expert) slots as one device in the
+   1,024-token group that spans both batch shards; and one f64 step at 1
+   layer on the plain lane, mesh against one device within 1e-5.
 
-Phases 6-9b run after 4d, then 11-15, then 16 and 17, then phase 5, then 10 and 10b. The last line is
+Phases 6-9b run after 4d, then 11-15, then 16, 17 and 18, then phase 5, then 10 and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -688,13 +710,17 @@ def stream_bound(mask: np.ndarray, h: int, w: int, bh: int, bw: int, in_bytes_px
             t_bytes * 1e3, t_ops * 1e3, changed_px / (changed_px + spliced_px))
 
 
-def device_profile(label: str, fn, top: int = 6, kernel: str = ""):
+def device_profile(label: str, fn, top: int = 6, kernel: str = "", host: bool = True):
     """Run ``fn`` once under torch.profiler and print its device time by
     kernel and the device's idle share of the span (host clock, under the
     profiler, which stretches the span); with ``kernel``, also the device
-    time and launches of the kernels whose name contains it. Returns
-    (busy_us, span_us, that kernel's us)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    time and launches of the kernels whose name contains it. ``host=False``
+    records the device's activity alone, for a step of ~10^5 launches,
+    whose host records take the profiler minutes to sum. Returns (busy_us,
+    span_us, that kernel's us)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -2017,6 +2043,22 @@ def ulp_params(params):
     return dict(params, embed=dict(params["embed"], embedding=emb))
 
 
+def ulp_moved(t: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """``t`` with each entry moved one ulp up or down at random (``seed``):
+    a last-bit change that a norm's scale invariance does not cancel, as
+    it largely cancels ``ulp_params``' uniform scaling behind an RMSNorm."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    up = torch.rand(t.shape, generator=g, device=t.device) < 0.5
+    return torch.nextafter(t, torch.where(up, torch.inf, -torch.inf).to(t.dtype))
+
+
+def random_ulp_params(params):
+    """The weights with each embedding entry moved one ulp at random
+    (``ulp_moved``): phase 18's control."""
+    emb = ulp_moved(params["embed"]["embedding"])
+    return dict(params, embed=dict(params["embed"], embedding=emb))
+
+
 def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
@@ -2048,7 +2090,7 @@ def layer_local(cfg, params, batch) -> dict:
             attn[backend], _ = apply_attention(lp["attn"], cfg, xn, pos, backend=backend)
             with record_routing() as logs[backend]:
                 y[backend], _, _ = T._apply_attn_block(lp, cfg, x, pos, backend=backend)
-        (lg_p, idx_p), (lg_k, idx_k) = logs["torch"][0], logs["auto"][0]
+        (lg_p, idx_p, _), (lg_k, idx_k, _) = logs["torch"][0], logs["auto"][0]
         d = float((lg_k - lg_p).abs().max())
         top = torch.topk(lg_p, k + 1, dim=-1).values
         margin = top[:, k - 1] - top[:, k]
@@ -2388,6 +2430,7 @@ def phase_k4_timing(dev, lm, long_launches, main_err, paths):
         "server": {k: lm[k] for k in server_keys if k in lm},
         **{name: {k: v for k, v in st.items() if k in server_keys or k.startswith("route")}
            for name, st in paths["servers"].items()},
+        **paths["family_mesh"],
     }
 
 
@@ -2691,38 +2734,43 @@ def scan_bound(shape, elt: int):
             t_ops * 1e3, t_sfu * 1e3)
 
 
-def phase_k5_timing(dev, ssm, long_launches, main_err):
+def phase_k5_timing(dev, ssm, long_launches, main_err, training):
     """Phase 5 (K5): CUDA-event medians of K5 and its plain version, f32, at
-    (1, 2048, 8192, 16) and the ssm server's prefill shapes. No PyTorch
-    call computes a selective scan: no library yardstick."""
+    (1, 2048, 8192, 16), the ssm server's prefill shapes and phase 18's
+    training shard (4, 128, 4096, 16). No PyTorch call computes a
+    selective scan: no library yardstick. ``training`` holds phase 18's
+    falcon-mamba-7b mesh training numbers by path."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     rows = {}
-    for l in (2048, 8, 16, 32, 64):
-        shape = (1, l, 8192, 16)
+    for shape in [(1, l, 8192, 16) for l in (2048, 8, 16, 32, 64)] + [(4, 128, 4096, 16)]:
+        l, di = shape[1], shape[2]
         args = scan_inputs(shape, torch.float32, dev, seed=l)
-        y, _ = selective_scan(*args, chunk=l, block_d=8192)
+        y, _ = selective_scan(*args, chunk=l, block_d=di)
         wy, _ = selective_scan_plain(*args)
         b_ms, b_by, t_bytes, t_ops, t_sfu = scan_bound(shape, 4)
-        row = dict(ms=median_ms(lambda: selective_scan(*args, chunk=l, block_d=8192)),
+        row = dict(ms=median_ms(lambda: selective_scan(*args, chunk=l, block_d=di)),
                    plain_ms=median_ms(lambda: selective_scan_plain(*args)),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes_ms=t_bytes,
                    ops_ms=t_ops, sfu_ms=t_sfu, max_abs_err=float((y - wy).abs().max()),
                    shape=list(shape))
         row["device_us"] = launch_device_us(
-            lambda: selective_scan(*args, chunk=l, block_d=8192), "selective_scan")
-        rows[f"1x{l}x8192x16"] = row
-        print(f"K5 at (1, {l}, 8192, 16) f32: {row['ms']:.4f} ms on CUDA events, "
+            lambda: selective_scan(*args, chunk=l, block_d=di), "selective_scan")
+        rows["x".join(map(str, shape))] = row
+        print(f"K5 at {shape} f32: {row['ms']:.4f} ms on CUDA events, "
               f"{row['device_us']:.2f} us a launch of device time (profiler, 50 launches); plain "
               f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
               f"f32 ops {t_ops:.4f} ms, SFU exp {t_sfu:.4f} ms); no library call")
     main = rows["1x2048x8192x16"]
+    by_path = {"falcon-mamba-7b engine": ssm["k5"],
+               **{name: st["launches"] for name, st in training.items()}}
     return {
         "name": "K5 selective_scan (Mamba-1 forward scan)",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:39",
-        "launches": ssm["k5"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main_err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -2734,6 +2782,7 @@ def phase_k5_timing(dev, ssm, long_launches, main_err):
         "server": {k: ssm[k] for k in ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens",
                                        "prefills", "decode_steps", "param_count", "logit_err",
                                        "near_ties", "k5_profile_us")},
+        **training,
     }
 
 
@@ -3519,12 +3568,22 @@ TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(
 # at the mesh trainer's shard of it (phase 17a: 4 of the 8 rows and 16 of
 # the 32 heads a position), and at a non-causal one (whisper's
 # cross-attention over its 1,500 frames).
-K4_GRAD_CASES = (((8, 32, 128, 128, 64), True, torch.float32),
-                 ((8, 32, 128, 128, 64), True, torch.bfloat16),
-                 ((4, 16, 128, 128, 64), True, torch.float32),
-                 ((4, 16, 128, 128, 64), True, torch.bfloat16),
-                 ((2, 20, 64, 1500, 64), False, torch.float32))
-K5_GRAD_SHAPE = (1, 128, 512, 16)
+# Phase 18's shards (4 of the 8 rows a position): minicpm3-4b's 20 of 40
+# MLA heads, q and k of 96 and v of 64 (zero-padded to 96 for K4, the
+# gradient taken through the pad), and qwen3-moe's 16 of 32 heads of 128.
+# (B, H, S, T, D), causal, dtype, v's width (0: D).
+K4_GRAD_CASES = (((8, 32, 128, 128, 64), True, torch.float32, 0),
+                 ((8, 32, 128, 128, 64), True, torch.bfloat16, 0),
+                 ((4, 16, 128, 128, 64), True, torch.float32, 0),
+                 ((4, 16, 128, 128, 64), True, torch.bfloat16, 0),
+                 ((2, 20, 64, 1500, 64), False, torch.float32, 0),
+                 ((4, 20, 128, 128, 96), True, torch.float32, 64),
+                 ((4, 20, 128, 128, 96), True, torch.bfloat16, 64),
+                 ((4, 16, 128, 128, 128), True, torch.bfloat16, 0))
+# K5's Function at a small shape, at phase 18's shard of falcon-mamba-7b
+# (4 of the 8 rows, 4,096 of the 8,192 channels a position) and at one
+# device's (8, 128, 8192, 16), f32 as the model scans.
+K5_GRAD_SHAPES = ((1, 128, 512, 16), (4, 128, 4096, 16), (8, 128, 8192, 16))
 # The Functions' gradients against plain autograd on the same inputs: their
 # backward recomputes the plain version, so they differ only in the order
 # cuBLAS takes the recompute's products (bit-equal when it takes the same):
@@ -3555,13 +3614,17 @@ def phase_train_functions(dev) -> dict:
             1e-30)) for a, w in zip(got, want))
 
     out = {}
-    for shape, causal, dtype in K4_GRAD_CASES:
+    for shape, causal, dtype, dv in K4_GRAD_CASES:
         b, h, s, t, d = shape
-        q, k, v = (x.requires_grad_() for x in attention_inputs(shape, dtype, dev, seed=t))
-        go = torch.randn((b, h, s, d), device=dev, generator=torch.Generator(
+        dv = dv or d
+        q, k, v = attention_inputs(shape, dtype, dev, seed=t)
+        q, k, v = q.requires_grad_(), k.requires_grad_(), v[..., :dv].detach().requires_grad_()
+        go = torch.randn((b, h, s, dv), device=dev, generator=torch.Generator(
             device=dev).manual_seed(s)).to(dtype)
         before = flash_attention.launches
-        o = k4_attention(q, k, v, causal=causal, block_q=s, block_kv=t)
+        # v zero-padded to k's width, as attention._k4_attention_narrow_v does
+        o = k4_attention(q, k, F.pad(v, (0, d - dv)), causal=causal, block_q=s,
+                         block_kv=t)[..., :dv]
         got = torch.autograd.grad(o, (q, k, v), go)
         torch.cuda.synchronize()
         check(flash_attention.launches == before + 1, "k4_attention did not launch K4 once")
@@ -3571,32 +3634,46 @@ def phase_train_functions(dev) -> dict:
         fwd = float(diff.max())
         bound = K4_TOL + (bf16_ulp(plain.detach()) if dtype == torch.bfloat16 else 0.0)
         check(bool((diff <= bound).all()),
-              f"K4's forward at {shape} {dtype} differs from the plain version by {fwd}")
+              f"K4's forward at {shape} v {dv} {dtype} differs from the plain version by {fwd}")
         err = grad_err(got, want)
         equal = all(torch.equal(a, w) for a, w in zip(got, want))
-        check(err <= FN_GRAD_REL, f"K4Attention's q/k/v gradients at {shape} {dtype} differ from "
-                                  f"plain autograd's by {err:.3g} of their largest > {FN_GRAD_REL}")
-        label = f"{'x'.join(map(str, shape))} {'causal' if causal else 'non-causal'} " + (
+        check(err <= FN_GRAD_REL, f"K4Attention's q/k/v gradients at {shape} v {dv} {dtype} "
+                                  f"differ from plain autograd's by {err:.3g} of their largest "
+                                  f"> {FN_GRAD_REL}")
+        label = f"{'x'.join(map(str, shape))}{f' v {dv}' if dv != d else ''} " + (
+            "causal " if causal else "non-causal ") + (
             "bf16" if dtype == torch.bfloat16 else "f32")
         out[label] = dict(forward_err=fwd, grad_rel_err=err, grads_bit_equal=equal)
         print(f"phase 16a K4Attention {label}: forward within {fwd:.3g}, q/k/v gradients within "
               f"{err:.3g} of their largest ({'bit-equal' if equal else 'not bit-equal'})")
-    args = [x.requires_grad_() for x in scan_inputs(K5_GRAD_SHAPE, torch.float32, dev, seed=5)]
-    bsz, l, di, n = K5_GRAD_SHAPE
-    g = torch.Generator(device=dev).manual_seed(6)
-    gy, gh = torch.randn((bsz, l, di), device=dev, generator=g), torch.randn(
-        (bsz, di, n), device=dev, generator=g)
-    before = selective_scan.launches
-    y, hl = k5_scan(*args, chunk=l, block_d=di)
-    got = torch.autograd.grad((y, hl), args, (gy, gh))
-    torch.cuda.synchronize()
-    check(selective_scan.launches == before + 1, "k5_scan did not launch K5 once")
-    want = torch.autograd.grad(selective_scan_plain(*args), args, (gy, gh))
-    err = grad_err(got, want)
-    check(err <= FN_GRAD_REL, f"K5Scan's gradients differ from plain autograd's by {err:.3g}")
-    out["k5 " + "x".join(map(str, K5_GRAD_SHAPE))] = dict(grad_rel_err=err)
-    print(f"phase 16a K5Scan {K5_GRAD_SHAPE}: x/dt/B/C/A gradients within {err:.3g} of their "
-          "largest")
+    for shape in K5_GRAD_SHAPES:
+        args = [x.requires_grad_() for x in scan_inputs(shape, torch.float32, dev, seed=5)]
+        bsz, l, di, n = shape
+        g = torch.Generator(device=dev).manual_seed(6)
+        gy, gh = torch.randn((bsz, l, di), device=dev, generator=g), torch.randn(
+            (bsz, di, n), device=dev, generator=g)
+        before = selective_scan.launches
+        y, hl = k5_scan(*args, chunk=l, block_d=di)
+        got = torch.autograd.grad((y, hl), args, (gy, gh))
+        torch.cuda.synchronize()
+        check(selective_scan.launches == before + 1, "k5_scan did not launch K5 once")
+        wy, wh = selective_scan_plain(*args)
+        fwd_ok = within(y.detach(), wy.detach(), K5_TOL) and within(hl.detach(), wh.detach(),
+                                                                    K5_TOL)
+        fwd = float((y.detach() - wy.detach()).abs().max())
+        check(fwd_ok, f"K5's forward at {shape} differs from the plain version by {fwd} "
+                      f"(tolerance {K5_TOL} abs + rel)")
+        want = torch.autograd.grad((wy, wh), args, (gy, gh))
+        err = grad_err(got, want)
+        check(err <= FN_GRAD_REL, f"K5Scan's gradients at {shape} differ from plain autograd's "
+                                  f"by {err:.3g}")
+        out["k5 " + "x".join(map(str, shape))] = dict(forward_err=fwd, grad_rel_err=err)
+        print(f"phase 16a K5Scan {shape}: forward within {fwd:.3g}, x/dt/B/C/A gradients within "
+              f"{err:.3g} of their largest")
+        del args, got, want, wy, wh, y, hl
+    args = [x.requires_grad_() for x in scan_inputs(K5_GRAD_SHAPES[0], torch.float32, dev,
+                                                    seed=5)]
+    l, di = K5_GRAD_SHAPES[0][1:3]
     refused = []
     q = attention_inputs((1, 2, 16, 16, 64), torch.float32, dev, seed=1)[0].requires_grad_()
     for name, call in (("flash_attention", lambda: flash_attention(q, q, q, backend="cuda")),
@@ -3696,7 +3773,8 @@ def phase_train(dev) -> dict:
 
     busy_us, span_us, k4_us = device_profile("one training step", one_step, top=12,
                                              kernel="flash_kernel")
-    k4_row = k4_training_shape(dev, cfg)
+    k4_row = k4_training_shape(dev, (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ,
+                                     cfg.head_dim))
     k4_row["device_us"] = k4_us / (cfg.num_layers * trainer.tc.microbatches)
     stats = dict(k4=counts["k4"], steps=TRAIN_STEPS, loss=hist["loss"],
                  grad_norm=hist["grad_norm"], lr=hist["lr"], step_ms=step_ms, step_p50_ms=p50,
@@ -3717,27 +3795,32 @@ def phase_train(dev) -> dict:
     return stats
 
 
-def k4_training_shape(dev, cfg) -> dict:
-    """K4 at the training step's attention shape, bf16 (B, H, S, S, D) =
-    (8, 32, 128, 128, 64), causal: CUDA-event medians in turns with
-    F.scaled_dot_product_attention (the yardstick; the port never calls
-    it), the plain version, and ``flash_bound``."""
+def k4_training_shape(dev, shape, dv: int = 0) -> dict:
+    """K4 at a training step's attention shape (B, H, S, S, D), bf16,
+    causal, v of ``dv`` (0: D; K4 takes it zero-padded to D, as the MLA
+    model pads it): CUDA-event medians in turns with
+    F.scaled_dot_product_attention (the yardstick, on the unpadded v; the
+    port never calls it), the plain version, and ``flash_bound``."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    shape = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim)
-    q, k, v = attention_inputs(shape, torch.bfloat16, dev, seed=TRAIN_SEQ)
+    b, h, s, t, d = shape
+    dv = dv or d
+    q, k, v = attention_inputs(shape, torch.bfloat16, dev, seed=s)
+    v = v[..., :dv]
+    vk = F.pad(v, (0, d - dv))
     with torch.no_grad():
-        kern = lambda: flash_attention(q, k, v, block_q=TRAIN_SEQ, block_kv=TRAIN_SEQ)  # noqa
+        kern = lambda: flash_attention(q, k, vk, block_q=s, block_kv=t)  # noqa: E731
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
         lib1, ms1, ms2, lib2 = median_ms(sdpa), median_ms(kern), median_ms(kern), median_ms(sdpa)
         plain_ms = median_ms(lambda: flash_attention_plain(q, k, v))
-    fb = flash_bound(shape, True, 2)
+    fb = flash_bound(shape, True, 2, dv)
     row = dict(ms=statistics.median([ms1, ms2]), ms_runs=[ms1, ms2], plain_ms=plain_ms,
                library_ms=statistics.median([lib1, lib2]), library_ms_runs=[lib1, lib2],
-               shape=list(shape), dtype="bfloat16", **fb)
-    print(f"K4 at the training shape {shape} causal bf16: {ms1:.4f} / {ms2:.4f} ms; "
-          f"scaled_dot_product_attention {lib1:.4f} / {lib2:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"bound {fb['bound_ms']:.4f} ms by {fb['bound_by']}")
+               shape=list(shape), dv=dv, dtype="bfloat16", **fb)
+    print(f"K4 at the training shape {shape}{f' v {dv} padded to {d}' if dv != d else ''} "
+          f"causal bf16: {ms1:.4f} / {ms2:.4f} ms; scaled_dot_product_attention {lib1:.4f} / "
+          f"{lib2:.4f} ms; plain {plain_ms:.4f} ms; bound {fb['bound_ms']:.4f} ms by "
+          f"{fb['bound_by']}")
     return row
 
 
@@ -4061,7 +4144,7 @@ def phase_mesh_reshard(dev, trainer) -> dict:
     return dict(leaves=n, ms=ms, bit_equal=True)
 
 
-def mesh_layer_local(cfg, params, batch, trainer) -> dict:
+def mesh_layer_local(cfg, params, batch, trainer, control: bool = False) -> dict:
     """The mesh's parts against one device's, part by part (phase 16c's
     ``train_layer_local`` for the mesh): the embedding, each block and the
     head, each run once on one device and once on ``trainer``'s mesh from
@@ -4077,8 +4160,13 @@ def mesh_layer_local(cfg, params, batch, trainer) -> dict:
     f32 hidden state. Held: each part's output, its weights' gradients
     (reduce-scattered and replica-summed onto their shards, then gathered)
     and its input's gradient (summed over the ``model`` copies) within
-    ``TRAIN_GRAD_TOL`` of one device's largest value. Returns the worst of
-    each, and the embedding's and the head's on their own."""
+    ``TRAIN_GRAD_TOL`` of one device's largest value. With ``control``
+    (phase 18), each block also runs on one device from its input moved by
+    one ulp (``ulp_moved``), and a block's gradient may part past
+    ``TRAIN_GRAD_TOL`` by at most ``MESH_ESCAPE`` times that control's
+    (phase 18's rule, ``FAMILY_F64_TOL``'s comment).
+    Returns the worst of each, and the embedding's and the head's on
+    their own."""
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import torch_dtype
     from repro_torch.sharding.placed import Placed, gather, place, reduce_replicas
@@ -4112,18 +4200,23 @@ def mesh_layer_local(cfg, params, batch, trainer) -> dict:
             grads.append(gather(reduce_replicas(Placed(leaf.mesh, leaf.spec, leaf.shape, g))))
         return grads, list(got)
 
-    def hold(part, y_mesh, y, names, got, want):
+    def hold(part, y_mesh, y, names, got, want, ctl=None):
         err = max_rel(y_mesh.detach(), y.detach())
         check(err <= TRAIN_GRAD_TOL, f"{part}: the mesh's output differs from one device's "
                                      f"by {err:.3g} > {TRAIN_GRAD_TOL}")
         out["out_err"] = max(out["out_err"], err)
         errs = [max_rel(g, w) for g, w in zip(got, want)]
-        out[part] = dict(out_err=err, grad_err=max(errs))
-        for name, err in zip(names, errs):
-            check(err <= TRAIN_GRAD_TOL, f"{part} {name}: the mesh's gradient differs from one "
-                                         f"device's by {err:.3g} > {TRAIN_GRAD_TOL}")
+        ctls = [max_rel(c, w) for c, w in zip(ctl, want)] if ctl else [0.0] * len(errs)
+        out[part] = dict(out_err=err, grad_err=max(errs), control_err=max(ctls))
+        for name, err, c in zip(names, errs, ctls):
+            check(err <= TRAIN_GRAD_TOL or bool(ctl) and err <= MESH_ESCAPE * c,
+                  f"{part} {name}: the mesh's gradient differs from one device's by {err:.3g} "
+                  f"> {TRAIN_GRAD_TOL}" + (f", where the one-ulp control parts them by {c:.3g}"
+                                           if ctl else ""))
             if err >= out["grad_err"]:
                 out["grad_err"], out["grad_leaf"] = err, f"{part}/{name}"
+            if err > TRAIN_GRAD_TOL:
+                out.setdefault("past_tol", []).append(f"{part}/{name}: {err:.3g}, control {c:.3g}")
 
     def row_sum(per_pos, like):
         """Per-position tensors summed into one device's rows."""
@@ -4150,23 +4243,44 @@ def mesh_layer_local(cfg, params, batch, trainer) -> dict:
     # Each block, from one device's hidden state.
     x, pos = T._prepare_inputs(params, cfg, batch, dtype)
     x = x.detach()
+    if pos is None:                                   # an ssm model takes no positions
+        pos = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
         lp = T._layer(params["layers"], i)
         names = ["/".join(p) for p, _ in leaves_with_path(lp)] + ["input"]
         cot = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
         flat = [t.detach().requires_grad_(True) for t in leaves(lp) + [x]]
-        y, _, _ = T._apply_attn_block(unflatten(lp, flat[:-1]), cfg, flat[-1], pos)
-        want = torch.autograd.grad((y * cot).sum(), flat)
+        y, aux = one_block(unflatten(lp, flat[:-1]), cfg, flat[-1], pos)
+        want = torch.autograd.grad((y * cot).sum() + sum(aux.values(), torch.zeros(
+            (), device=y.device)), flat)
+        ctl = None
+        if control:
+            cflat = [t.detach().requires_grad_(True) for t in leaves(lp)] + [
+                ulp_moved(x, seed=i).requires_grad_(True)]
+            yc, auxc = one_block(unflatten(lp, cflat[:-1]), cfg, cflat[-1], pos)
+            ctl = torch.autograd.grad((yc * cot).sum() + sum(auxc.values(), torch.zeros(
+                (), device=yc.device)), cflat)
+            del yc, auxc, cflat
         # the layer's weights placed as the stacked leaves are, less the layer dim
         placed = on_mesh(lp, tree_map(lambda sh: type(sh)(sh.mesh, PartitionSpec(
             *tuple(sh.spec)[1:])), specs["layers"]))
         w = T._position_weights(placed, mesh, dtype, active)
         xs = {p: x[a:b].clone().requires_grad_(True) for p, (a, b) in rows.items()}
-        ys = T.mesh_block(w, cfg, xs, {p: pos[a:b] for p, (a, b) in rows.items()}, mesh)
-        loss = sum((ys[p] * cot[rows[p][0]:rows[p][1]]).sum() for p in heads)
+        ys, aux_m = T.mesh_block(w, cfg, xs, {p: pos[a:b] for p, (a, b) in rows.items()}, mesh)
+        check(set(aux_m) == set(aux), f"layer {i}: the mesh's aux losses {sorted(aux_m)}, one "
+                                      f"device's {sorted(aux)}")
+        for name in aux:
+            err = abs(float(aux_m[name].detach()) - float(aux[name].detach())) / abs(
+                float(aux[name].detach()))
+            check(err <= TRAIN_GRAD_TOL, f"layer {i}: the mesh's {name} differs from one "
+                                         f"device's by {err:.3g} > {TRAIN_GRAD_TOL}")
+            out["aux_err"] = max(out.get("aux_err", 0.0), err)
+        loss = sum((ys[p] * cot[rows[p][0]:rows[p][1]]).sum() for p in heads) + sum(
+            (v.to(ys[heads[0]].device) for v in aux_m.values()),
+            torch.zeros((), device=ys[heads[0]].device))
         grads, dxs = mesh_grads(placed, loss, [xs[p] for p in active])
         hold(f"layer {i}", torch.cat([ys[p] for p in heads]), y, names,
-             grads + [row_sum(dict(zip(active, dxs)), x)], want)
+             grads + [row_sum(dict(zip(active, dxs)), x)], want, ctl)
         x = y.detach()
 
     # The head, from the last block's output.
@@ -4186,6 +4300,17 @@ def mesh_layer_local(cfg, params, batch, trainer) -> dict:
     hold("head", torch.cat([ls[p] for p in ls]), logits, names,
          grads + [row_sum(dict(zip(active, dxs)), x)], want)
     return out
+
+
+def one_block(lp, cfg, x, pos):
+    """One device's block (``_apply_mamba_block`` or ``_apply_attn_block``):
+    (its output, its aux losses, ``{}`` but for the moe family)."""
+    from repro_torch.models import transformer as T
+
+    if cfg.family == "ssm":
+        return T._apply_mamba_block(lp, cfg, x)[0], {}
+    y, _, aux = T._apply_attn_block(lp, cfg, x, pos)
+    return y, aux
 
 
 def trainer_batch_sharding(trainer, batch):
@@ -4306,6 +4431,354 @@ def phase_mesh_training(dev, single: dict) -> dict:
     seconds = time.perf_counter() - t0
     print(f"[phase 17: {seconds:.1f}s]")
     return dict(stats, reshard=reshard, f32=f32, pod=pod, phase_seconds=seconds)
+
+
+# --- The ssm, MLA and moe families on a mesh (phase 18) ----------------------
+
+# Each at FULL width from its configs/<arch>.py, cut in depth only because
+# one card holds all four positions of the 2x2 mesh, and the kernel its
+# shards launch: (arch, layers, kernel). Model.param_count() at those depths.
+FAMILY_MESH = ((SSM_ARCH, 8, "k5"), (MLA_ARCH, 16, "k4"), (MOE_ARCH, 2, "k4"))
+FAMILY_MESH_PARAMS = {SSM_ARCH: 1_375_178_752, MLA_ARCH: 1_378_855_424,
+                      MOE_ARCH: 1_868_573_184}
+FAMILY_STEPS = 4
+FAMILY_F32_LAYERS = 2    # phase 18's f32 step, mesh against one device, at FULL width
+# Phase 18's f32 rule: a leaf's gradient within MESH_GRAD_TOL of its
+# largest value, or within MESH_ESCAPE times the one-ulp control's
+# (``random_ulp_params``; for a block, its input moved so) on that leaf.
+# The mesh reorders every sum where the control moves one input's last
+# bits, so it parts 2-4x further (1.0-1.55e-3 against controls of
+# 4.2-8e-4 on the H100: qwen3-moe's attention and experts, falcon's
+# d_skip and layer 0's block); that it is rounding shows in f64, where
+# the mesh's arithmetic (1 layer, the plain lane: the kernels take f32 and
+# bf16) stays within FAMILY_F64_TOL of one device's: 3.1e-7 seen, the
+# model's f32 parts (norm statistics, RoPE) still rounding. A fault parts
+# both far past these (tools/mesh_family_divergence.py prints every row).
+FAMILY_F64_TOL = 1e-5
+
+
+def phase_family_mesh_train(dev, arch: str, layers: int, kernel: str) -> dict:
+    """Phase 18, one family's main path: ``arch`` at FULL width and
+    ``layers`` layers on a 2x2 mesh of ``[dev] * 4``, the ``Trainer`` and
+    ``DataLoader`` that ``launch.train`` builds, ``fit`` for
+    ``FAMILY_STEPS`` steps, counts set to 0 just before and read just
+    after: ``kernel`` (K5 for the ssm family, K4 for MLA and the moe
+    family) exactly layers x 4 positions a step and no other kernel, no
+    plain attention (``dot_attention``) or plain scan (``ssm.
+    selective_scan``) call; losses and grad norms finite, every parameter
+    moved, every shard on its position's device; one more step under the
+    profiler (its metrics: a moe model's ``moe_aux`` and ``moe_z``, finite).
+    Prints the step p50, tok/s, ``max_memory_allocated`` and the profiled
+    step's device idle share and the kernel's share."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import Placed, gather
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves_with_path
+
+    plain_calls = []
+    real = (attn_mod.dot_attention, ssm_mod.selective_scan)
+
+    def counted(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+
+    free_weights()
+    torch.cuda.reset_peak_memory_stats()
+    # what launch.train.main builds for --steps FAMILY_STEPS --model-parallel 2 at the
+    # reference launcher's batch (the launcher has no depth flag)
+    cfg = get_config(arch).replace(num_layers=layers)
+    mesh = make_mesh([dev] * MESH_DEVICES, model_parallel=2)
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=FAMILY_STEPS,
+                     checkpoint_every=max(10, FAMILY_STEPS // 5),
+                     log_every=max(1, FAMILY_STEPS // 20))
+    trainer = Trainer(cfg, tc, mesh=mesh, device=dev)
+    loader = DataLoader(cfg, tc.batch, tc.seq_len, mesh=mesh, seed=tc.seed, device=dev)
+    attn_mod.dot_attention, ssm_mod.selective_scan = (counted(f) for f in real)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = trainer.fit(loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        attn_mod.dot_attention, ssm_mod.selective_scan = real
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = trainer.model.param_count()
+    check(n_params == FAMILY_MESH_PARAMS[arch], f"{cfg.name} at {layers} layers has "
+                                                f"{n_params:,} params")
+    per_step = cfg.num_layers * mesh.size * trainer.tc.microbatches
+    check(counts[kernel] == per_step * FAMILY_STEPS,
+          f"{cfg.name} mesh training launched {kernel.upper()} {counts[kernel]} times, not "
+          f"{per_step * FAMILY_STEPS}")
+    check(all(counts[k] == 0 for k in COUNTS if k != kernel),
+          f"{cfg.name} mesh training launched {counts}")
+    check(not plain_calls, f"{cfg.name} mesh training called the plain lane: {plain_calls}")
+    check(hist["step"] == list(range(1, FAMILY_STEPS + 1)), f"steps logged {hist['step']}")
+    check(all(np.isfinite(hist["loss"])) and all(np.isfinite(hist["grad_norm"]))
+          and min(hist["grad_norm"]) > 0, f"losses {hist['loss']}, grad norms {hist['grad_norm']}")
+    unmoved, wrong = [], []
+    for path, leaf in leaves_with_path(trainer.state.params):
+        name = "/".join(path)
+        check(isinstance(leaf, Placed), f"{name} is not placed on the mesh")
+        wrong += [name for pos, t in leaf.shards.items() if t.device != mesh.device(pos)]
+        if torch.equal(gather(leaf), redraw_leaf(trainer.model, name, dev)):
+            unmoved.append(name)
+    check(not unmoved, f"{cfg.name}: parameters unchanged after {FAMILY_STEPS} steps: {unmoved}")
+    check(not wrong, f"{cfg.name}: shards off their positions' devices: {wrong}")
+    step_ms = [1e3 * t for t in trainer.monitor.history[1:]]      # the first step warms up
+    p50 = statistics.median(step_ms)
+    loader = DataLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, mesh=mesh, seed=0)
+    batch = next(loader)
+    loader.close()
+    state, metrics = trainer.state, {}
+
+    def one_step():
+        metrics.update(trainer.step_fn(state, batch)[1])
+        float(metrics["loss"])
+
+    name = "selective_scan" if kernel == "k5" else "flash_kernel"
+    t_prof = time.perf_counter()
+    busy_us, span_us, k_us = device_profile(f"one {cfg.name} mesh training step", one_step,
+                                            top=12, kernel=name, host=False)
+    t_prof = time.perf_counter() - t_prof
+    if kernel == "k4":                # K4 timed at the shard's shape, beside SDPA and its bound
+        mla = cfg.attn_type == "mla"
+        d = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim if mla else cfg.head_dim
+        shard = k4_training_shape(dev, (TRAIN_BATCH // 2, cfg.num_heads // 2, TRAIN_SEQ,
+                                        TRAIN_SEQ, d), cfg.v_head_dim if mla else 0)
+    else:
+        shard = None
+    aux = {k: float(metrics[k]) for k in ("moe_aux", "moe_z") if k in metrics}
+    check(set(aux) == ({"moe_aux", "moe_z"} if cfg.family == "moe" else set())
+          and all(np.isfinite(list(aux.values()))), f"{cfg.name}: aux losses {aux}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = dict(layers=cfg.num_layers, param_count=n_params, kernel=kernel,
+                 launches=counts[kernel], per_step=per_step, loss=hist["loss"],
+                 grad_norm=hist["grad_norm"], aux=aux, step_ms=step_ms, step_p50_ms=p50,
+                 tok_s=tokens / (p50 / 1e3), peak_gb=peak_gb, seconds=seconds,
+                 step_idle=1 - busy_us / span_us, step_busy_us=busy_us,
+                 kernel_share=k_us / busy_us, kernel_device_us=k_us / per_step,
+                 profile_seconds=t_prof, k4_shard=shard)
+    print(f"phase 18 {cfg.name}: FULL width, {cfg.num_layers} layers ({n_params:,} params) on "
+          f"a {mesh.shape} mesh of {MESH_DEVICES} x {dev}, {FAMILY_STEPS} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens in {seconds:.1f} s: loss {hist['loss'][0]:.4f} -> "
+          f"{hist['loss'][-1]:.4f}{f', aux {aux}' if aux else ''}; step p50 {p50:.2f} ms "
+          f"({', '.join(f'{m:.1f}' for m in step_ms)}), {stats['tok_s']:.0f} tok/s; "
+          f"{kernel.upper()} {counts[kernel]} launches ({per_step} a step), plain calls 0; "
+          f"max_memory_allocated {peak_gb:.2f} GB; one step's device time "
+          f"{busy_us / 1e3:.1f} ms, idle {100 * stats['step_idle']:.1f}%, {kernel.upper()} "
+          f"{100 * stats['kernel_share']:.2f}% ({stats['kernel_device_us']:.1f} us a launch); "
+          f"the profiled step took {t_prof:.1f} s")
+    del trainer, state, batch
+    free_weights()
+    return stats
+
+
+def moe_routing_at_full(cfg, params, batch, trainer) -> dict:
+    """The MoE of layer 0 on one device's own input (its normed hidden
+    state after layer 0's attention, on one device), run by ``moe.
+    apply_moe`` on one device and by ``moe.moe_mesh`` on the mesh from the
+    same input split into its batch shards: at FULL qwen3-moe the routing
+    group is the whole microbatch's 1,024 tokens, which spans both
+    shards. The (token,
+    expert) slots kept (``record_routing``) must be equal, the chosen
+    experts too; the outputs and aux losses are held within
+    ``TRAIN_GRAD_TOL``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.models.layers import apply_norm, torch_dtype
+    from repro_torch.models.moe import apply_moe, group_size, moe_mesh, record_routing
+    from repro_torch.sharding.placed import place
+    from repro_torch.sharding.rules import PartitionSpec
+    from repro_torch.tree import tree_map
+
+    mesh = trainer.mesh
+    dtype = torch_dtype(cfg.dtype)
+    lp = T._layer(params["layers"], 0)
+    with torch.no_grad():
+        x, pos = T._prepare_inputs(params, cfg, batch, dtype)
+        x = x + apply_attention(lp["attn"], cfg, apply_norm(lp["ln1"], cfg, x), pos)[0]
+        y = apply_norm(lp["ln2"], cfg, x)
+        with record_routing() as one:
+            want, want_aux = apply_moe(lp["ffn"], cfg, y)
+        specs = tree_map(lambda sh: type(sh)(sh.mesh, PartitionSpec(*tuple(sh.spec)[1:])),
+                         trainer.state_shardings().params["layers"]["ffn"])
+        placed = {"ffn": tree_map(place, lp["ffn"], specs)}
+        tokens = place(batch["tokens"], trainer_batch_sharding(trainer, batch))
+        active = T._active_positions(mesh, tokens)
+        w = T._position_weights(placed, mesh, dtype, active)
+        rows = {p: tokens.bounds(p)[0] for p in active}
+        with record_routing() as got:
+            out, aux = moe_mesh({p: w[p]["ffn"] for p in active}, cfg,
+                                {p: y[a:b] for p, (a, b) in rows.items()}, mesh)
+    (_, idx1, kept1), = one
+    idx2, kept2 = (torch.cat([e[i] for e in got]) for i in (1, 2))
+    check(torch.equal(idx1, idx2) and torch.equal(kept1, kept2),
+          f"the mesh routes {int((idx1 != idx2).sum())} (token, slot) pairs to other experts "
+          f"and keeps {int((kept1 != kept2).sum())} other slots than one device")
+    out_err = max(max_rel(out[p], want[a:b]) for p, (a, b) in rows.items())
+    aux_err = max(abs(float(aux[k]) - float(want_aux[k])) / abs(float(want_aux[k]))
+                  for k in want_aux)
+    check(out_err <= TRAIN_GRAD_TOL and aux_err <= TRAIN_GRAD_TOL,
+          f"the mesh's MoE output differs by {out_err:.3g}, its aux losses by {aux_err:.3g}")
+    return dict(tokens=int(kept1.shape[0]), group=group_size(cfg, int(kept1.shape[0])),
+                pairs=int(kept1.numel()), dropped=int((~kept1).sum()), out_err=out_err,
+                aux_err=aux_err)
+
+
+def phase_family_f32_step(dev, arch: str, kernel: str) -> dict:
+    """Phase 18's check of one family: one f32 step's loss (aux losses
+    included) and gradients at FULL width and ``FAMILY_F32_LAYERS`` layers,
+    on the 2x2 mesh and on one device (the kernel on both), from the same
+    weights drawn on the card and the same batch, beside the one-ulp
+    control (``random_ulp_params``), held by phase 18's rule (see
+    ``FAMILY_F64_TOL``); every block on its own (``mesh_layer_local``);
+    for the moe family the routing of a group that spans the batch shards
+    (``moe_routing_at_full``); then ``family_f64_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import Model
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).replace(num_layers=FAMILY_F32_LAYERS, dtype="float32")
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    params = Model(cfg).init(0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+    single = Trainer(cfg, tc, device=dev)
+    want, want_m = single.grads_of(params, batch)
+    mesh = make_mesh([dev] * MESH_DEVICES, model_parallel=2)
+    trainer = Trainer(cfg, tc, mesh=mesh, device=dev)
+    placed = tree_map(place, params, trainer.state_shardings().params)
+    reset_counts()
+    got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
+    launched = read_counts()[kernel]
+    check(launched == cfg.num_layers * mesh.size,
+          f"{cfg.name}: the mesh's f32 step launched {kernel.upper()} {launched} times")
+    del placed
+    paths = ["/".join(p) for p, _ in leaves_with_path(params)]
+    errs = [max_rel(gather(g), w) for g, w in zip(leaves(got), leaves(want))]
+    del got
+    ctrl, _ = single.grads_of(random_ulp_params(params), batch)
+    control = [max_rel(c, w) for c, w in zip(leaves(ctrl), leaves(want))]
+    del ctrl, want
+    local = mesh_layer_local(cfg, params, batch, trainer, control=True)
+    routing = moe_routing_at_full(cfg, params, batch, trainer) if cfg.family == "moe" else {}
+    del params
+    check(set(got_m) == set(want_m), f"{cfg.name}: metrics {sorted(got_m)} != {sorted(want_m)}")
+    loss_errs = {k: abs(float(got_m[k]) - float(want_m[k])) / abs(float(want_m[k]))
+                 for k in want_m}
+    check(all(np.isfinite(float(got_m[k])) for k in got_m)
+          and max(loss_errs.values()) <= MESH_LOSS_RTOL,
+          f"{cfg.name}: the mesh's f32 losses differ from one device's by {loss_errs}")
+    for path, err, ctl in zip(paths, errs, control):
+        check(err <= MESH_GRAD_TOL or err <= MESH_ESCAPE * ctl,
+              f"{cfg.name} {path}: the mesh's gradient differs from one device's by {err:.3g} "
+              f"of its largest, where the one-ulp control parts them by {ctl:.3g}; > "
+              f"{MESH_GRAD_TOL} and > {MESH_ESCAPE} x the control")
+    worst = max(range(len(paths)), key=lambda i: errs[i])
+    past = [i for i, e in enumerate(errs) if e > MESH_GRAD_TOL]
+    ratio = max([errs[i] / control[i] for i in past], default=0.0)
+    print(f"phase 18 {cfg.name}: one f32 step at FULL width, {cfg.num_layers} layers, on a "
+          f"{mesh.shape} mesh against one device: losses within {max(loss_errs.values()):.3g} "
+          f"relative ({', '.join(f'{k} {float(got_m[k]):.6f}' for k in sorted(got_m))}); "
+          f"{kernel.upper()} {launched} launches; gradients within {errs[worst]:.3g} of their "
+          f"largest ({paths[worst]}); the one-ulp control parts them by up to "
+          f"{max(control):.3g}; {len(past)} leaves past {MESH_GRAD_TOL}, at most {ratio:.3g} x "
+          f"the control on the leaf; each block on its own: "
+          f"outputs within {local['out_err']:.3g}, gradients within {local['grad_err']:.3g} "
+          f"({local['grad_leaf']}), the blocks' one-ulp controls up to "
+          f"{max(local[f'layer {i}']['control_err'] for i in range(cfg.num_layers)):.3g}, "
+          f"past {TRAIN_GRAD_TOL}: {local.get('past_tol', [])}"
+          + (f", aux losses within {local['aux_err']:.3g}" if "aux_err" in local else "")
+          + (f"; layer 0's MoE on one input: the same (token, expert) slots kept on the mesh "
+             f"as on one device, {routing['dropped']} of {routing['pairs']} pairs dropped, "
+             f"{routing['tokens']} tokens in groups of {routing['group']}, outputs within "
+             f"{routing['out_err']:.3g}, aux within {routing['aux_err']:.3g}" if routing else ""))
+    free_weights()
+    f64 = family_f64_step(dev, arch)
+    return dict(loss_rel_err=max(loss_errs.values()), grad_err=errs[worst], f64=f64,
+                grad_err_leaf=paths[worst], control_grad_err=max(control),
+                past_tol=[paths[i] for i in past], past_control_ratio=ratio,
+                block_out_err=local["out_err"], block_grad_err=local["grad_err"],
+                block_grad_leaf=local["grad_leaf"], block_past_tol=local.get("past_tol", []),
+                routing=routing)
+
+
+def family_f64_step(dev, arch: str) -> dict:
+    """One f64 step of ``arch`` at FULL width and 1 layer, the 2x2 mesh
+    against one device, both on the plain lane (the kernels take f32 and
+    bf16): the loss and every gathered gradient within ``FAMILY_F64_TOL``
+    of one device's, relative to each leaf's largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import Model
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    cfg = get_config(arch).replace(num_layers=1, dtype="float64")
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    params = tree_map(lambda p: p.double(), Model(cfg).init(0, device=dev))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+    single = Trainer(cfg, tc, device=dev)
+    single.model.backend = "torch"
+    want, want_m = single.grads_of(params, batch)
+    trainer = Trainer(cfg, tc, mesh=make_mesh([dev] * MESH_DEVICES, model_parallel=2),
+                      device=dev)
+    trainer.model.backend = "torch"
+    placed = tree_map(place, params, trainer.state_shardings().params)
+    del params
+    got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
+    del placed
+    errs = {"/".join(p): max_rel(gather(g), w)
+            for (p, g), w in zip(leaves_with_path(got), leaves(want))}
+    loss_err = abs(float(got_m["loss"]) - float(want_m["loss"])) / abs(float(want_m["loss"]))
+    worst = max(errs, key=errs.get)
+    check(loss_err <= FAMILY_F64_TOL and errs[worst] <= FAMILY_F64_TOL,
+          f"{cfg.name} f64: the mesh's loss differs from one device's by {loss_err:.3g}, its "
+          f"gradients by up to {errs[worst]:.3g} ({worst}) > {FAMILY_F64_TOL}")
+    print(f"phase 18 {cfg.name}: one f64 step at FULL width, 1 layer, plain lane, on the mesh "
+          f"against one device: loss within {loss_err:.3g}, gradients within "
+          f"{errs[worst]:.3g} of their largest ({worst})")
+    del got, want
+    free_weights()
+    return dict(loss_rel_err=loss_err, grad_err=errs[worst], grad_err_leaf=worst)
+
+
+def phase_family_mesh_training(dev, single: dict) -> dict:
+    """Phase 18: for each of ``FAMILY_MESH`` the main path
+    (``phase_family_mesh_train``), then its f32 check
+    (``phase_family_f32_step``), each model's weights freed before the
+    next. ``single`` holds phase 16b's numbers from this run, printed
+    beside. Returns each family's numbers by arch."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, kernel in FAMILY_MESH:
+        stats = timed(f"18 {arch} mesh training", phase_family_mesh_train, dev, arch, layers,
+                      kernel)
+        stats["f32"] = timed(f"18 {arch} f32 step", phase_family_f32_step, dev, arch, kernel)
+        print(f"phase 18 {arch}: step p50 {stats['step_p50_ms']:.2f} ms, "
+              f"{stats['step_p50_ms'] / single['step_p50_ms']:.2f}x phase 16b's one-device "
+              f"llama3.2-1b step ({single['step_p50_ms']:.2f} ms, {single['tok_s']:.0f} tok/s, "
+              f"idle {100 * single['step_idle']:.1f}%, {single['peak_gb']:.2f} GB) in this run")
+        out[arch] = stats
+    seconds = time.perf_counter() - t0
+    print(f"[phase 18: {seconds:.1f}s]")
+    return dict(families=out, phase_seconds=seconds)
 
 
 def phase_analyzer():
@@ -4458,6 +4931,8 @@ def main() -> None:
     free_weights()
     mesh_training = phase_mesh_training(dev, training)
     free_weights()
+    family_mesh = phase_family_mesh_training(dev, training)["families"]
+    free_weights()
     paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
                           f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
                           f"{MLA_ARCH} long prefills": mla["long_launches"],
@@ -4466,10 +4941,14 @@ def main() -> None:
                           f"{ENCDEC_ARCH} prefills": encdec["k4"],
                           f"{VLM_ARCH} prefills": vlm["k4"],
                           f"{TRAIN_ARCH} training": training["k4"],
-                          f"{TRAIN_ARCH} mesh training": mesh_training["k4"]},
+                          f"{TRAIN_ARCH} mesh training": mesh_training["k4"],
+                          **{f"{arch} mesh training": st["launches"]
+                             for arch, st in family_mesh.items() if st["kernel"] == "k4"}},
              "servers": {"moe_server": moe, "mla_server": mla, "hybrid_engine": hybrid,
                          "encdec_prefill": encdec, "vlm_prefill": vlm, "training": training,
-                         "mesh_training": mesh_training}}
+                         "mesh_training": mesh_training},
+             "family_mesh": {f"{arch} mesh training": st for arch, st in family_mesh.items()
+                             if st["kernel"] == "k4"}}
     kernels = timed("5 timing", phase_timing, full, dev, mask, server_launches, edges_launches,
                     runs["motion"]["k3"], full_inputs, main_counts, best[None])
     k1_plans, k2_plans = timed("5 plan timing", phase_plan_timing, full_inputs, dev, plan_counts)
@@ -4480,7 +4959,9 @@ def main() -> None:
                       chaos_server=chaos_runs)
     kernels[1].update(launches_sharded_facade=shard_counts["k2"])
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err, paths))
-    kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err))
+    kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err,
+                         {f"{arch} mesh training": st for arch, st in family_mesh.items()
+                          if st["kernel"] == "k5"}))
     timed("10 contract analyzer", phase_analyzer)
     timed("10b Fig. 7", phase_fig7, dev)
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")

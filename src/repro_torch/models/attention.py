@@ -13,11 +13,11 @@ functional): a served model keeps one cache and never needs the old one.
 
 On one device the reference's tensor-parallel head layouts reduce to its
 single-device branch (KV heads kept, G query heads per KV head; MLA and
-cross-attention have KV = H, G = 1). On a mesh
-(``transformer.mesh_block``) each ``model`` position runs
-:func:`apply_attention` on its own query heads and the KV heads they read,
-with a config of those head counts, and its partial ``wo`` product is
-summed over the positions. Cross-attention
+cross-attention have KV = H, G = 1). On a mesh (:func:`attention_mesh`)
+each ``model`` position runs :func:`apply_attention` on its own query
+heads and the KV heads they read (MLA: its heads, from the query latent
+gathered over ``model``), with a config of those head counts, and its
+partial ``wo`` product is summed over the positions. Cross-attention
 (``whisper``'s decoder) reads the encoder's keys and values, projected once
 by :func:`cross_kv`, with no mask and no positions.
 
@@ -43,7 +43,7 @@ reference's switch to the chunked online softmax above 4,096 positions.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +62,7 @@ __all__ = [
     "init_attn_cache",
     "dot_attention",
     "update_cache",
+    "attention_mesh",
 ]
 
 _NEG_INF = -1e30
@@ -320,6 +321,7 @@ def apply_attention(
     cache_index=None,
     attn_chunk: int = 1024,
     backend: str = "auto",
+    q_latent: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention (GQA or MLA).
 
@@ -327,12 +329,14 @@ def apply_attention(
     prefill, which attends over the freshly computed local k/v (never the
     padded cache) while the cache is written through (in place).
     ``backend``: ``auto`` (K4 for a CUDA tensor, plain for the CPU),
-    ``cuda`` or ``torch``.
+    ``cuda`` or ``torch``. ``q_latent``: MLA's ``x @ wq_a`` computed
+    already (on a mesh, the position's slices all-gathered), in place of
+    the product with ``params["wq_a"]``.
     """
     lane = resolve_backend(backend, x.device)
     if cfg.attn_type == "mla":
         return _apply_mla(params, cfg, x, positions, causal=causal, cache=cache,
-                          cache_index=cache_index, lane=lane)
+                          cache_index=cache_index, lane=lane, q_latent=q_latent)
     kv_h, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     q, k, v = _gqa_qkv(params, cfg, x, positions)
     b, s = x.shape[0], x.shape[1]
@@ -372,12 +376,12 @@ def apply_attention(
 # MLA (DeepSeek-V2 / MiniCPM3-style multi-head latent attention)
 # ---------------------------------------------------------------------------
 
-def _mla_q(params, cfg: ModelConfig, x, positions):
+def _mla_q(params, cfg: ModelConfig, x, positions, cq=None):
     dtype = x.dtype
     b, s, d = x.shape
     nope = cfg.qk_nope_head_dim
     if cfg.q_lora_rank:
-        cq = x @ params["wq_a"].to(dtype)
+        cq = x @ params["wq_a"].to(dtype) if cq is None else cq
         cq = _rms(cq, params["q_norm"], cfg.norm_eps)
         w = params["wq_b"].to(dtype)                       # "bsr,rhk->bshk"
     else:
@@ -397,13 +401,14 @@ def _mla_latent(params, cfg: ModelConfig, x, positions):
     return ckv, k_rope
 
 
-def _apply_mla(params, cfg: ModelConfig, x, positions, *, causal, cache, cache_index, lane):
+def _apply_mla(params, cfg: ModelConfig, x, positions, *, causal, cache, cache_index, lane,
+               q_latent=None):
     b, s = x.shape[0], x.shape[1]
     h = cfg.num_heads
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rank = cfg.kv_lora_rank
     scale = 1.0 / math.sqrt(nope + rope)
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions, q_latent)
     ckv_new, k_rope_new = _mla_latent(params, cfg, x, positions)
     dtype = x.dtype
     wk_b, wv_b = params["wk_b"].to(dtype), params["wv_b"].to(dtype)
@@ -446,6 +451,69 @@ def _apply_mla(params, cfg: ModelConfig, x, positions, *, causal, cache, cache_i
         out = dot_attention(q5, k, v, pos_q=positions, pos_k=positions, causal=causal,
                             impl=impl)
     return out.reshape(b, s, h * vd) @ wo.reshape(h * vd, -1), new_cache
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (training): each ``model`` position's own heads
+# ---------------------------------------------------------------------------
+
+def _gqa_shard(attn: Dict, cfg: ModelConfig, h_l: int, q0: int) -> Tuple[Dict, ModelConfig]:
+    """A position's GQA weights and head counts: its ``h_l`` query heads
+    from ``q0`` and the KV heads they read (query head ``h`` reads KV head
+    ``h // G``, as on one device). Whole KV heads are cut to those: a
+    contiguous run where the local heads group evenly, else one KV head
+    per query head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    if attn["wk"].shape[1] == cfg.num_kv_heads:
+        idx = [(q0 + j) // g for j in range(h_l)]
+        kv0, kv_l = idx[0], idx[-1] + 1 - idx[0]
+        if h_l % kv_l == 0 and idx == [kv0 + j // (h_l // kv_l) for j in range(h_l)]:
+            wk, wv = attn["wk"][:, kv0:kv0 + kv_l], attn["wv"][:, kv0:kv0 + kv_l]
+        else:                                         # a KV head split across positions
+            sel = torch.tensor(idx, device=attn["wk"].device)
+            wk, wv = attn["wk"].index_select(1, sel), attn["wv"].index_select(1, sel)
+        attn = dict(attn, wk=wk, wv=wv)
+    return attn, cfg.replace(num_heads=h_l, num_kv_heads=attn["wk"].shape[1])
+
+
+def attention_mesh(attns: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
+                   pos_ids: Dict[Any, torch.Tensor], mesh, *,
+                   backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """Tensor-parallel self-attention on a mesh. ``attns`` holds each
+    position's attention weights (its own heads' where ``model`` splits
+    them, the rest whole), ``x`` each position's normed input. Each
+    position runs :func:`apply_attention` with its local head counts (K4
+    once a position on the card); split heads mean a row-parallel ``wo``,
+    whose partial products are summed over ``model`` (an all-reduce).
+
+    GQA: whole KV heads are cut to the ones the position's query heads
+    read (:func:`_gqa_shard`). MLA: ``wq_a``'s ``qk_rank`` columns split
+    over ``model`` give each position a slice of the query latent, which
+    is all-gathered before ``q_norm`` (an RMS over all of it); ``wkv_a``
+    is whole, so each position forms the whole key latent and expands it
+    with its heads' ``wk_b`` and ``wv_b``. Returns each position's
+    attention output, summed over ``model`` where the heads split."""
+    from repro_torch.sharding.placed import all_gather, all_reduce
+
+    mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
+    mla = cfg.attn_type == "mla"
+    q_latent = {}
+    if mla and cfg.q_lora_rank:
+        q_latent = {pos: x[pos] @ a["wq_a"].to(x[pos].dtype) for pos, a in attns.items()}
+        if next(iter(attns.values()))["wq_a"].shape[1] < cfg.q_lora_rank:
+            q_latent = all_gather(q_latent, mesh, "model", -1)
+    part, heads_split = {}, False
+    for pos, attn in attns.items():
+        h_l = attn["wo"].shape[0]
+        heads_split = h_l < cfg.num_heads
+        q0 = pos[mi] * h_l if heads_split else 0
+        if mla:
+            local = cfg.replace(num_heads=h_l, num_kv_heads=h_l)
+        else:
+            attn, local = _gqa_shard(attn, cfg, h_l, q0)
+        part[pos] = apply_attention(attn, local, x[pos], pos_ids[pos], backend=backend,
+                                    q_latent=q_latent.get(pos))[0]
+    return all_reduce(part, mesh, "model") if heads_split else part
 
 
 # ---------------------------------------------------------------------------

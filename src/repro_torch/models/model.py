@@ -117,11 +117,15 @@ class Model:
         :class:`~repro_torch.sharding.placed.Placed` leaves (``batch`` split
         over ``(pod, data)``); each batch shard's forward runs on its
         positions (``transformer.mesh_forward``: FSDP gathers, the cast to
-        ``cfg.dtype``, tensor-parallel attention on K4 and MLP), and the
-        loss is the sum of the shards' weighted cross-entropies (in batch
-        shard order, on the mesh's lead device) over the sum of their
-        weights, which is :func:`cross_entropy` of the whole batch."""
-        logits = T.mesh_forward(params, self.cfg, batch, mesh, backend=self.backend)
+        ``cfg.dtype``, tensor-parallel attention on K4 and MLP,
+        expert-parallel MoE, Mamba-1 on K5). The cross-entropy is the sum
+        of the shards' weighted cross-entropies (in batch shard order, on
+        the mesh's lead device) over the sum of their weights, which is
+        :func:`cross_entropy` of the whole batch; each auxiliary loss of
+        the forward (a moe model's ``moe_aux`` and ``moe_z``, means over
+        the microbatch's routing groups) is added to it once, as
+        :meth:`loss_fn` adds them."""
+        logits, aux = T.mesh_forward(params, self.cfg, batch, mesh, backend=self.backend)
         num, den = [], []
         for pos, lg in logits.items():
             w = batch.get("loss_weights")
@@ -131,8 +135,14 @@ class Model:
         total, weight = num[0], den[0]
         for n, d in zip(num[1:], den[1:]):
             total, weight = total + n, weight + d
-        loss = total / torch.clamp(weight, min=1e-6)
-        return loss, {"xent": loss.detach(), "loss": loss.detach()}
+        xent = total / torch.clamp(weight, min=1e-6)
+        loss = xent
+        metrics = {"xent": xent.detach()}
+        for k, v in aux.items():
+            loss = loss + v
+            metrics[k] = v.detach()
+        metrics["loss"] = loss.detach()
+        return loss, metrics
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

@@ -11,6 +11,10 @@ whose backward recomputes the plain scan), its plain sequential version
 or with ``backend="torch"``. K5 also returns the final state, which the
 decode cache needs (the reference takes it from its scan's carry).
 
+On a mesh (:func:`mamba1_mesh`, training) each ``model`` position runs its
+own channels, K5 included, and the row-parallel products are summed over
+``model``.
+
 Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
 ``h`` (f32) and the depthwise conv's tail.
 
@@ -30,7 +34,7 @@ loop over them (the same recurrence, ``h = h * decay + state``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +47,7 @@ from repro_torch.models.layers import Spec
 __all__ = [
     "mamba1_params",
     "apply_mamba1",
+    "mamba1_mesh",
     "mamba1_decode",
     "init_mamba1_cache",
     "mamba2_params",
@@ -98,22 +103,50 @@ def mamba1_params(cfg: ModelConfig) -> Dict[str, Spec]:
     }
 
 
+def _mamba1_conv(params, xin: torch.Tensor, conv_tail=None):
+    """The depthwise causal conv and SiLU of the channels ``params`` holds.
+    Returns (xc, new conv tail)."""
+    dtype = xin.dtype
+    xc, new_tail = _causal_conv(xin, params["conv_w"].to(dtype), params["conv_b"].to(dtype),
+                                conv_tail)
+    return F.silu(xc), new_tail
+
+
+def _mamba1_steps(params, cfg: ModelConfig, proj: torch.Tensor, dtype):
+    """(dt, A, B, C) in f32 from ``x_proj``'s output (the whole sum over
+    d_inner), for the channels ``params`` holds."""
+    r, n = cfg.ssm_dt_rank, cfg.ssm_state
+    dt_raw, b_mat, c_mat = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
+    dt = F.softplus(dt_raw @ params["dt_w"].to(dtype) + params["dt_b"].to(dtype)).float()
+    a = -torch.exp(params["a_log"].float())                 # (di, n)
+    return dt, a, b_mat.float(), c_mat.float()
+
+
 def _mamba1_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
     """(xc, z, dt, A, B, C, new conv tail, the conv's raw input) of one
     Mamba-1 block on x (B, L, d_model); dt, A, B and C in f32."""
     dtype = x.dtype
-    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    di = cfg.d_inner
     xz = x @ params["in_proj"].to(dtype)
     xin, z = xz[..., :di], xz[..., di:]
-    xin_raw = xin
-    xc, new_tail = _causal_conv(xin, params["conv_w"].to(dtype), params["conv_b"].to(dtype),
-                                conv_tail)
-    xc = F.silu(xc)
+    xc, new_tail = _mamba1_conv(params, xin, conv_tail)
     proj = xc @ params["x_proj"].to(dtype)
-    dt_raw, b_mat, c_mat = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
-    dt = F.softplus(dt_raw @ params["dt_w"].to(dtype) + params["dt_b"].to(dtype)).float()
-    a = -torch.exp(params["a_log"].float())                 # (di, n)
-    return xc, z, dt, a, b_mat.float(), c_mat.float(), new_tail, xin_raw
+    dt, a, b_mat, c_mat = _mamba1_steps(params, cfg, proj, dtype)
+    return xc, z, dt, a, b_mat, c_mat, new_tail, xin
+
+
+def _mamba1_scan(params, cfg: ModelConfig, xc, z, dt, a, b_mat, c_mat, backend: str):
+    """The selective scan over the channels of xc (K5 on the card lane),
+    the skip term and the gate: (y in xc's dtype, the final state)."""
+    dtype = xc.dtype
+    xf = xc.float()
+    gates = dict(chunk=_pick_chunk(xc.shape[1], cfg.ssm_chunk), block_d=xc.shape[-1])
+    if resolve_backend(backend, xc.device) == "cuda":
+        y, h_last = k5_scan(xf, dt, b_mat, c_mat, a, **gates)       # differentiable
+    else:
+        y, h_last = selective_scan(xf, dt, b_mat, c_mat, a, backend="torch", **gates)
+    y = y + params["d_skip"].float() * xf
+    return y.to(dtype) * F.silu(z), h_last
 
 
 def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False,
@@ -129,24 +162,61 @@ def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     ssm_chunk)``) and its ``block_d`` is d_inner: both divide, and both
     only gate the kernel.
     """
-    if cfg.ssm_scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port scans in f32 elements only")
-    l = x.shape[1]
-    dtype = x.dtype
+    _check_scan_dtype(cfg)
     xc, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba1_inputs(params, cfg, x)
-    xf = xc.float()
-    gates = dict(chunk=_pick_chunk(l, cfg.ssm_chunk), block_d=cfg.d_inner)
-    if resolve_backend(backend, x.device) == "cuda":
-        y, h_last = k5_scan(xf, dt, b_mat, c_mat, a, **gates)       # differentiable
-    else:
-        y, h_last = selective_scan(xf, dt, b_mat, c_mat, a, backend="torch", **gates)
-    y = y + params["d_skip"].float() * xf
-    y = y.to(dtype) * F.silu(z)
-    out = y @ params["out_proj"].to(dtype)
+    y, h_last = _mamba1_scan(params, cfg, xc, z, dt, a, b_mat, c_mat, backend)
+    out = y @ params["out_proj"].to(x.dtype)
     if return_cache:
         return out, {"h": h_last, "conv": new_tail}
     return out
+
+
+def _check_scan_dtype(cfg: ModelConfig) -> None:
+    if cfg.ssm_scan_dtype != "float32":
+        raise NotImplementedError(
+            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port scans in f32 elements only")
+
+
+def mamba1_mesh(lps: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tensor], mesh, *,
+                backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """Mamba-1 on a mesh, for training. ``lps`` holds each position's block
+    weights (its own ``ssm_inner`` channels where ``model`` splits them,
+    the rest whole), ``x`` each position's normed input (B_l, L, d_model).
+
+    Each position computes its own channels: the conv, ``dt_w``, ``dt_b``,
+    ``a_log`` and ``d_skip`` are per channel, and the scan (K5 on the
+    card, at (B_l, L, d_inner / |model|, N)) is per channel too. Split as
+    stored, ``in_proj``'s columns put the ``x`` half at the first
+    positions and the ``z`` half at the last; so its partial products are
+    all-gathered over ``model`` and each position takes its channels of
+    both halves. ``x_proj`` is row-parallel: its partial dt/B/C products
+    are summed over ``model`` before the softplus; so is ``out_proj``'s
+    output. Where ``model`` splits nothing every position computes the
+    whole block and nothing is summed. Returns each position's output."""
+    from repro_torch.sharding.placed import all_gather, all_reduce
+
+    _check_scan_dtype(cfg)
+    di = cfg.d_inner
+    mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
+    lp0 = next(iter(lps.values()))
+    d_l = lp0["conv_b"].shape[0]
+    xz = {pos: x[pos] @ lp["in_proj"].to(x[pos].dtype) for pos, lp in lps.items()}
+    if lp0["in_proj"].shape[-1] < 2 * di:
+        xz = all_gather(xz, mesh, "model", -1)
+    xc, z, proj = {}, {}, {}
+    for pos, lp in lps.items():
+        c0 = pos[mi] * d_l if d_l < di else 0
+        xc[pos], _ = _mamba1_conv(lp, xz[pos][..., c0:c0 + d_l])
+        z[pos] = xz[pos][..., di + c0:di + c0 + d_l]
+        proj[pos] = xc[pos] @ lp["x_proj"].to(xc[pos].dtype)
+    if d_l < di:
+        proj = all_reduce(proj, mesh, "model")
+    out = {}
+    for pos, lp in lps.items():
+        steps = _mamba1_steps(lp, cfg, proj[pos], xc[pos].dtype)
+        y, _ = _mamba1_scan(lp, cfg, xc[pos], z[pos], *steps, backend)
+        out[pos] = y @ lp["out_proj"].to(y.dtype)
+    return all_reduce(out, mesh, "model") if d_l < di else out
 
 
 def init_mamba1_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None) -> Dict:

@@ -40,12 +40,14 @@ positions: its prefill starts every sequence from the zero state, and its
 decode step ignores ``index``; a hybrid prefill starts its Mamba-2 layers
 from the zero state too.
 
-:func:`mesh_forward` is the dense family's forward on a mesh, for
-training: the reference jits its forward with the train rules' shardings
-and lets GSPMD split it; the port runs each mesh position's shard itself
-(FSDP all-gathers, tensor-parallel attention and MLP with their
-all-reduces over ``model``, vocab-parallel logits) and calls K4 on each
-position's own heads. The other families raise on a mesh.
+:func:`mesh_forward` is the forward on a mesh, for training, of the
+dense (GQA and MLA), moe and ssm families: the reference jits its forward
+with the train rules' shardings and lets GSPMD split it; the port runs
+each mesh position's shard itself (FSDP all-gathers, tensor-parallel
+attention and MLP with their all-reduces over ``model``, expert-parallel
+MoE, Mamba-1 on each position's channels, vocab-parallel logits) and
+calls K4 on each position's own heads and K5 on its own channels. The
+hybrid, encdec and vlm families raise on a mesh.
 """
 from __future__ import annotations
 
@@ -470,18 +472,22 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, ind
 
 
 # ---------------------------------------------------------------------------
-# The dense family on a mesh (training)
+# On a mesh (training): the dense (GQA and MLA), moe and ssm families
 # ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("dense", "moe", "ssm")
+
 
 def check_mesh_family(cfg: ModelConfig) -> None:
     """Raise for a config the mesh forward does not cover: it covers the
-    dense family's GQA models (llama3.2-1b, olmo-1b, glm4-9b)."""
+    dense family (GQA and MLA), the moe family and the ssm family
+    (Mamba-1); the hybrid, encdec and vlm families raise."""
     check_family(cfg)
-    if cfg.family != "dense" or cfg.attn_type == "mla":
-        kind = "MLA" if cfg.attn_type == "mla" else f"the {cfg.family} family"
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} does not train on a mesh yet, only the dense family's GQA "
-            "models do (ROADMAP queue 1 item 13.7); train it on one device (mesh=None)")
+            f"{cfg.name}: the {cfg.family} family does not train on a mesh yet, only the dense "
+            "(GQA and MLA), moe and ssm families do (ROADMAP queue 1 item 13.7); train it on one "
+            "device (mesh=None)")
 
 
 def _model_split(leaf, dim: int) -> bool:
@@ -515,52 +521,41 @@ def _position_weights(params, mesh, dtype, active) -> Dict[Any, Any]:
 
 def mesh_block(lps: Dict[Any, Any], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
                pos_ids: Dict[Any, torch.Tensor], mesh, *,
-               backend: str = "auto") -> Dict[Any, torch.Tensor]:
-    """One pre-norm [attention, MLP] block of the dense family on a mesh.
-    ``lps`` holds each position's weights of the block (its query heads',
-    KV heads' and ``mlp`` columns where ``model`` splits them, the rest
-    whole: what :func:`_position_weights` gives), ``x`` each position's
-    copy of its batch shard's hidden state. Which weights are split is
-    read from their shapes: split query heads mean a row-parallel ``wo``
-    summed over ``model`` (an all-reduce), and a split ``mlp`` dim means a
-    row-parallel ``w_down`` summed over ``model``. Whole KV heads are cut
-    to the ones the position's query heads read (query head ``h`` reads KV
-    head ``h // G``, as on one device): a contiguous run where the local
-    heads group evenly, else one KV head per query head. Each position
-    then runs :func:`~repro_torch.models.attention.apply_attention` with
-    its local head counts: K4 once a position on the card. Returns each
-    position's block output."""
-    from repro_torch.models.attention import apply_attention
+               backend: str = "auto") -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One pre-norm block on a mesh. ``lps`` holds each position's weights
+    of the block (its own heads', ``mlp`` columns, experts or
+    ``ssm_inner`` channels where ``model`` splits them, the rest whole:
+    what :func:`_position_weights` gives), ``x`` each position's copy of
+    its batch shard's hidden state. Which weights are split is read from
+    their shapes. The dense and moe families: tensor-parallel attention
+    (``attention.attention_mesh``: K4 once a position on the card), then
+    the tensor-parallel MLP (a split ``mlp`` dim means a row-parallel
+    ``w_down`` summed over ``model``) or the expert-parallel MoE
+    (``moe.moe_mesh``). The ssm family: ``ssm.mamba1_mesh`` (K5 once a
+    position on the card). Returns (each position's block output, the
+    MoE's aux losses on the mesh's lead device, ``{}`` for the others)."""
+    from repro_torch.models.attention import attention_mesh
+    from repro_torch.models.moe import moe_mesh
     from repro_torch.sharding.placed import all_reduce
 
-    mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
-    g = cfg.num_heads // cfg.num_kv_heads
-    part, heads_split = {}, False
-    for pos, lp in lps.items():
-        attn = lp["attn"]
-        h_l = attn["wq"].shape[1]
-        heads_split = h_l < cfg.num_heads
-        if attn["wk"].shape[1] == cfg.num_kv_heads:   # whole: the ones these query heads read
-            q0 = pos[mi] * h_l if heads_split else 0
-            idx = [(q0 + j) // g for j in range(h_l)]
-            kv0, kv_l = idx[0], idx[-1] + 1 - idx[0]
-            if h_l % kv_l == 0 and idx == [kv0 + j // (h_l // kv_l) for j in range(h_l)]:
-                wk, wv = attn["wk"][:, kv0:kv0 + kv_l], attn["wv"][:, kv0:kv0 + kv_l]
-            else:                                     # a KV head split across positions
-                sel = torch.tensor(idx, device=attn["wk"].device)
-                wk, wv = attn["wk"].index_select(1, sel), attn["wv"].index_select(1, sel)
-            attn = dict(attn, wk=wk, wv=wv)
-        local = cfg.replace(num_heads=h_l, num_kv_heads=attn["wk"].shape[1])
-        part[pos] = apply_attention(attn, local, apply_norm(lp["ln1"], cfg, x[pos]),
-                                    pos_ids[pos], backend=backend)[0]
-    if heads_split:
-        part = all_reduce(part, mesh, "model")
+    if cfg.family == "ssm":
+        part = ssm.mamba1_mesh({pos: lp["mamba"] for pos, lp in lps.items()}, cfg,
+                               {pos: apply_norm(lp["ln"], cfg, x[pos]) for pos, lp in lps.items()},
+                               mesh, backend=backend)
+        return {pos: x[pos] + part[pos] for pos in lps}, {}
+    part = attention_mesh({pos: lp["attn"] for pos, lp in lps.items()}, cfg,
+                          {pos: apply_norm(lp["ln1"], cfg, x[pos]) for pos, lp in lps.items()},
+                          pos_ids, mesh, backend=backend)
     x = {pos: x[pos] + part[pos] for pos in lps}
-    part = {pos: apply_mlp(lp["ffn"], cfg, apply_norm(lp["ln2"], cfg, x[pos]))
-            for pos, lp in lps.items()}
-    if any(lp["ffn"]["w_down"].shape[0] < cfg.d_ff for lp in lps.values()):
-        part = all_reduce(part, mesh, "model")
-    return {pos: x[pos] + part[pos] for pos in lps}
+    y = {pos: apply_norm(lp["ln2"], cfg, x[pos]) for pos, lp in lps.items()}
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.family == "moe":
+        part, aux = moe_mesh({pos: lp["ffn"] for pos, lp in lps.items()}, cfg, y, mesh)
+    else:
+        part = {pos: apply_mlp(lp["ffn"], cfg, y[pos]) for pos, lp in lps.items()}
+        if any(lp["ffn"]["w_down"].shape[0] < cfg.d_ff for lp in lps.values()):
+            part = all_reduce(part, mesh, "model")
+    return {pos: x[pos] + part[pos] for pos in lps}, aux
 
 
 def mesh_embed(w: Dict[Any, Any], params, cfg: ModelConfig, tokens, mesh,
@@ -613,20 +608,24 @@ def _active_positions(mesh, tokens) -> list:
 
 
 def mesh_forward(params, cfg: ModelConfig, batch: Dict, mesh, *,
-                 backend: str = "auto") -> Dict[Any, torch.Tensor]:
-    """The dense family's forward on a mesh, for the loss: ``params`` and
-    ``batch`` hold :class:`~repro_torch.sharding.placed.Placed` leaves
-    (the train rules' specs; the batch split over ``(pod, data)``).
+                 backend: str = "auto") -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The forward on a mesh, for the loss, of the dense (GQA and MLA),
+    moe and ssm families: ``params`` and ``batch`` hold
+    :class:`~repro_torch.sharding.placed.Placed` leaves (the train rules'
+    specs; the batch split over ``(pod, data)``).
 
     Every position whose batch shard is distinct (:func:`_active_positions`)
     runs its shard: the FSDP-gathered, cast weights
     (:func:`_position_weights`), the embedding (:func:`mesh_embed`), every
-    layer's :func:`mesh_block` (tensor-parallel attention, K4 on the
-    position's own query heads, and MLP; a weight whose heads or ``mlp``
-    dim does not split over ``model`` is computed whole at every ``model``
-    position, with no all-reduce), and the vocab-parallel logits
-    (:func:`mesh_unembed`). Returns ``{position: (B_l, S, vocab) logits}``
-    in position order. Autograd runs through the collectives, so the
+    layer's :func:`mesh_block` (tensor-parallel attention with K4 on the
+    position's own heads and the MLP, expert-parallel MoE, or Mamba-1 on
+    the position's own channels with K5; a weight whose heads, ``mlp``
+    dim, experts or channels do not split over ``model`` is computed whole
+    at every ``model`` position, with no all-reduce), and the
+    vocab-parallel logits (:func:`mesh_unembed`). Returns ({position:
+    (B_l, S, vocab) logits} in position order, a moe model's ``moe_aux``
+    and ``moe_z`` summed over its layers on the mesh's lead device, ``{}``
+    for the others). Autograd runs through the collectives, so the
     gradient of each stored shard is the reduce-scatter of its gathered
     copies' gradients."""
     check_mesh_family(cfg)
@@ -644,7 +643,12 @@ def mesh_forward(params, cfg: ModelConfig, batch: Dict, mesh, *,
             pos_ids[pos] = torch.arange(s, dtype=torch.int32, device=x[pos].device)[None].expand(
                 b, s)
         layers[pos] = _layers(w[pos]["layers"], cfg.num_layers)
+    auxs: Dict[str, list] = {}
     for i in range(cfg.num_layers):
-        x = mesh_block({pos: layers[pos][i] for pos in active}, cfg, x, pos_ids, mesh,
-                       backend=backend)
-    return mesh_unembed(w, params, cfg, x, mesh)
+        x, aux = mesh_block({pos: layers[pos][i] for pos in active}, cfg, x, pos_ids, mesh,
+                            backend=backend)
+        for name, v in aux.items():
+            auxs.setdefault(name, []).append(v)
+    # as _scan_decoder: each loss summed over the stacked per-layer values
+    return (mesh_unembed(w, params, cfg, x, mesh),
+            {name: torch.stack(vs).sum() for name, vs in auxs.items()})

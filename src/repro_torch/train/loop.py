@@ -12,14 +12,16 @@ f32 tree, the microbatches' gradients summed in f32 and divided by their
 count, then ``adamw.update`` at the ``warmup_cosine`` learning rate of the
 step.
 
-On a mesh (``mesh=``, a ``runtime.elastic.Mesh``; the dense family's GQA
-models) the state is placed by the train rules (``state_shardings``:
+On a mesh (``mesh=``, a ``runtime.elastic.Mesh``; the dense family, GQA
+and MLA, the moe family and the ssm family) the state is placed by the train rules (``state_shardings``:
 TP over ``model``, FSDP over ``data``, ZeRO-1 moments), each leaf a
 :class:`~repro_torch.sharding.placed.Placed` whose shards live on their
 positions' devices; the scalars (the step, AdamW's count) stay on the
 mesh's lead device. A step: each microbatch placed by the ``batch`` rule,
 ``Model.mesh_loss_fn`` (every batch shard's forward on its positions, K4
-on each position's own heads), ``torch.autograd.grad`` back to every
+on each position's own heads, K5 on its own Mamba-1 channels, the MoE's
+experts split over ``model``; a moe model's aux losses added once),
+``torch.autograd.grad`` back to every
 stored shard (the all-gathers' backward reduce-scatters the gradients),
 the replicas' gradients all-reduced (``placed.reduce_replicas``: over
 ``pod``, and over ``model`` for the norm scales), then ``adamw.update``
@@ -98,9 +100,10 @@ def _at(tree: Any, path: str) -> Any:
 class Trainer:
     """``model_cfg`` trained by ``train_cfg`` on ``device`` (``None`` = the
     CUDA device), or on ``mesh`` (a ``runtime.elastic.Mesh``; its lead
-    device then stands for ``device``). A mesh takes the dense family's
-    GQA models; another family raises ``NotImplementedError``. After
-    ``fit``, ``self.state`` is the last state."""
+    device then stands for ``device``). A mesh takes the dense (GQA and
+    MLA), moe and ssm families; the hybrid, encdec and vlm families raise
+    ``NotImplementedError``. After ``fit``, ``self.state`` is the last
+    state."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, mesh=None,
                  device=None):

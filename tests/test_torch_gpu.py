@@ -536,7 +536,7 @@ def test_moe_and_mla_engine_k4_lane_equals_plain_lane(cuda_device, arch):
 
     def same_routes(a, b):
         return len(a) == len(b) and all(torch.equal(ia.sort(-1).values, ib.sort(-1).values)
-                                        for (_, ia), (_, ib) in zip(a, b))
+                                        for (_, ia, _), (_, ib, _) in zip(a, b))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch, smoke=True).replace(dtype="float32")
@@ -1350,13 +1350,17 @@ def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, ar
             assert float((g - w).abs().max()) <= 1e-3 * float(w.abs().max().clamp_min(1e-30))
 
 
-def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device):
-    """SMOKE f32 on a 2x2 (data, model) mesh of ``[cuda] * 4``: K4 once a
-    layer a position, the loss and every gathered gradient against the
-    one-device step on the card, every shard on the card."""
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "falcon-mamba-7b", "minicpm3-4b",
+                                  "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"])
+def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device, arch):
+    """SMOKE f32 on a 2x2 (data, model) mesh of ``[cuda] * 4``: K4 (K5 for
+    the ssm family) once a layer a position and no other kernel, the loss
+    (a moe model's aux terms with it) and every gathered gradient against
+    the one-device step on the card, every shard on the card."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.models import Model
     from repro_torch.runtime.elastic import make_mesh
     from repro_torch.sharding.placed import gather, place
@@ -1364,7 +1368,7 @@ def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device):
     from repro_torch.tree import leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
     tc = TrainConfig(batch=4, seq_len=32)
     params = Model(cfg).init(1, device=cuda_device)
     batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in lm_batch(cfg, 4, 32).items()}
@@ -1372,11 +1376,15 @@ def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device):
     mesh = make_mesh([cuda_device] * 4, model_parallel=2)
     trainer = Trainer(cfg, tc, mesh=mesh)
     placed = tree_map(place, params, trainer.state_shardings().params)
-    before = flash_attention.launches
+    before = (flash_attention.launches, selective_scan.launches)
     got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
     torch.cuda.synchronize()
-    assert flash_attention.launches - before == cfg.num_layers * mesh.size
-    assert abs(float(got_m["loss"]) - float(want_m["loss"])) <= 1e-4 * float(want_m["loss"])
+    launched = (flash_attention.launches - before[0], selective_scan.launches - before[1])
+    per_step = cfg.num_layers * mesh.size
+    assert launched == ((0, per_step) if cfg.family == "ssm" else (per_step, 0))
+    assert set(got_m) == set(want_m)
+    for k in want_m:
+        assert abs(float(got_m[k]) - float(want_m[k])) <= 1e-4 * abs(float(want_m[k])), k
     for g, w in zip(leaves(got), leaves(want)):
         assert all(t.device.type == "cuda" for t in g.shards.values())
         assert float((gather(g) - w).abs().max()) <= 1e-3 * float(w.abs().max().clamp_min(1e-30))

@@ -171,7 +171,7 @@ def test_moe_mla_continuous_batching_matches_reference(setup_moe_mla):
     if cfg.family == "moe":
         # some prefill's expert queue outgrew its capacity: drops were exercised
         over = [int(torch.bincount(idx.flatten(), minlength=cfg.num_experts).max())
-                > moe._capacity(idx.shape[0], cfg) for _, idx in log]
+                > moe._capacity(idx.shape[0], cfg) for _, idx, _ in log]
         assert any(over)
     else:
         assert not log

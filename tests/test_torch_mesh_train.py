@@ -253,8 +253,7 @@ def test_every_stored_shard_is_on_its_position_with_its_specs_shape(name):
                                                        rules="train"), path
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "zamba2-2.7b",
-                                  "whisper-large-v3", "pixtral-12b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "whisper-large-v3", "pixtral-12b"])
 def test_a_family_without_the_mesh_path_raises(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="13.7"):

@@ -194,7 +194,7 @@ def test_record_routing_logs_each_call():
         M.apply_moe(params, cfg, x)
         M.apply_moe(params, cfg, x[:1])
     M.apply_moe(params, cfg, x)                              # outside: not logged
-    assert [tuple(lg.shape) for lg, _ in log] == [(32, cfg.num_experts), (16, cfg.num_experts)]
+    assert [tuple(lg.shape) for lg, _, _ in log] == [(32, cfg.num_experts), (16, cfg.num_experts)]
     _, _, _, idx = M.route(params, cfg, x.reshape(1, 32, cfg.d_model))
     assert torch.equal(log[0][1], idx.reshape(32, -1))
     assert not M._LOGS

@@ -225,7 +225,7 @@ def test_launcher_refuses_a_mesh_and_defaults_to_cuda(capsys):
     assert "devices=1 mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
     assert out["trainer"].mesh is None and out["mesh"].size == 1
     with pytest.raises(NotImplementedError, match="13.7"):
-        launch_train.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu",
+        launch_train.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu",
                            "--model-parallel", "2"], devices=[torch.device("cpu")] * 4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -47,7 +47,7 @@ def block(lp, cfg, x, pos, backend):
 
     with record_routing() as log:
         y, _, _ = T._apply_attn_block(lp, cfg, x, pos, causal=True, backend=backend)
-    return y, log[0]
+    return y, log[0][:2]
 
 
 def parted(a, b) -> torch.Tensor:
