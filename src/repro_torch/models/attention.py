@@ -19,7 +19,8 @@ heads and the KV heads they read (MLA: its heads, from the query latent
 gathered over ``model``), with a config of those head counts, and its
 partial ``wo`` product is summed over the positions. Cross-attention
 (``whisper``'s decoder) reads the encoder's keys and values, projected once
-by :func:`cross_kv`, with no mask and no positions.
+by :func:`cross_kv`, with no mask and no positions; on a mesh
+(:func:`cross_attention_mesh`) each position projects its own heads'.
 
 Lanes (``backend``, as the edge path's): on a CUDA tensor the prefill and
 forward attention (S query positions over the same S keys) run K4,
@@ -63,6 +64,7 @@ __all__ = [
     "dot_attention",
     "update_cache",
     "attention_mesh",
+    "cross_attention_mesh",
 ]
 
 _NEG_INF = -1e30
@@ -477,13 +479,14 @@ def _gqa_shard(attn: Dict, cfg: ModelConfig, h_l: int, q0: int) -> Tuple[Dict, M
 
 
 def attention_mesh(attns: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
-                   pos_ids: Dict[Any, torch.Tensor], mesh, *,
+                   pos_ids: Dict[Any, torch.Tensor], mesh, *, causal: bool = True,
                    backend: str = "auto") -> Dict[Any, torch.Tensor]:
     """Tensor-parallel self-attention on a mesh. ``attns`` holds each
     position's attention weights (its own heads' where ``model`` splits
     them, the rest whole), ``x`` each position's normed input. Each
     position runs :func:`apply_attention` with its local head counts (K4
-    once a position on the card); split heads mean a row-parallel ``wo``,
+    once a position on the card, non-causal for an encoder's
+    ``causal=False``); split heads mean a row-parallel ``wo``,
     whose partial products are summed over ``model`` (an all-reduce).
 
     GQA: whole KV heads are cut to the ones the position's query heads
@@ -511,8 +514,8 @@ def attention_mesh(attns: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.
             local = cfg.replace(num_heads=h_l, num_kv_heads=h_l)
         else:
             attn, local = _gqa_shard(attn, cfg, h_l, q0)
-        part[pos] = apply_attention(attn, local, x[pos], pos_ids[pos], backend=backend,
-                                    q_latent=q_latent.get(pos))[0]
+        part[pos] = apply_attention(attn, local, x[pos], pos_ids[pos], causal=causal,
+                                    backend=backend, q_latent=q_latent.get(pos))[0]
     return all_reduce(part, mesh, "model") if heads_split else part
 
 
@@ -547,6 +550,30 @@ def cross_kv(params, cfg: ModelConfig, enc_out):
     """The encoder output's keys and values for one layer's cross-attention,
     each (B, T, H, D)."""
     return _heads(enc_out, params["wk"]), _heads(enc_out, params["wv"])
+
+
+def cross_attention_mesh(crosses: Dict[Any, Dict], cfg: ModelConfig,
+                         x: Dict[Any, torch.Tensor], enc: Dict[Any, torch.Tensor], mesh, *,
+                         backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """Tensor-parallel cross-attention on a mesh. ``crosses`` holds each
+    position's cross-attention weights (``wq``, ``wk``, ``wv`` and ``wo``
+    on its own heads where ``model`` splits them), ``x`` its normed
+    decoder input and ``enc`` its copy of its batch shard's encoder
+    output. Each position projects its own heads' keys and values
+    (:func:`cross_kv`) and runs :func:`apply_cross_attention` at its local
+    head count (K4 non-causal once a position on the card); split heads
+    mean a row-parallel ``wo``, summed over ``model``. Returns each
+    position's output."""
+    from repro_torch.sharding.placed import all_reduce
+
+    part, heads_split = {}, False
+    for pos, cross in crosses.items():
+        h_l = cross["wo"].shape[0]
+        heads_split = h_l < cfg.num_heads
+        local = cfg.replace(num_heads=h_l, num_kv_heads=h_l)
+        part[pos] = apply_cross_attention(cross, local, x[pos], *cross_kv(cross, local, enc[pos]),
+                                          backend=backend)
+    return all_reduce(part, mesh, "model") if heads_split else part
 
 
 # ---------------------------------------------------------------------------

@@ -116,9 +116,12 @@ class Model:
         """:meth:`loss_fn` on a mesh. ``params`` and ``batch`` hold
         :class:`~repro_torch.sharding.placed.Placed` leaves (``batch`` split
         over ``(pod, data)``); each batch shard's forward runs on its
-        positions (``transformer.mesh_forward``: FSDP gathers, the cast to
-        ``cfg.dtype``, tensor-parallel attention on K4 and MLP,
-        expert-parallel MoE, Mamba-1 on K5). The cross-entropy is the sum
+        positions (``transformer.mesh_forward``, every family: FSDP
+        gathers, the cast to ``cfg.dtype``, tensor-parallel attention on
+        K4, the encdec model's encoder and cross-attention on K4 too, the
+        MLP, expert-parallel MoE, Mamba-1 on K5, Mamba-2 on each position's
+        heads). A VLM's labels and ``loss_weights`` cover its patches, which
+        weigh 0. The cross-entropy is the sum
         of the shards' weighted cross-entropies (in batch shard order, on
         the mesh's lead device) over the sum of their weights, which is
         :func:`cross_entropy` of the whole batch; each auxiliary loss of

@@ -11,9 +11,9 @@ whose backward recomputes the plain scan), its plain sequential version
 or with ``backend="torch"``. K5 also returns the final state, which the
 decode cache needs (the reference takes it from its scan's carry).
 
-On a mesh (:func:`mamba1_mesh`, training) each ``model`` position runs its
-own channels, K5 included, and the row-parallel products are summed over
-``model``.
+On a mesh (training) each ``model`` position runs its own channels
+(:func:`mamba1_mesh`, K5 included) or its own heads (:func:`mamba2_mesh`),
+and the row-parallel products are summed over ``model``.
 
 Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
 ``h`` (f32) and the depthwise conv's tail.
@@ -52,6 +52,7 @@ __all__ = [
     "init_mamba1_cache",
     "mamba2_params",
     "apply_mamba2",
+    "mamba2_mesh",
     "mamba2_decode",
     "init_mamba2_cache",
 ]
@@ -270,9 +271,11 @@ def mamba2_params(cfg: ModelConfig) -> Dict[str, Spec]:
 
 def _mamba2_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
     """(x, z, dt, A, B, C, new conv tail, the conv's raw input) of one
-    Mamba-2 block on x (B, L, d_model); dt (per head), A, B and C in f32."""
+    Mamba-2 block on x (B, L, d_model); dt (per head), A, B and C in f32.
+    The channels and heads are the ones ``params`` holds (on a mesh, a
+    position's own: ``mamba2_mesh``)."""
     dtype = x.dtype
-    di, n = cfg.d_inner, cfg.ssm_state
+    di, n = params["wx"].shape[-1], cfg.ssm_state
     z = x @ params["wz"].to(dtype)
     xin = x @ params["wx"].to(dtype)
     b_in = x @ params["wb"].to(dtype)
@@ -288,22 +291,31 @@ def _mamba2_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
     return xin, z, dt, a, b_mat.float(), c_mat.float(), new_tail, xbc_raw
 
 
+def _gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y * silu(z) in y's dtype, then in f32: the gated RMSNorm's input."""
+    return (y * F.silu(z)).float()
+
+
+def _rms_scale(params, cfg: ModelConfig, yf: torch.Tensor, mean_sq: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """The gated RMSNorm's output from its f32 input ``yf`` and the mean
+    square over all of ``d_inner``, back to ``dtype``."""
+    yf = yf * torch.rsqrt(mean_sq + cfg.norm_eps)
+    return (yf * params["norm"].float()).to(dtype)
+
+
 def _gated_norm(params, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Mamba-2's gated RMSNorm: norm(y * silu(z)), in f32, back to y's dtype."""
-    y = y * F.silu(z)
-    yf = y.float()
-    yf = yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    return (yf * params["norm"].float()).to(y.dtype)
+    yf = _gate(y, z)
+    return _rms_scale(params, cfg, yf, (yf * yf).mean(dim=-1, keepdim=True), y.dtype)
 
 
-def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False):
-    """SSD forward. x: (B, L, d_model). With ``return_cache``, also the
-    decode cache ``{"h": the state after the last chunk (B, heads, head_dim,
-    N), "conv": the last K-1 rows of the conv's zero-padded input}``."""
-    b, l, _ = x.shape
-    dtype = x.dtype
-    nh, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xin, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba2_inputs(params, cfg, x)
+def _ssd(cfg: ModelConfig, xin, dt, a, b_mat, c_mat, d_skip):
+    """The SSD over the heads of ``dt`` (B, L, heads), with the skip term:
+    (y (B, L, heads * head_dim) in f32, the state after the last chunk
+    (B, heads, head_dim, N))."""
+    b, l, nh = dt.shape
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
     q = _pick_chunk(l, cfg.ssm_chunk)
     nc = l // q
 
@@ -316,7 +328,7 @@ def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j. Masked BEFORE the
     # exp: the i < j region has positive exponents that overflow.
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (b, c, qi, qj, h)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xin.device))
     l_mat = torch.exp(torch.where(tri[None, None, :, :, None], seg, -1e30))
     xdt = xh * dt_c[..., None]                               # (b, c, q, h, p)
     cb = c_c @ b_c.transpose(-1, -2)                         # "bcin,bcjn->bcij"
@@ -330,7 +342,7 @@ def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     states = (u @ b_c).reshape(b, nc, nh, p, n)
     # the state entering each chunk: h_c = h_{c-1} * exp(cum_last) + states_c
     chunk_decay = torch.exp(cum[:, :, -1, :])                # (b, c, h)
-    h = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, nh, p, n), dtype=states.dtype, device=xin.device)
     prev = []
     for c in range(nc):
         prev.append(h)
@@ -341,12 +353,84 @@ def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     y_off = y_off * torch.exp(cum)[..., None]
 
     y = (y_diag + y_off).reshape(b, l, nh, p)
-    y = y + params["d_skip"].float()[:, None] * xin.float().reshape(b, l, nh, p)
-    y = _gated_norm(params, cfg, y.reshape(b, l, nh * p).to(dtype), z)
-    out = y @ params["out_proj"].to(dtype)
+    y = y + d_skip.float()[:, None] * xin.float().reshape(b, l, nh, p)
+    return y.reshape(b, l, nh * p), h
+
+
+def apply_mamba2(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: bool = False):
+    """SSD forward. x: (B, L, d_model). With ``return_cache``, also the
+    decode cache ``{"h": the state after the last chunk (B, heads, head_dim,
+    N), "conv": the last K-1 rows of the conv's zero-padded input}``."""
+    xin, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba2_inputs(params, cfg, x)
+    y, h = _ssd(cfg, xin, dt, a, b_mat, c_mat, params["d_skip"])
+    y = _gated_norm(params, cfg, y.to(x.dtype), z)
+    out = y @ params["out_proj"].to(x.dtype)
     if return_cache:
         return out, {"h": h, "conv": new_tail}
     return out
+
+
+def _mamba2_shard(lp: Dict, cfg: ModelConfig, c0: int) -> Dict:
+    """A position's Mamba-2 weights, from ``c0`` on: its ``d_l`` channels
+    (``wx``'s width: ``wz``, ``wx``, ``norm`` and ``out_proj`` come split
+    so) and their ``d_l / head_dim`` heads, which start at ``c0 /
+    head_dim`` because the SSD's channels are head-major. ``wdt`` comes
+    split over ``ssm_heads`` or whole, and is cut to those heads; so are
+    ``a_log``, ``dt_b`` and ``d_skip``, which are whole. The conv runs over
+    ``[x | B | C]``: the position's rows of ``conv_w`` and ``conv_b`` are
+    its channels' and the last ``2N``, which every position shares."""
+    di, p = cfg.d_inner, cfg.ssm_head_dim
+    d_l = lp["wx"].shape[-1]
+    if d_l % p or c0 % p:
+        raise ValueError(f"channels [{c0}, {c0 + d_l}) of {cfg.name}'s Mamba-2 do not hold "
+                         f"whole heads of {p}: the heads and the channels must split alike")
+    heads = slice(c0 // p, (c0 + d_l) // p)
+    wdt = lp["wdt"][:, heads] if lp["wdt"].shape[-1] == cfg.ssm_heads else lp["wdt"]
+    return dict(lp, wdt=wdt, a_log=lp["a_log"][heads], dt_b=lp["dt_b"][heads],
+                d_skip=lp["d_skip"][heads],
+                conv_w=torch.cat([lp["conv_w"][c0:c0 + d_l], lp["conv_w"][di:]]),
+                conv_b=torch.cat([lp["conv_b"][c0:c0 + d_l], lp["conv_b"][di:]]))
+
+
+def mamba2_mesh(lps: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
+                mesh) -> Dict[Any, torch.Tensor]:
+    """Mamba-2 on a mesh, for training. ``lps`` holds each position's block
+    weights (its own ``ssm_inner`` channels and ``ssm_heads`` where
+    ``model`` splits them, the rest whole), ``x`` each position's normed
+    input (B_l, L, d_model).
+
+    Each position runs the SSD on its own heads (:func:`_mamba2_shard`):
+    ``wz``/``wx`` are column-parallel, ``wb``/``wc`` whole (B and C are
+    every head's). The gated RMSNorm's mean runs over all of ``d_inner``,
+    so each position's sum of squares over its channels is summed over
+    ``model`` before the ``rsqrt``; ``out_proj`` is row-parallel, its
+    partial products summed over ``model``. A whole leaf a position uses
+    a slice of (``a_log``, ``dt_b``, ``d_skip``, ``conv_w``, ``conv_b``)
+    gets a gradient in that slice only, and the replicas' sum
+    (``placed.reduce_replicas``) puts every slice's once. Where ``model``
+    splits nothing every position computes the whole block. Returns each
+    position's output."""
+    from repro_torch.sharding.placed import all_reduce
+
+    di = cfg.d_inner
+    mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
+    split = next(iter(lps.values()))["wx"].shape[-1] < di
+    gated, sum_sq, local = {}, {}, {}
+    for pos, lp in lps.items():
+        d_l = lp["wx"].shape[-1]
+        local[pos] = _mamba2_shard(lp, cfg, pos[mi] * d_l if split else 0)
+        xin, z, dt, a, b_mat, c_mat, _, _ = _mamba2_inputs(local[pos], cfg, x[pos])
+        y, _ = _ssd(cfg, xin, dt, a, b_mat, c_mat, local[pos]["d_skip"])
+        gated[pos] = _gate(y.to(x[pos].dtype), z)
+        sum_sq[pos] = (gated[pos] * gated[pos]).sum(dim=-1, keepdim=True)
+    if split:
+        sum_sq = all_reduce(sum_sq, mesh, "model")
+    out = {}
+    for pos, lp in local.items():
+        dtype = x[pos].dtype
+        y = _rms_scale(lp, cfg, gated[pos], sum_sq[pos] / di, dtype)
+        out[pos] = y @ lp["out_proj"].to(dtype)
+    return all_reduce(out, mesh, "model") if split else out
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None) -> Dict:

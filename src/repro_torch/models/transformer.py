@@ -40,19 +40,19 @@ positions: its prefill starts every sequence from the zero state, and its
 decode step ignores ``index``; a hybrid prefill starts its Mamba-2 layers
 from the zero state too.
 
-:func:`mesh_forward` is the forward on a mesh, for training, of the
-dense (GQA and MLA), moe and ssm families: the reference jits its forward
-with the train rules' shardings and lets GSPMD split it; the port runs
-each mesh position's shard itself (FSDP all-gathers, tensor-parallel
-attention and MLP with their all-reduces over ``model``, expert-parallel
-MoE, Mamba-1 on each position's channels, vocab-parallel logits) and
-calls K4 on each position's own heads and K5 on its own channels. The
-hybrid, encdec and vlm families raise on a mesh.
+:func:`mesh_forward` is the forward on a mesh, for training, of every
+family (dense with GQA or MLA, moe, ssm, hybrid, encdec, vlm): the
+reference jits its forward with the train rules' shardings and lets GSPMD
+split it; the port runs each mesh position's shard itself (FSDP
+all-gathers, tensor-parallel attention, cross-attention and MLP with their
+all-reduces over ``model``, expert-parallel MoE, Mamba-1 on each
+position's channels and Mamba-2 on its heads, vocab-parallel logits) and
+calls K4 on each position's own heads and K5 on its own channels.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -86,9 +86,11 @@ __all__ = [
     "embed_tokens",
     "unembed",
     "check_family",
-    "check_mesh_family",
+    "Block",
+    "block_plan",
     "mesh_block",
     "mesh_embed",
+    "mesh_encode",
     "mesh_unembed",
     "mesh_forward",
     "LM_FAMILIES",
@@ -199,6 +201,31 @@ def _groups(cfg: ModelConfig) -> int:
     return cfg.num_layers // cfg.attn_every
 
 
+class Block(NamedTuple):
+    """One block of a forward, as :func:`block_plan` lists it."""
+    stream: str                 # "enc": an encoder's block; "dec": any other
+    layer: Union[int, str]      # its index in its stream's stacked ``layers``, or "shared"
+    causal: bool
+
+
+def block_plan(cfg: ModelConfig, stream: Optional[str] = None) -> list:
+    """Every block of one forward, in order (only ``stream``'s where given):
+    an encdec model's encoder layers, non-causal, before its decoder
+    layers; the hybrid's ``attn_every`` Mamba-2 layers, then the shared
+    block, once a group; one block a layer for the other families. The one
+    schedule that the single-device stacks, :func:`mesh_forward` and
+    :func:`mesh_encode` walk."""
+    if cfg.family == "hybrid":
+        _groups(cfg)
+    plan = [Block("enc", i, False) for i in range(cfg.encoder_layers)
+            if cfg.family == "encdec"]
+    for i in range(cfg.num_layers):
+        plan.append(Block("dec", i, True))
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            plan.append(Block("dec", "shared", True))
+    return [b for b in plan if stream in (None, b.stream)]
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -250,22 +277,14 @@ def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend=
     """The main layer stack without a cache (the reference's ``lax.scan``).
     Returns (x, the auxiliary losses summed over the layers)."""
     layers = _layers(params["layers"], cfg.num_layers)
-    if cfg.family == "hybrid":
-        for g in range(_groups(cfg)):
-            for j in range(cfg.attn_every):
-                lp = layers[g * cfg.attn_every + j]
-                x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
-            x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=True,
-                                        backend=backend)
-        return x, {}
     auxs: Dict[str, list] = {}
-    for i in range(cfg.num_layers):
-        lp = layers[i]
-        if cfg.family == "ssm":
+    for blk in block_plan(cfg, "dec"):
+        lp = params["shared"] if blk.layer == "shared" else layers[blk.layer]
+        if "mamba" in lp:
             x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
             continue
-        enc_kv = cross_kv(lp["cross"], cfg, enc_out) if cfg.family == "encdec" else None
-        x, _, aux = _apply_attn_block(lp, cfg, x, positions, causal=True, enc_kv=enc_kv,
+        enc_kv = cross_kv(lp["cross"], cfg, enc_out) if "cross" in lp else None
+        x, _, aux = _apply_attn_block(lp, cfg, x, positions, causal=blk.causal, enc_kv=enc_kv,
                                       backend=backend)
         for name, v in aux.items():
             auxs.setdefault(name, []).append(v)
@@ -300,8 +319,9 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, dtype, backend="
     pos = torch.arange(t, dtype=torch.int32, device=enc_embeds.device)[None].expand(b, t)
     x = enc_embeds.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
     enc = params["encoder"]
-    for lp in _layers(enc["layers"], cfg.encoder_layers):
-        x, _, _ = _apply_attn_block(lp, cfg, x, pos, causal=False,
+    layers = _layers(enc["layers"], cfg.encoder_layers)
+    for blk in block_plan(cfg, "enc"):
+        x, _, _ = _apply_attn_block(layers[blk.layer], cfg, x, pos, causal=blk.causal,
                                     backend=backend)
     return apply_norm(enc["final_norm"], cfg, x)
 
@@ -382,13 +402,15 @@ def _hybrid_stack(params, cfg: ModelConfig, x, positions, cache: Dict, index, *,
                   decode: bool, backend):
     """The hybrid's groups with a cache: each group's Mamba-2 layers, then
     the shared block with group ``g``'s k/v cache."""
-    for g in range(_groups(cfg)):
-        for j in range(cfg.attn_every):
-            x = _mamba_layer(params, cfg, x, cache, g * cfg.attn_every + j, decode=decode,
-                             backend=backend)
-        x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=True,
+    g = 0
+    for blk in block_plan(cfg):
+        if blk.layer != "shared":
+            x = _mamba_layer(params, cfg, x, cache, blk.layer, decode=decode, backend=backend)
+            continue
+        x, _, _ = _apply_attn_block(params["shared"], cfg, x, positions, causal=blk.causal,
                                     cache=_layer(cache["shared"], g), index=index,
                                     backend=backend)
+        g += 1
     return x
 
 
@@ -472,23 +494,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor, ind
 
 
 # ---------------------------------------------------------------------------
-# On a mesh (training): the dense (GQA and MLA), moe and ssm families
+# On a mesh (training): every family
 # ---------------------------------------------------------------------------
-
-MESH_FAMILIES = ("dense", "moe", "ssm")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise for a config the mesh forward does not cover: it covers the
-    dense family (GQA and MLA), the moe family and the ssm family
-    (Mamba-1); the hybrid, encdec and vlm families raise."""
-    check_family(cfg)
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train on a mesh yet, only the dense "
-            "(GQA and MLA), moe and ssm families do (ROADMAP queue 1 item 13.7); train it on one "
-            "device (mesh=None)")
-
 
 def _model_split(leaf, dim: int) -> bool:
     return leaf.spec.axes(dim) == ("model",)
@@ -520,33 +527,49 @@ def _position_weights(params, mesh, dtype, active) -> Dict[Any, Any]:
 
 
 def mesh_block(lps: Dict[Any, Any], cfg: ModelConfig, x: Dict[Any, torch.Tensor],
-               pos_ids: Dict[Any, torch.Tensor], mesh, *,
+               pos_ids: Dict[Any, torch.Tensor], mesh, *, causal: bool = True,
+               enc: Optional[Dict[Any, torch.Tensor]] = None,
                backend: str = "auto") -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
     """One pre-norm block on a mesh. ``lps`` holds each position's weights
     of the block (its own heads', ``mlp`` columns, experts or
     ``ssm_inner`` channels where ``model`` splits them, the rest whole:
     what :func:`_position_weights` gives), ``x`` each position's copy of
     its batch shard's hidden state. Which weights are split is read from
-    their shapes. The dense and moe families: tensor-parallel attention
-    (``attention.attention_mesh``: K4 once a position on the card), then
-    the tensor-parallel MLP (a split ``mlp`` dim means a row-parallel
+    their shapes. A Mamba block: ``ssm.mamba1_mesh`` (the ssm family, K5
+    once a position on the card) or ``ssm.mamba2_mesh`` (the hybrid's
+    backbone, each position on its own heads). An attention block (the
+    dense, moe, vlm and encdec families and the hybrid's shared block):
+    tensor-parallel self-attention (``attention.attention_mesh``: K4 once a
+    position on the card, non-causal where ``causal`` is False, as in an
+    encoder), then, where ``enc`` holds each position's encoder output
+    (an encdec decoder), ``ln_x`` and the tensor-parallel cross-attention
+    over it (``attention.cross_attention_mesh``, K4 non-causal), then the
+    tensor-parallel MLP (a split ``mlp`` dim means a row-parallel
     ``w_down`` summed over ``model``) or the expert-parallel MoE
-    (``moe.moe_mesh``). The ssm family: ``ssm.mamba1_mesh`` (K5 once a
-    position on the card). Returns (each position's block output, the
-    MoE's aux losses on the mesh's lead device, ``{}`` for the others)."""
-    from repro_torch.models.attention import attention_mesh
+    (``moe.moe_mesh``), as :func:`_apply_attn_block` orders them. Returns
+    (each position's block output, the MoE's aux losses on the mesh's
+    lead device, ``{}`` for the others)."""
+    from repro_torch.models.attention import attention_mesh, cross_attention_mesh
     from repro_torch.models.moe import moe_mesh
     from repro_torch.sharding.placed import all_reduce
 
-    if cfg.family == "ssm":
-        part = ssm.mamba1_mesh({pos: lp["mamba"] for pos, lp in lps.items()}, cfg,
-                               {pos: apply_norm(lp["ln"], cfg, x[pos]) for pos, lp in lps.items()},
-                               mesh, backend=backend)
+    if "mamba" in next(iter(lps.values())):
+        normed = {pos: apply_norm(lp["ln"], cfg, x[pos]) for pos, lp in lps.items()}
+        mambas = {pos: lp["mamba"] for pos, lp in lps.items()}
+        if cfg.family == "ssm":
+            part = ssm.mamba1_mesh(mambas, cfg, normed, mesh, backend=backend)
+        else:
+            part = ssm.mamba2_mesh(mambas, cfg, normed, mesh)
         return {pos: x[pos] + part[pos] for pos in lps}, {}
     part = attention_mesh({pos: lp["attn"] for pos, lp in lps.items()}, cfg,
                           {pos: apply_norm(lp["ln1"], cfg, x[pos]) for pos, lp in lps.items()},
-                          pos_ids, mesh, backend=backend)
+                          pos_ids, mesh, causal=causal, backend=backend)
     x = {pos: x[pos] + part[pos] for pos in lps}
+    if enc is not None:
+        part = cross_attention_mesh({pos: lp["cross"] for pos, lp in lps.items()}, cfg,
+                                    {pos: apply_norm(lp["ln_x"], cfg, x[pos])
+                                     for pos, lp in lps.items()}, enc, mesh, backend=backend)
+        x = {pos: x[pos] + part[pos] for pos in lps}
     y = {pos: apply_norm(lp["ln2"], cfg, x[pos]) for pos, lp in lps.items()}
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "moe":
@@ -558,19 +581,52 @@ def mesh_block(lps: Dict[Any, Any], cfg: ModelConfig, x: Dict[Any, torch.Tensor]
     return {pos: x[pos] + part[pos] for pos in lps}, aux
 
 
-def mesh_embed(w: Dict[Any, Any], params, cfg: ModelConfig, tokens, mesh,
-               dtype) -> Dict[Any, torch.Tensor]:
+def _arange_positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+
+
+def mesh_embed(w: Dict[Any, Any], params, cfg: ModelConfig, tokens, mesh, dtype, *,
+               patch_embeds=None, positions=None) -> Dict[Any, torch.Tensor]:
     """Each position of ``w`` (its weights, :func:`_position_weights`)
     looks its batch shard of ``tokens`` (a placed leaf) up in its slice of
     the table's ``d_model`` columns; where ``model`` splits them (the
     placed ``params``' spec says), the slices are all-gathered over
-    ``model``. Returns ``{position: (B_l, S, d_model)}``."""
+    ``model``. Then, as :func:`_prepare_inputs`: a VLM prepends its batch
+    shard of the placed ``patch_embeds``, and an encdec model adds the
+    sinusoid of ``positions`` (a placed leaf; ``arange`` over every
+    position where None). Returns ``{position: (B_l, S, d_model)}``
+    (a VLM's S counts its patches)."""
     from repro_torch.sharding.placed import all_gather
 
     x = {pos: embed_tokens(wp, cfg, tokens.local(pos), dtype) for pos, wp in w.items()}
     if _model_split(params["embed"]["embedding"], 1) and mesh.shape.get("model", 1) > 1:
         x = all_gather(x, mesh, "model", -1)
+    if cfg.family == "vlm" and cfg.frontend == "vision_stub":
+        x = {pos: torch.cat([patch_embeds.local(pos).to(dtype), t], dim=1) for pos, t in x.items()}
+    if cfg.family == "encdec":
+        x = {pos: t + _sinusoid(_arange_positions(t) if positions is None
+                                else positions.local(pos), cfg.d_model).to(dtype)
+             for pos, t in x.items()}
     return x
+
+
+def mesh_encode(w: Dict[Any, Any], cfg: ModelConfig, enc_embeds, mesh, dtype, *,
+                backend: str = "auto") -> Dict[Any, torch.Tensor]:
+    """An encdec model's encoder on a mesh, as :func:`_encode`: each
+    position's batch shard of the placed ``enc_embeds`` plus the sinusoid,
+    the encoder's blocks non-causal (:func:`mesh_block`, K4 on each
+    position's heads on the card), then the encoder's ``final_norm``.
+    Returns each position's encoder output, which every decoder layer's
+    cross-attention reads."""
+    x = {pos: enc_embeds.local(pos).to(dtype) for pos in w}
+    pos_ids = {pos: _arange_positions(t) for pos, t in x.items()}
+    x = {pos: t + _sinusoid(pos_ids[pos], cfg.d_model).to(dtype) for pos, t in x.items()}
+    layers = {pos: _layers(wp["encoder"]["layers"], cfg.encoder_layers) for pos, wp in w.items()}
+    for blk in block_plan(cfg, "enc"):
+        x, _ = mesh_block({pos: layers[pos][blk.layer] for pos in w}, cfg, x, pos_ids, mesh,
+                          causal=blk.causal, backend=backend)
+    return {pos: apply_norm(wp["encoder"]["final_norm"], cfg, x[pos]) for pos, wp in w.items()}
 
 
 def mesh_unembed(w: Dict[Any, Any], params, cfg: ModelConfig, x: Dict[Any, torch.Tensor],
@@ -609,44 +665,50 @@ def _active_positions(mesh, tokens) -> list:
 
 def mesh_forward(params, cfg: ModelConfig, batch: Dict, mesh, *,
                  backend: str = "auto") -> Tuple[Dict[Any, torch.Tensor], Dict[str, torch.Tensor]]:
-    """The forward on a mesh, for the loss, of the dense (GQA and MLA),
-    moe and ssm families: ``params`` and ``batch`` hold
-    :class:`~repro_torch.sharding.placed.Placed` leaves (the train rules'
-    specs; the batch split over ``(pod, data)``).
+    """The forward on a mesh, for the loss, of every family (dense with
+    GQA or MLA, moe, ssm, hybrid, encdec, vlm): ``params`` and ``batch``
+    hold :class:`~repro_torch.sharding.placed.Placed` leaves (the train
+    rules' specs; the batch split over ``(pod, data)``).
 
     Every position whose batch shard is distinct (:func:`_active_positions`)
     runs its shard: the FSDP-gathered, cast weights
-    (:func:`_position_weights`), the embedding (:func:`mesh_embed`), every
-    layer's :func:`mesh_block` (tensor-parallel attention with K4 on the
-    position's own heads and the MLP, expert-parallel MoE, or Mamba-1 on
-    the position's own channels with K5; a weight whose heads, ``mlp``
-    dim, experts or channels do not split over ``model`` is computed whole
-    at every ``model`` position, with no all-reduce), and the
-    vocab-parallel logits (:func:`mesh_unembed`). Returns ({position:
-    (B_l, S, vocab) logits} in position order, a moe model's ``moe_aux``
-    and ``moe_z`` summed over its layers on the mesh's lead device, ``{}``
-    for the others). Autograd runs through the collectives, so the
-    gradient of each stored shard is the reduce-scatter of its gathered
-    copies' gradients."""
-    check_mesh_family(cfg)
+    (:func:`_position_weights`, the hybrid's ``shared`` block once), the
+    embedding (:func:`mesh_embed`: a VLM's patches prepended, an encdec
+    model's sinusoid added), an encdec model's encoder
+    (:func:`mesh_encode`), every layer's :func:`mesh_block`
+    (tensor-parallel attention with K4 on the position's own heads, the
+    encdec decoder's cross-attention, the MLP, expert-parallel MoE,
+    Mamba-1 on the position's own channels with K5, Mamba-2 on its own
+    heads; the hybrid's shared block after every ``attn_every`` Mamba-2
+    layers, in :func:`block_plan`'s order, so autograd sums its
+    gradient over its applications; a weight whose heads, ``mlp`` dim,
+    experts or channels do not split over ``model`` is computed whole at
+    every ``model`` position, with no all-reduce), and the vocab-parallel
+    logits (:func:`mesh_unembed`). Returns ({position: (B_l, S, vocab)
+    logits} in position order, a moe model's ``moe_aux`` and ``moe_z``
+    summed over its layers on the mesh's lead device, ``{}`` for the
+    others). Autograd runs through the collectives, so the gradient of
+    each stored shard is the reduce-scatter of its gathered copies'
+    gradients."""
+    check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     active = _active_positions(mesh, tokens)
     w = _position_weights(params, mesh, dtype, active)
-    x = mesh_embed(w, params, cfg, tokens, mesh, dtype)
-    pos_ids, layers = {}, {}
-    for pos in active:
-        if "positions" in batch:
-            pos_ids[pos] = batch["positions"].local(pos)
-        else:
-            b, s = x[pos].shape[:2]
-            pos_ids[pos] = torch.arange(s, dtype=torch.int32, device=x[pos].device)[None].expand(
-                b, s)
-        layers[pos] = _layers(w[pos]["layers"], cfg.num_layers)
+    positions = batch.get("positions")
+    x = mesh_embed(w, params, cfg, tokens, mesh, dtype, patch_embeds=batch.get("patch_embeds"),
+                   positions=positions)
+    pos_ids = {pos: _arange_positions(x[pos]) if positions is None else positions.local(pos)
+               for pos in active}
+    enc = (mesh_encode(w, cfg, batch["enc_embeds"], mesh, dtype, backend=backend)
+           if cfg.family == "encdec" else None)
+    layers = {pos: _layers(w[pos]["layers"], cfg.num_layers) for pos in active}
     auxs: Dict[str, list] = {}
-    for i in range(cfg.num_layers):
-        x, aux = mesh_block({pos: layers[pos][i] for pos in active}, cfg, x, pos_ids, mesh,
-                            backend=backend)
+    for blk in block_plan(cfg, "dec"):
+        lps = {pos: w[pos]["shared"] if blk.layer == "shared" else layers[pos][blk.layer]
+               for pos in active}
+        x, aux = mesh_block(lps, cfg, x, pos_ids, mesh, causal=blk.causal,
+                            enc=None if blk.layer == "shared" else enc, backend=backend)
         for name, v in aux.items():
             auxs.setdefault(name, []).append(v)
     # as _scan_decoder: each loss summed over the stacked per-layer values

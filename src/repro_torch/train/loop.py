@@ -12,14 +12,16 @@ f32 tree, the microbatches' gradients summed in f32 and divided by their
 count, then ``adamw.update`` at the ``warmup_cosine`` learning rate of the
 step.
 
-On a mesh (``mesh=``, a ``runtime.elastic.Mesh``; the dense family, GQA
-and MLA, the moe family and the ssm family) the state is placed by the train rules (``state_shardings``:
+On a mesh (``mesh=``, a ``runtime.elastic.Mesh``; every family: dense
+with GQA or MLA, moe, ssm, hybrid, encdec and vlm) the state is placed by
+the train rules (``state_shardings``:
 TP over ``model``, FSDP over ``data``, ZeRO-1 moments), each leaf a
 :class:`~repro_torch.sharding.placed.Placed` whose shards live on their
 positions' devices; the scalars (the step, AdamW's count) stay on the
 mesh's lead device. A step: each microbatch placed by the ``batch`` rule,
 ``Model.mesh_loss_fn`` (every batch shard's forward on its positions, K4
-on each position's own heads, K5 on its own Mamba-1 channels, the MoE's
+on each position's own heads, the encoder's and the cross-attention's
+too, K5 on its own Mamba-1 channels, Mamba-2 on its own heads, the MoE's
 experts split over ``model``; a moe model's aux losses added once),
 ``torch.autograd.grad`` back to every
 stored shard (the all-gathers' backward reduce-scatters the gradients),
@@ -50,7 +52,6 @@ from repro_torch.data.loader import DataLoader, batch_shardings
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.layers import init_leaf, map_specs
-from repro_torch.models.transformer import check_mesh_family
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.runtime.fault import FaultPolicy, StepFailure
@@ -100,10 +101,8 @@ def _at(tree: Any, path: str) -> Any:
 class Trainer:
     """``model_cfg`` trained by ``train_cfg`` on ``device`` (``None`` = the
     CUDA device), or on ``mesh`` (a ``runtime.elastic.Mesh``; its lead
-    device then stands for ``device``). A mesh takes the dense (GQA and
-    MLA), moe and ssm families; the hybrid, encdec and vlm families raise
-    ``NotImplementedError``. After ``fit``, ``self.state`` is the last
-    state."""
+    device then stands for ``device``). A mesh takes every LM family. After
+    ``fit``, ``self.state`` is the last state."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig, *, mesh=None,
                  device=None):
@@ -111,7 +110,6 @@ class Trainer:
         self.tc = train_cfg
         self.mesh = mesh
         if mesh is not None:
-            check_mesh_family(model_cfg)
             device = mesh.lead
         self.device = resolve_device(device)
         self.model = Model(model_cfg)

@@ -217,16 +217,17 @@ def test_launcher_prints_the_reference_lines(tmp_path, capsys):
 
 def test_launcher_refuses_a_mesh_and_defaults_to_cuda(capsys):
     """A mesh request over one device is the reference's one-device run (a
-    1x1 mesh); a family the mesh path lacks refuses a mesh of 4; with no
-    ``--device`` the launcher and the trainer want CUDA."""
+    1x1 mesh); over 4 devices every family takes the mesh (the hybrid
+    here); with no ``--device`` the launcher and the trainer want CUDA."""
     out = launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
                              "--batch", "2", "--seq", "8", "--model-parallel", "2",
                              "--pods", "2"])
     assert "devices=1 mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
     assert out["trainer"].mesh is None and out["mesh"].size == 1
-    with pytest.raises(NotImplementedError, match="13.7"):
-        launch_train.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu",
-                           "--model-parallel", "2"], devices=[torch.device("cpu")] * 4)
+    out = launch_train.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--steps",
+                             "1", "--batch", "2", "--seq", "8", "--model-parallel", "2"],
+                            devices=[torch.device("cpu")] * 4)
+    assert out["trainer"].mesh is out["mesh"] and out["mesh"].shape == {"data": 2, "model": 2}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
