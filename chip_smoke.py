@@ -364,10 +364,29 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    block alone (the encoder's, the shared block's) at fan-in scale, and
    an f64 step at those depths on the plain lane with every f32 part in
    f64 (pixtral at 2 rows), within 1e-5.
+20. The paged KV cache, the dry run and the roofline, each where its
+   inputs are alive. 20a (after 7b, on phase 7's FULL llama3.2-1b
+   weights): an ``Engine`` prefills 4 prompts of 37, 64, 100 and 129
+   tokens (K4 once a layer a prefill, nothing else) and runs 16 greedy
+   decode steps; a ``PagedKVCache(block_size=16)`` on the card, with just
+   the blocks the contexts plus 16 rows need, takes each slot's rows by
+   ``append_prompt`` and each step's by ``append``; every ``gather`` is
+   bit-equal to the engine's cache rows after the prefill and after every
+   step; one more ``allocate`` plus ``append`` raises ``MemoryError``; a
+   freed sequence's blocks are reused. Prints the blocks used, each
+   sequence's utilization and ``gather``'s CUDA-event median. 20b (after
+   17b, on phase 17's trainer): the dry run's plan of phase 17's cell
+   (``launch/dryrun.train_state_plan``), each leaf's spec and bytes a
+   position equal to the ``Placed`` shards held, weights and both AdamW
+   moments; prints ``train_4k``'s planned ``argument_size_in_bytes`` a
+   device on both production meshes. 20c (after 19): the MFU of phases
+   16b's and 17a's training steps, ``roofline.analysis.model_flops``'
+   6*N*D over the step p50 at ``PEAK_FLOPS_BF16``, beside the card's
+   name, power limit and memory (a printed line, not a gate).
 
 Phase 1 builds K4 and K5, then starts the edge kernels' build in a child
-process at a lower priority; phases 6-9b, 11-15 and 16-19 run while it
-compiles; then 1b waits for it, phases 2-4e run, then phase 5, then 10 and
+process at a lower priority; phases 6-9b, 11-15, 16-19 and 20a-20c run
+while it compiles; then 1b waits for it, phases 2-4e run, then phase 5, then 10 and
 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
@@ -4593,13 +4612,15 @@ def phase_mesh_training(dev, single: dict) -> dict:
     t0 = time.perf_counter()
     stats, trainer = timed("17a mesh training", phase_mesh_train, dev, single)
     reshard = timed("17b reshard to 1x2", phase_mesh_reshard, dev, trainer)
+    planned = timed("20b planned bytes against the held shards", phase_planned_bytes, trainer)
     del trainer
     free_weights()
     f32 = timed("17c f32 step, mesh against one device", phase_mesh_f32_step, dev)
     pod = timed("17d pod mesh", phase_mesh_pod, dev)
     seconds = time.perf_counter() - t0
     print(f"[phase 17: {seconds:.1f}s]")
-    return dict(stats, reshard=reshard, f32=f32, pod=pod, phase_seconds=seconds)
+    return dict(stats, reshard=reshard, f32=f32, pod=pod, planned=planned,
+                phase_seconds=seconds)
 
 
 # --- Every family but the dense one on a mesh (phases 18 and 19) -------------
@@ -5125,6 +5146,174 @@ def phase_family_mesh_training(dev, single: dict) -> dict:
     return dict(families=out, phase_seconds=seconds)
 
 
+# --- The paged KV cache, the dry run and the roofline (phase 20) ------------
+
+PAGED_PROMPTS = (37, 64, 100, 129)   # ragged prompt lengths, tokens
+PAGED_STEPS, PAGED_BLOCK = 16, 16     # greedy decode steps; tokens a block
+PAGED_BUCKETS = (64, 128)            # the engine's prefill lengths (contexts of 36-128)
+
+
+def phase_paged_cache(dev, params) -> dict:
+    """Phase 20a: the paged KV cache on the card beside the engine's own.
+    Phase 7's FULL llama3.2-1b weights (f32) in an ``Engine`` of 4 slots;
+    the 4 ``PAGED_PROMPTS`` admitted (counts set to 0 just before and read
+    just after: K4 once a layer a prefill, nothing else), each slot's
+    context k/v rows copied into a ``PagedKVCache(block_size=16)`` on the
+    card with ``append_prompt``; then ``PAGED_STEPS`` greedy decode steps,
+    each slot's new row ``append``-ed after each. The cache has just the
+    blocks that the contexts plus 16 rows need. After the prefill and
+    after every step, every sequence's ``gather`` equals its slot's rows of
+    the engine's cache bit for bit (``torch.equal``). Then one more
+    ``allocate`` plus an ``append`` raises ``MemoryError``; a ``free``
+    returns its blocks and a new sequence reuses them, its ``gather``
+    bit-equal to the rows written. Prints the blocks used, each sequence's
+    ``utilization`` and ``gather``'s CUDA-event median."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, PagedKVCache, Request
+
+    cfg = get_config("llama3.2-1b").replace(dtype="float32")
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PAGED_PROMPTS]
+    eng = Engine(cfg, params, max_batch=len(prompts), max_len=256, prompt_buckets=PAGED_BUCKETS,
+                 device=dev)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=PAGED_STEPS))
+    reset_counts()
+    eng._admit()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["k4"] == cfg.num_layers * len(prompts)
+          and all(counts[k] == 0 for k in COUNTS if k != "k4"),
+          f"the paged phase's prefills launched {counts}")
+    ctx = [n - 1 for n in PAGED_PROMPTS]
+    blocks = sum(-(-(c + PAGED_STEPS) // PAGED_BLOCK) for c in ctx)
+    rows = lambda: (eng.cache["layers"]["k"], eng.cache["layers"]["v"])  # noqa: E731
+    k_all, _ = rows()
+    paged = PagedKVCache(layers=cfg.num_layers, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                         num_blocks=blocks, block_size=PAGED_BLOCK, dtype=k_all.dtype, device=dev)
+    check(paged.k.device == k_all.device, f"the paged cache is on {paged.k.device}")
+    for slot, c in enumerate(ctx):
+        paged.allocate(slot)
+        paged.append_prompt(slot, *(t[:, slot, :c] for t in rows()))
+
+    def same(when: str) -> None:
+        k_all, v_all = rows()
+        for slot in range(len(ctx)):
+            n = paged.length(slot)
+            k, v = paged.gather(slot)
+            check(torch.equal(k, k_all[:, slot, :n]) and torch.equal(v, v_all[:, slot, :n]),
+                  f"sequence {slot}'s gather differs from the engine's cache {when}")
+
+    same("after the prefill")
+    for step in range(PAGED_STEPS):
+        written = eng.positions.copy()
+        eng._decode_once()
+        for slot in range(len(ctx)):
+            paged.append(slot, *(t[:, slot, int(written[slot])] for t in rows()))
+        same(f"after decode step {step + 1}")
+    check(paged.free_blocks == 0 and paged.used_blocks() == blocks,
+          f"{paged.used_blocks()} of {blocks} blocks used after the decode")
+    util = [paged.utilization(slot) for slot in range(len(ctx))]
+    gather_ms = median_ms(lambda: paged.gather(len(ctx) - 1))
+    longest = paged.length(len(ctx) - 1)
+    gather_mb = 2 * cfg.num_layers * longest * cfg.num_kv_heads * cfg.head_dim * 4 / 1e6
+    paged.allocate(99)
+    try:
+        paged.append(99, *(t[:, 0, 0] for t in rows()))
+        check(False, "an append past the last free block did not raise MemoryError")
+    except MemoryError:
+        pass
+    paged.free(99)
+    freed = paged._seqs[0].blocks[:]
+    paged.free(0)
+    check(paged.free_blocks == len(freed), f"free returned {paged.free_blocks} blocks")
+    paged.allocate(4)
+    paged.append_prompt(4, *(t[:, 1, :ctx[0]] for t in rows()))
+    reused = paged.block_table(4).tolist()
+    k, v = paged.gather(4)
+    k_all, v_all = rows()
+    check(set(reused) <= set(freed) and torch.equal(k, k_all[:, 1, :ctx[0]])
+          and torch.equal(v, v_all[:, 1, :ctx[0]]),
+          f"the new sequence took blocks {reused}, not of the freed {freed}, or its rows differ")
+    print(f"phase 20a: paged KV cache of FULL {cfg.name} on {dev}: {len(ctx)} prompts of "
+          f"{list(PAGED_PROMPTS)} tokens (K4 {counts['k4']} launches) and {PAGED_STEPS} decode "
+          f"steps; gathers bit-equal to the engine's cache after the prefill and after every "
+          f"step; {blocks} blocks of {PAGED_BLOCK} used, utilization "
+          f"{', '.join(f'{u:.3f}' for u in util)}; MemoryError on the next append; a freed "
+          f"sequence's {len(freed)} blocks reused; gather of {longest} tokens "
+          f"({gather_mb:.1f} MB of k and v) "
+          f"{gather_ms:.4f} ms (CUDA-event median)")
+    return dict(k4=counts["k4"], blocks=blocks, utilization=util, gather_ms=gather_ms,
+                gather_tokens=longest, gather_mb=gather_mb, steps=PAGED_STEPS)
+
+
+def phase_planned_bytes(trainer) -> dict:
+    """Phase 20b: the dry run's plan of phase 17's cell (FULL llama3.2-1b on
+    the 2x2 mesh of one card, ``launch/dryrun.train_state_plan``) against
+    the state that phase 17's trainer holds: each leaf's spec the same, and
+    its planned bytes a position equal to every ``Placed`` shard's
+    ``nbytes``, for the weights and both AdamW moments. Then the planned
+    ``argument_size_in_bytes`` of ``train_4k`` on both production
+    meshes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import leaves, leaves_with_path
+
+    mesh, state = trainer.mesh, trainer.state
+    plan, specs = dryrun.train_state_plan(trainer.cfg, mesh, trainer.tc.microbatches)
+    held = {pos: 0 for pos in mesh.positions()}
+    planned_total = 0
+    for part in ("params", "mu", "nu"):
+        got = state.params if part == "params" else getattr(state.opt, part)
+        want = plan.params if part == "params" else getattr(plan.opt, part)
+        sp = specs.params if part == "params" else getattr(specs.opt, part)
+        for (path, leaf), t, spec in zip(leaves_with_path(got), leaves(want), leaves(sp)):
+            name = f"{part}/{'/'.join(path)}"
+            check(leaf.spec == spec, f"{name}: held spec {leaf.spec}, planned {spec}")
+            nbytes = dryrun.shard_nbytes(t, spec, mesh)
+            planned_total += nbytes
+            for pos, shard in leaf.shards.items():
+                check(shard.nbytes == nbytes, f"{name} at {pos}: {shard.nbytes} bytes held, "
+                                              f"{nbytes} planned")
+                held[pos] += shard.nbytes
+    check(set(held.values()) == {planned_total}, f"bytes a position: held {held}, planned "
+                                                 f"{planned_total}")
+    production = {}
+    for name, multi in (("single_pod", False), ("multi_pod", True)):
+        big = dryrun.meta_mesh(multi_pod=multi)
+        cell = dryrun.cell_arguments(get_config(TRAIN_ARCH), "train_4k", big)
+        production[name] = dryrun.memory_analysis(cell, big)["argument_size_in_bytes"]
+    print(f"phase 20b: the dry run's plan of phase 17's cell ({trainer.cfg.name} FULL on a "
+          f"{mesh.shape} mesh): weights and AdamW moments {planned_total:,} bytes a position, "
+          f"equal leaf by leaf to the Placed shards phase 17 holds at all {len(held)} "
+          f"positions; train_4k argument_size_in_bytes a device: "
+          + ", ".join(f"{k} {v:,}" for k, v in production.items()))
+    return dict(bytes_a_position=planned_total, train_4k_arguments=production)
+
+
+def phase_mfu(single: dict, mesh: dict) -> dict:
+    """Phase 20c: the whole training step's share of the card's dense bf16
+    rate, ``roofline.analysis.model_flops``' 6*N*D for 8 x 128 tokens over
+    phase 16b's step p50 (one device) and phase 17a's (the 2x2 mesh of the
+    one card), at ``PEAK_FLOPS_BF16``. A printed line, not a gate. Prints
+    the card's memory beside the roofline's ``HBM_PER_CHIP``."""
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.constants import HBM_PER_CHIP, PEAK_FLOPS_BF16
+
+    n_active = model_flops(TRAIN_ARCH, "train_4k", "train")["n_active"]
+    flops = 6.0 * n_active * TRAIN_BATCH * TRAIN_SEQ
+    mfu = {k: flops / (st["step_p50_ms"] / 1e3) / PEAK_FLOPS_BF16
+           for k, st in (("one_device", single), ("mesh", mesh))}
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase 20c: MFU of the {TRAIN_ARCH} training step, 6 x {n_active:,} x "
+          f"{TRAIN_BATCH * TRAIN_SEQ} = {flops:.4g} flops at {PEAK_FLOPS_BF16:.4g} flop/s: "
+          f"one device (16b, p50 {single['step_p50_ms']:.2f} ms) {100 * mfu['one_device']:.2f}%, "
+          f"2x2 mesh of the card (17a, p50 {mesh['step_p50_ms']:.2f} ms) "
+          f"{100 * mfu['mesh']:.2f}%; card {card_line()}; total_memory {total:,} bytes "
+          f"(HBM_PER_CHIP {HBM_PER_CHIP:,})")
+    return dict(model_flops=flops, mfu=mfu, total_memory=total)
+
+
 def phase_analyzer():
     """Phase 10: the contract analyzer's whole sweep, CPU and card halves,
     against the committed baseline. Returns its summary."""
@@ -5219,7 +5408,10 @@ def main() -> None:
     edge_build = timed("1 build", phase_build)
     k4_err = timed("6 K4 vs plain", phase_k4_vs_plain, dev)
     lm = timed("7 LM server", phase_lm_server, dev)
-    long_launches = timed("7b long prefill", phase_long_prefill, dev, lm.pop("params"))
+    lm_params = lm.pop("params")
+    long_launches = timed("7b long prefill", phase_long_prefill, dev, lm_params)
+    timed("20a paged cache", phase_paged_cache, dev, lm_params)
+    del lm_params
     free_weights()               # the llama weights go before falcon-mamba's 29 GB
     t_ssm = time.perf_counter()
     k5_err = timed("8 K5 vs plain", phase_k5_vs_plain, dev)
@@ -5252,6 +5444,7 @@ def main() -> None:
     free_weights()
     family_mesh = phase_family_mesh_training(dev, training)["families"]
     free_weights()
+    timed("20c MFU", phase_mfu, training, mesh_training)
     timed("1b edge build", phase_edge_build, edge_build)
     rng = np.random.default_rng(0)
     full = timed("2 K1 vs plain", phase_kernel_vs_plain, rng, dev)

@@ -8,8 +8,8 @@ stubs'.
 form and a ``smoke`` reduction for CPU tests. The reference's ``remat``
 and ``scan_layers`` have no counterpart: the port's trainer runs eagerly
 and keeps every activation for the backward (``train/loop.py``;
-``remat_policy`` is kept, unread). ``ShapeConfig`` waits for the dry run
-(ROADMAP queue 1 item 13.7).
+``remat_policy`` is kept, unread). ``SHAPES`` is the reference's LM shape
+set, the cells of the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import dataclasses
 import importlib
 from typing import Dict, Tuple
 
-__all__ = ["ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "register", "get_config",
+           "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +133,26 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The LM shape set (the same for every LM arch).
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 _REGISTRY: Dict[str, tuple] = {}
 

@@ -1,5 +1,5 @@
-"""Serving: the LM engine (continuous batching), the streaming engine and
-its degradation ladder."""
+"""Serving: the LM engine (continuous batching), the paged KV cache, the
+streaming engine and its degradation ladder."""
 from repro_torch.serve.engine import Engine, Request  # noqa: F401
 from repro_torch.serve.guard import (  # noqa: F401
     GuardPolicy,
@@ -9,6 +9,7 @@ from repro_torch.serve.guard import (  # noqa: F401
     StepGuard,
     quarantine_reason,
 )
+from repro_torch.serve.paged import PagedKVCache  # noqa: F401
 from repro_torch.serve.streams import (  # noqa: F401
     StreamEngine,
     StreamRequest,

@@ -51,7 +51,9 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.checkpoint.manager, repro_torch.train, repro_torch.train.loop, "
         "repro_torch.launch.train, repro_torch.launch.mesh, repro_torch.sharding.rules, "
         "repro_torch.sharding.partition, repro_torch.sharding.placed, "
-        "repro_torch.optim.compress; "
+        "repro_torch.optim.compress, repro_torch.serve.paged, repro_torch.launch.specs, "
+        "repro_torch.launch.dryrun, repro_torch.roofline, repro_torch.roofline.constants, "
+        "repro_torch.roofline.analysis; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
