@@ -217,6 +217,13 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    (``_pick_chunk(1000, 16)`` = 10): 64 K5 launches each, logits within
    ``LOGIT_TOL`` and the cache's ``h`` and ``conv`` within ``STATE_TOL``
    of the plain lane, with both lanes' seconds.
+9c. The same weights with ``ssm_scan_dtype="bfloat16"`` (the reference's
+   bf16 scan elements, chunks of 16 steps): the 2,048-token prefill on the
+   K5 lane, counts set to 0 just before, K5 exactly 64 launches, all in
+   its bf16-element mode; its logits' distance from 9b's f32 ones printed;
+   and a 128-token prefill on both lanes within ``LOGIT_TOL`` (cache within
+   ``STATE_TOL``). Phase 5 times that mode at (1, 2048, 8192, 16) in turns
+   with the f32 mode, beside its plain version and ``scan_bound``.
 
 10. The contract analyzer (``repro_torch.analysis``) on the card:
    ``analyze(full=True, backends=("torch", "cuda"))`` against
@@ -300,24 +307,36 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    1152, 128), bf16) and at (2, 20, 64, 1500, 64) non-causal, and
    ``k5_scan`` at (1, 128, 512, 16), phase 18's shard (4, 128, 4096, 16)
    and one device's (8, 128, 8192, 16): forward within phase 6's and 8's
-   tolerances, gradients within ``FN_GRAD_REL`` of plain autograd's; a
+   tolerances, gradients within ``FN_GRAD_REL`` of plain autograd's; K5's
+   bf16-element mode at those three shapes (chunks of 16, f32 inputs)
+   bit-equal to the plain version's (y and the final state), and its
+   ``k5_scan`` gradients within ``FN_GRAD_REL``; a
    bare ``backend="cuda"`` call under grad raises. 16b, the training slice's main path:
    ``repro_torch.launch.train.main(["--arch", "llama3.2-1b", "--steps",
    "8", "--batch", "8", "--seq", "128"])`` at FULL width and depth (f32
    master weights and AdamW moments, the forward in bf16), counts set to
-   0 just before and read just after: K4 exactly 16 a step, nothing else,
+   0 just before and read just after: K4 exactly 32 a step (16 layers,
+   each unit's forward run again by remat in the backward: llama3.2-1b
+   trains under ``remat_policy="dots"``), nothing else,
    no plain attention call; losses and grad norms finite, grad norms > 0,
    every parameter moved; step p50, tok/s, ``max_memory_allocated`` and
    one step under the profiler. 16c: one f32 step at FULL width on both
    lanes from the same weights, the loss and each leaf's gradient held
    beside a one-ulp control. 16d: the reference's injected-failure
-   restart at SMOKE size on the card, checkpoints under ``build/``.
+   restart at SMOKE size on the card, checkpoints under ``build/``. 16e:
+   one FULL step from the same state and batch under each remat policy
+   (``none``, ``minimal``, ``dots``): the bytes the forward keeps
+   (``remat.measure_keep``) ordered ``minimal`` < ``dots`` < ``none``,
+   K4 16 in the forward and 16 more in a remat step's backward, the
+   gradients bit-equal to ``none``'s (or within 16c's one-ulp control;
+   it says which held); prints each policy's step p50 and peak memory.
 17. Training on a mesh (after phase 16's weights are freed). 17a, the mesh
    slice's main path: ``repro_torch.launch.train.main([..., "--steps", "6",
    "--model-parallel", "2"], devices=[cuda:0] * 4)`` at llama3.2-1b's FULL
    width and depth on a 2x2 (data, model) mesh (TP + FSDP, ZeRO-1
    moments), counts set to 0 just before and read just after: K4 exactly
-   16 layers x 4 positions = 64 a step, nothing else, no plain attention
+   16 layers x 4 positions x 2 (remat's recompute) = 128 a step, nothing
+   else, no plain attention
    call; losses and grad norms finite, every parameter moved; step p50,
    tok/s, ``max_memory_allocated`` and one step under the profiler, beside
    phase 16b's. 17b: the state resharded onto a 1x2 mesh, every gathered
@@ -332,8 +351,9 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    heads, 64 of the 128 experts a position), each at FULL width on a 2x2
    mesh of ``[cuda:0] * 4`` through the ``Trainer`` and ``DataLoader``
    that ``launch.train`` builds (it has no depth flag), 4 steps of 8 x 128
-   tokens, counts set to 0 just before and read just after: K5 exactly 16
-   a step, K4 32, K4 8, nothing else, no plain attention or scan call;
+   tokens, counts set to 0 just before and read just after: K5 exactly 32
+   a step, K4 64, K4 16 (each twice a unit: remat's recompute), nothing
+   else, no plain attention or scan call;
    losses finite (qwen3-moe's ``moe_aux`` and ``moe_z`` too), every
    parameter moved; step p50, tok/s, ``max_memory_allocated`` and one step
    under the device-only profiler, beside phase 16b's. Then one f32 step
@@ -357,7 +377,8 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    heads for the non-causal encoder, the causal decoder and the non-causal
    cross-attention over 128 frames) and pixtral-12b (1 of 40 layers at
    1,152 tokens a row, its 1,024 patches and 128 text tokens: K4 on 16
-   heads), 4 steps of 8 rows: K4 exactly 8, 96 and 4 a step, nothing else,
+   heads), 4 steps of 8 rows: K4 exactly 16, 192 and 8 a step (remat's
+   recompute doubles each), nothing else,
    no plain call; every parameter moved; K4 timed at each shard's shape.
    Then one f32 step of each at 6, 2 + 2 and 1 layers against one device
    as phase 18's (the control moves the frames and patches too), every
@@ -383,11 +404,18 @@ Needs one CUDA card (an H100 is the target) and ``nvcc``. In order:
    16b's and 17a's training steps, ``roofline.analysis.model_flops``'
    6*N*D over the step p50 at ``PEAK_FLOPS_BF16``, beside the card's
    name, power limit and memory (a printed line, not a gate).
+21. The twins of ``examples/*`` (``examples_torch/``) on the card through
+   their ``main``, counts set to 0 just before each and read just after,
+   after phase 4e: ``quickstart`` (K1 bit-equal to the torch lane),
+   ``edge_service --batch 8 --size 2048`` (K1, or K2 at a tuned depth,
+   once a call), ``serve_lm`` (K4 once a layer a prefill), ``long_context
+   --tokens 512`` (a plain-PyTorch decode: no launch) and ``train_lm
+   --preset 100m --steps 20`` (K4 exactly 12 layers x 20 steps x 2).
 
 Phase 1 builds K4 and K5, then starts the edge kernels' build in a child
 process at a lower priority; phases 6-9b, 11-15, 16-19 and 20a-20c run
-while it compiles; then 1b waits for it, phases 2-4e run, then phase 5, then 10 and
-10b. The last line is
+while it compiles; then 1b waits for it, phases 2-4e and 21 run, then phase 5, then 10
+and 10b. The last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero and prints no result; so does a host without a
 CUDA device, and a directory that holds this file without ``src/``.
@@ -2764,7 +2792,12 @@ def phase_ssm_server(dev):
 def phase_ssm_long_prefill(dev, params):
     """Phase 9b: Model.prefill at FULL falcon-mamba-7b on one prompt of
     2,048 tokens and one of 1,000, K5 lane against the plain lane: logits,
-    and the cache's state and conv tail."""
+    and the cache's state and conv tail. Then 9c, the bf16 scan elements
+    (``ssm_scan_dtype="bfloat16"``): the 2,048-token prefill once more on
+    the K5 lane (K5's bf16 mode once a layer, counts set to 0 just before)
+    beside the f32 one, and a 128-token prefill on both lanes, held within
+    ``LOGIT_TOL`` (cache within ``STATE_TOL``). Returns the K5 launches of
+    9b and of 9c's K5 lane."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.ssm import _pick_chunk
@@ -2787,6 +2820,8 @@ def phase_ssm_long_prefill(dev, params):
             check(k5 == (cfg.num_layers if backend == "auto" else 0),
                   f"prefill of {n} tokens ({backend}) launched K5 {k5} times")
             launches += k5
+        if n == 2048:
+            f32_logits = lane["auto"]
         err = float((lane["auto"] - lane["torch"]).abs().max())
         check(bool(torch.isfinite(lane["auto"]).all()), f"non-finite logits at {n} tokens")
         check(err <= LOGIT_TOL, f"prefill of {n} tokens: logits differ by {err} > {LOGIT_TOL}")
@@ -2802,7 +2837,47 @@ def phase_ssm_long_prefill(dev, params):
               f"{LOGIT_TOL}); cache h within {state_err['h']:.3g}, conv within "
               f"{state_err['conv']:.3g} (tolerance {STATE_TOL} abs + rel); K5 launches "
               f"{cfg.num_layers}; K5 lane {secs['auto']:.2f} s, plain lane {secs['torch']:.2f} s")
-    return launches
+    return launches, ssm_bf16_prefill(dev, params, cfg, f32_logits)
+
+
+def ssm_bf16_prefill(dev, params, cfg, f32_logits) -> int:
+    """Phase 9c (see :func:`phase_ssm_long_prefill`). Returns the K5
+    launches of the 2,048-token K5-lane prefill."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import Model
+
+    cfg = cfg.replace(ssm_scan_dtype="bfloat16")
+    rng = np.random.default_rng(7)               # 9b's first prompt
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048)).astype(np.int32)).to(dev)
+    cache = Model(cfg).init_cache(1, 0, dtype=torch.float32, device=dev)
+    reset_counts()
+    bf16_before = selective_scan.bf16_launches
+    t0 = time.perf_counter()
+    logits, _ = Model(cfg).prefill(params, {"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k5, k5_bf16 = read_counts()["k5"], selective_scan.bf16_launches - bf16_before
+    check(k5 == k5_bf16 == cfg.num_layers,
+          f"the bf16-element prefill launched K5 {k5} times, {k5_bf16} in the bf16 mode")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits of the bf16-element prefill")
+    from_f32 = float((logits - f32_logits).abs().max())
+    short = tokens[:, :128]
+    lane, caches = {}, {}
+    for backend in ("auto", "torch"):
+        c = Model(cfg).init_cache(1, 0, dtype=torch.float32, device=dev)
+        lane[backend], caches[backend] = Model(cfg, backend=backend).prefill(
+            params, {"tokens": short}, c)
+    err = float((lane["auto"] - lane["torch"]).abs().max())
+    equal = torch.equal(lane["auto"], lane["torch"])
+    check(err <= LOGIT_TOL, f"bf16-element prefill of 128 tokens: lanes differ by {err}")
+    for name in ("h", "conv"):
+        check(within(caches["auto"]["layers"][name], caches["torch"]["layers"][name], STATE_TOL),
+              f"bf16-element prefill of 128 tokens: cache {name} differs between the lanes")
+    print(f"phase 9c: {cfg.name} FULL prefill of 2048 tokens on bf16 scan elements (chunk "
+          f"{cfg.ssm_chunk}): K5 {k5} launches, all in the bf16 mode, {secs:.2f} s; logits "
+          f"{from_f32:.3g} from the f32-element prefill's; 128 tokens on both lanes: logits "
+          f"{'bit-equal' if equal else f'within {err:.3g}'} (tolerance {LOGIT_TOL})")
+    return k5
 
 
 def launch_device_us(fn, kernel: str, launches: int = 50) -> float:
@@ -2849,12 +2924,46 @@ def scan_bound(shape, elt: int):
             t_ops * 1e3, t_sfu * 1e3)
 
 
-def phase_k5_timing(dev, ssm, long_launches, main_err, training):
+def k5_bf16_timing(dev, f32_row: dict) -> dict:
+    """K5's bf16-element mode at (1, 2048, 8192, 16), chunks of 16 steps:
+    CUDA-event medians in turns with the f32 mode (f32, bf16, bf16, f32),
+    device us a launch under the profiler, the plain version's bf16 mode
+    (3 runs: its 2,048-step Python loop), and ``scan_bound`` (the same
+    work: the elements never leave registers)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    shape = K5_BF16_TIMING_SHAPE
+    l, di = shape[1], shape[2]
+    args = scan_inputs(shape, torch.float32, dev, seed=l)
+    kw = dict(chunk=K5_BF16_CHUNK, block_d=di, scan_dtype="bfloat16")
+    bf = lambda: selective_scan(*args, **kw)                  # noqa: E731
+    f32 = lambda: selective_scan(*args, chunk=l, block_d=di)  # noqa: E731
+    f1, b1, b2, f2 = median_ms(f32), median_ms(bf), median_ms(bf), median_ms(f32)
+    y, h = bf()
+    wy, wh = selective_scan_plain(*args, scan_dtype="bfloat16", chunk=K5_BF16_CHUNK)
+    equal = torch.equal(y, wy) and torch.equal(h, wh)
+    check(equal, f"K5's bf16 elements at {shape} differ from the plain version's")
+    plain_ms = median_ms(lambda: selective_scan_plain(*args, scan_dtype="bfloat16",
+                                                      chunk=K5_BF16_CHUNK), reps=3, warm=1)
+    b_ms, b_by = f32_row["bound_ms"], f32_row["bound_by"]
+    row = dict(ms=statistics.median([b1, b2]), ms_runs=[b1, b2], f32_ms_runs=[f1, f2],
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bit_equal=equal,
+               chunk=K5_BF16_CHUNK, device_us=launch_device_us(bf, "selective_scan"),
+               max_abs_err=float((y.float() - wy.float()).abs().max()))
+    print(f"K5 at {shape} on bf16 elements (chunk {K5_BF16_CHUNK}): {b1:.4f} / {b2:.4f} ms in "
+          f"turns with the f32 mode's {f1:.4f} / {f2:.4f} ms; {row['device_us']:.2f} us a launch "
+          f"of device time; plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms by {b_by}; y and the "
+          f"final state bit-equal to the plain version's")
+    return row
+
+
+def phase_k5_timing(dev, ssm, long_launches, main_err, training, bf16_launches):
     """Phase 5 (K5): CUDA-event medians of K5 and its plain version, f32, at
     (1, 2048, 8192, 16), the ssm server's prefill shapes and phase 18's
-    training shard (4, 128, 4096, 16). No PyTorch call computes a
-    selective scan: no library yardstick. ``training`` holds phase 18's
-    falcon-mamba-7b mesh training numbers by path."""
+    training shard (4, 128, 4096, 16), and the bf16-element mode
+    (:func:`k5_bf16_timing`; ``bf16_launches``: phase 9c's). No PyTorch call
+    computes a selective scan: no library yardstick. ``training`` holds
+    phase 18's falcon-mamba-7b mesh training numbers by path."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     rows = {}
@@ -2877,7 +2986,10 @@ def phase_k5_timing(dev, ssm, long_launches, main_err, training):
               f"{row['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
               f"f32 ops {t_ops:.4f} ms, SFU exp {t_sfu:.4f} ms); no library call")
     main = rows["1x2048x8192x16"]
+    bf16 = k5_bf16_timing(dev, main)
+    bf16["launches"] = bf16_launches
     by_path = {"falcon-mamba-7b engine": ssm["k5"],
+               "falcon-mamba-7b bf16-element prefill": bf16_launches,
                **{name: st["launches"] for name, st in training.items()}}
     return {
         "name": "K5 selective_scan (Mamba-1 forward scan)",
@@ -2894,6 +3006,7 @@ def phase_k5_timing(dev, ssm, long_launches, main_err, training):
         "library_ms": None,
         "shapes": rows,
         "launches_long_prefill": long_launches,
+        "bf16_elements": bf16,
         "server": {k: ssm[k] for k in ("tok_s", "prefill_p50_ms", "decode_p50_ms", "tokens",
                                        "prefills", "decode_steps", "param_count", "logit_err",
                                        "near_ties", "k5_profile_us")},
@@ -3703,6 +3816,8 @@ K4_GRAD_CASES = (((8, 32, 128, 128, 64), True, torch.float32, 0),
 # (4 of the 8 rows, 4,096 of the 8,192 channels a position) and at one
 # device's (8, 128, 8192, 16), f32 as the model scans.
 K5_GRAD_SHAPES = ((1, 128, 512, 16), (4, 128, 4096, 16), (8, 128, 8192, 16))
+K5_BF16_CHUNK = 16       # falcon-mamba-7b's ssm_chunk: where the bf16 mode takes its f32 carry
+K5_BF16_TIMING_SHAPE = (1, 2048, 8192, 16)      # phase 5: K5's bf16 mode beside its f32 mode
 # The Functions' gradients against plain autograd on the same inputs: their
 # backward recomputes the plain version, so they differ only in the order
 # cuBLAS takes the recompute's products (bit-equal when it takes the same):
@@ -3790,6 +3905,7 @@ def phase_train_functions(dev) -> dict:
         print(f"phase 16a K5Scan {shape}: forward within {fwd:.3g}, x/dt/B/C/A gradients within "
               f"{err:.3g} of their largest")
         del args, got, want, wy, wh, y, hl
+    out["k5_bf16"] = k5_bf16_elements(dev)
     args = [x.requires_grad_() for x in scan_inputs(K5_GRAD_SHAPES[0], torch.float32, dev,
                                                     seed=5)]
     l, di = K5_GRAD_SHAPES[0][1:3]
@@ -3805,6 +3921,55 @@ def phase_train_functions(dev) -> dict:
     check(refused == ["flash_attention", "selective_scan"],
           f"a bare backend='cuda' call under grad did not raise: {refused}")
     print("phase 16a: flash_attention and selective_scan on the kernel raise under autograd")
+    return out
+
+
+def k5_bf16_elements(dev) -> dict:
+    """Phase 16a, K5's bf16-element mode (``scan_dtype="bfloat16"``, the
+    model's ``ssm_scan_dtype``, chunks of falcon-mamba's 16 steps) at
+    ``K5_GRAD_SHAPES`` on f32 inputs, as the model scans: y and the final
+    state bit-equal (``torch.equal``) to ``selective_scan_plain``'s bf16
+    mode, one launch each counted in ``selective_scan.bf16_launches``; and
+    ``k5_scan``'s gradients in that mode against plain autograd through the
+    bf16 plain scan at the first shape (within ``FN_GRAD_REL``). Launches
+    made here are comparisons: they count toward no path."""
+    from repro_torch.kernels.selective_scan import k5_scan, selective_scan, selective_scan_plain
+
+    out = {}
+    for shape in K5_GRAD_SHAPES:
+        args = scan_inputs(shape, torch.float32, dev, seed=7)
+        l, di = shape[1], shape[2]
+        before = selective_scan.bf16_launches
+        y, h = selective_scan(*args, chunk=K5_BF16_CHUNK, block_d=di, scan_dtype="bfloat16")
+        wy, wh = selective_scan_plain(*args, scan_dtype="bfloat16", chunk=K5_BF16_CHUNK)
+        torch.cuda.synchronize()
+        check(selective_scan.bf16_launches == before + 1, "K5's bf16 mode did not launch once")
+        equal = torch.equal(y, wy) and torch.equal(h, wh)
+        err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
+        f32y, _ = selective_scan(*args, chunk=l, block_d=di)
+        check(equal, f"K5's bf16 elements at {shape} differ from the plain version's by {err}")
+        rounds = float((y - f32y).abs().max())
+        out["x".join(map(str, shape))] = dict(bit_equal=equal, max_abs_err=err,
+                                              from_f32_mode=rounds)
+        print(f"phase 16a K5 bf16 elements {shape} chunk {K5_BF16_CHUNK}: y and final state "
+              f"bit-equal to the plain version's bf16 mode; y {rounds:.3g} from the f32 mode's")
+        del args, y, h, wy, wh, f32y
+    shape = K5_GRAD_SHAPES[0]
+    args = [x.requires_grad_() for x in scan_inputs(shape, torch.float32, dev, seed=8)]
+    g = torch.Generator(device=dev).manual_seed(9)
+    gy = torch.randn(shape[:3], device=dev, generator=g)
+    gh = torch.randn((shape[0], shape[2], shape[3]), device=dev, generator=g)
+    y, h = k5_scan(*args, chunk=K5_BF16_CHUNK, block_d=shape[2], scan_dtype="bfloat16")
+    got = torch.autograd.grad((y, h), args, (gy, gh))
+    wy, wh = selective_scan_plain(*args, scan_dtype="bfloat16", chunk=K5_BF16_CHUNK)
+    want = torch.autograd.grad((wy, wh), args, (gy, gh))
+    err = max(float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+              for a, w in zip(got, want))
+    check(err <= FN_GRAD_REL, f"K5Scan's bf16-element gradients differ from plain autograd's by "
+                              f"{err:.3g}")
+    out["grad_rel_err"] = err
+    print(f"phase 16a K5Scan bf16 elements {shape}: x/dt/B/C/A gradients within {err:.3g} of "
+          f"their largest")
     return out
 
 
@@ -3831,7 +3996,8 @@ def phase_train(dev) -> dict:
     parameters; f32 master weights and AdamW moments, the forward in bf16
     through ``cast_params``), the reference launcher's batch 8 x 128 tokens,
     ``TRAIN_STEPS`` steps, counts set to 0 just before and read just after:
-    K4 exactly 16 layers x 1 microbatch a step and nothing else, no
+    K4 exactly 16 layers x 1 microbatch x ``forward_runs`` (2: remat's
+    recompute) a step and nothing else, no
     ``dot_attention`` (the plain lane) call; every loss and grad norm
     finite, the grad norm > 0, lr 0 at step 0 (``warmup_cosine``), every
     parameter moved from its initial value. Prints the step p50 (host clock,
@@ -3866,7 +4032,7 @@ def phase_train(dev) -> dict:
     hist, trainer = out["history"], out["trainer"]
     cfg = trainer.cfg
     check(out["param_count"] == TRAIN_PARAMS, f"{cfg.name} has {out['param_count']:,} params")
-    want = cfg.num_layers * trainer.tc.microbatches * TRAIN_STEPS
+    want = cfg.num_layers * trainer.tc.microbatches * TRAIN_STEPS * forward_runs(cfg)
     check(counts["k4"] == want, f"training launched K4 {counts['k4']} times, not {want}")
     check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"training launched {counts}")
     check(not plain_calls, f"training called the plain attention {len(plain_calls)} times")
@@ -3894,7 +4060,7 @@ def phase_train(dev) -> dict:
                                              kernel="flash_kernel")
     k4_row = k4_training_shape(dev, (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, TRAIN_SEQ,
                                      cfg.head_dim))
-    k4_row["device_us"] = k4_us / (cfg.num_layers * trainer.tc.microbatches)
+    k4_row["device_us"] = k4_us / (cfg.num_layers * trainer.tc.microbatches * forward_runs(cfg))
     stats = dict(k4=counts["k4"], steps=TRAIN_STEPS, loss=hist["loss"],
                  grad_norm=hist["grad_norm"], lr=hist["lr"], step_ms=step_ms, step_p50_ms=p50,
                  tok_s=tokens / (p50 / 1e3), peak_gb=peak_gb, seconds=seconds,
@@ -4023,10 +4189,11 @@ def phase_train_lanes(dev) -> dict:
              for k, v in lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
     reset_counts()
     k4_grads, k4_loss = lane_grads(cfg, params, batch, "auto")
-    check(read_counts()["k4"] == cfg.num_layers,
-          "the K4 lane's step did not launch K4 once a layer")
+    runs = forward_runs(cfg)
+    check(read_counts()["k4"] == cfg.num_layers * runs,
+          f"the K4 lane's step did not launch K4 {runs} times a layer")
     plain_grads, plain_loss = lane_grads(cfg, params, batch, "torch")
-    check(read_counts()["k4"] == cfg.num_layers, "the plain lane's step launched K4")
+    check(read_counts()["k4"] == cfg.num_layers * runs, "the plain lane's step launched K4")
 
     def rel(a, b):
         return [max_rel(x, y) for x, y in zip(a, b)]
@@ -4114,17 +4281,108 @@ def phase_train_restart(dev) -> dict:
     return dict(restarts=hist["restarts"], k4=k4, loss=hist["loss"])
 
 
+REMAT_POLICIES = ("none", "minimal", "dots")
+REMAT_STEPS = 4          # timed steps a policy, after one that warms up
+
+
+def phase_remat(dev, control: float) -> dict:
+    """Phase 16e: FULL llama3.2-1b (bf16 forward over f32 master weights,
+    the launcher's 8 x 128 batch, seed-0 weights drawn on the card) under
+    each remat policy from the same state and batch: ``remat=False``
+    (``none``), ``minimal`` and ``dots`` (llama3.2-1b's own). For each: one
+    forward under ``remat.measure_keep`` (the bytes its operations made
+    that are alive when it returns: what the step keeps for the backward,
+    the bf16 weights among them) beside ``memory_allocated``'s growth over
+    it; the backward, K4 counted on either side (the forward once a layer;
+    the backward once a layer more under remat, its recompute); then
+    ``REMAT_STEPS`` timed ``step_fn`` calls (host clock, each ended by
+    reading its loss) and the peak of ``max_memory_allocated`` over them.
+    Held: the kept bytes ordered ``minimal`` < ``dots`` < ``none``; each
+    policy's gradients equal ``none``'s bit for bit, or each leaf within
+    ``control``, phase 16c's one-ulp control (printed: which held). The
+    peak is printed, not held to an order: the functional AdamW update, not
+    the activations, may set it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import remat
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, unflatten
+
+    free_weights()
+    base = get_config(TRAIN_ARCH)
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in lm_batch(base, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+    state = Trainer(base, tc, device=dev).init_state()
+    rows, want = {}, None
+    for pol in REMAT_POLICIES:
+        cfg = base.replace(remat=False) if pol == "none" else base.replace(remat_policy=pol)
+        tr = Trainer(cfg, tc, device=dev)
+        flat = [p.detach().requires_grad_(True) for p in leaves(state.params)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        (loss, _), kept = remat.measure_keep(tr.model.loss_fn, unflatten(state.params, flat),
+                                             batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        k4_fwd = read_counts()["k4"]
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        torch.cuda.synchronize()
+        k4_bwd = read_counts()["k4"] - k4_fwd
+        check(k4_fwd == cfg.num_layers and k4_bwd == cfg.num_layers * (forward_runs(cfg) - 1),
+              f"{pol}: K4 {k4_fwd} in the forward and {k4_bwd} in the backward")
+        grads = [g.cpu() for g in grads]
+        del loss, flat
+        if want is None:
+            want, equal, worst = grads, True, 0.0
+        else:
+            equal = all(torch.equal(g, w) for g, w in zip(grads, want))
+            worst = max(max_rel(g, w) for g, w in zip(grads, want))
+            check(equal or worst <= control,
+                  f"{pol}: gradients differ from remat=False's by {worst:.3g} of a leaf's "
+                  f"largest, past phase 16c's one-ulp control {control:.3g}")
+        del grads
+        free_weights()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(REMAT_STEPS + 1):
+            t0 = time.perf_counter()
+            new_state, metrics = tr.step_fn(state, batch)
+            float(metrics["loss"])
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            del new_state, metrics
+        peak = torch.cuda.max_memory_allocated()
+        rows[pol] = dict(kept_bytes=kept, held_bytes=held, peak_bytes=peak,
+                         step_ms=step_ms[1:], step_p50_ms=statistics.median(step_ms[1:]),
+                         k4_forward=k4_fwd, k4_backward=k4_bwd, grads_bit_equal=equal,
+                         grad_rel_err=worst)
+        print(f"phase 16e {cfg.name} FULL remat {pol}: kept {kept:,} B for the backward "
+              f"(memory_allocated grew {held:,} B over the forward); step p50 "
+              f"{rows[pol]['step_p50_ms']:.2f} ms ({', '.join(f'{m:.1f}' for m in step_ms[1:])}); "
+              f"peak {peak / 1e9:.2f} GB; K4 {k4_fwd} forward + {k4_bwd} backward; gradients "
+              + ("(the reference)" if pol == "none" else "bit-equal to remat=False's" if equal
+                 else f"within {worst:.3g} of remat=False's (control {control:.3g})"))
+    kept = [rows[p]["kept_bytes"] for p in ("minimal", "dots", "none")]
+    check(kept[0] < kept[1] < kept[2], f"kept bytes not ordered minimal < dots < none: {kept}")
+    del state, batch, want
+    free_weights()
+    return dict(rows, control=control)
+
+
 def phase_training(dev) -> dict:
-    """Phase 16: 16a-16d. Returns the main path's numbers (16b) with the
+    """Phase 16: 16a-16e. Returns the main path's numbers (16b) with the
     others' beside them."""
     t0 = time.perf_counter()
     functions = timed("16a K4/K5 Functions", phase_train_functions, dev)
     train = timed("16b training", phase_train, dev)
     lanes = timed("16c f32 step on both lanes", phase_train_lanes, dev)
     restart = timed("16d restart from a checkpoint", phase_train_restart, dev)
+    policies = timed("16e remat policies", phase_remat, dev, lanes["control_grad_err"])
     seconds = time.perf_counter() - t0
     print(f"[phase 16: {seconds:.1f}s]")
-    return dict(train, functions=functions, lanes=lanes, restart=restart, phase_seconds=seconds)
+    return dict(train, functions=functions, lanes=lanes, restart=restart, remat=policies,
+                phase_seconds=seconds)
 
 
 # --- Training on a mesh (phase 17) ------------------------------------------
@@ -4180,7 +4438,7 @@ def phase_mesh_train(dev, single: dict) -> dict:
     check(mesh.shape == {"data": 2, "model": 2} and trainer.mesh is mesh,
           f"the launcher built mesh {mesh.shape} (trainer mesh {trainer.mesh})")
     check(out["param_count"] == TRAIN_PARAMS, f"{cfg.name} has {out['param_count']:,} params")
-    per_step = cfg.num_layers * mesh.size * trainer.tc.microbatches
+    per_step = cfg.num_layers * mesh.size * trainer.tc.microbatches * forward_runs(cfg)
     check(counts["k4"] == per_step * MESH_STEPS,
           f"mesh training launched K4 {counts['k4']} times, not {per_step * MESH_STEPS}")
     check(all(counts[k] == 0 for k in COUNTS if k != "k4"), f"mesh training launched {counts}")
@@ -4541,7 +4799,8 @@ def phase_mesh_f32_step(dev) -> dict:
     reset_counts()
     got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
     k4 = read_counts()["k4"]
-    check(k4 == cfg.num_layers * mesh.size, f"the mesh's f32 step launched K4 {k4} times")
+    check(k4 == cfg.num_layers * mesh.size * forward_runs(cfg),
+          f"the mesh's f32 step launched K4 {k4} times")
     del placed
     paths = ["/".join(p) for p, _ in leaves_with_path(params)]
     errs = [max_rel(gather(g), w) for g, w in zip(leaves(got), leaves(want))]
@@ -4589,7 +4848,7 @@ def phase_mesh_pod(dev) -> dict:
     """Phase 17d: SMOKE on a (pod, data, model) = (2, 2, 2) mesh of 8 x the
     card through the launcher: the batch split over (pod, data), the
     weights replicated over pod (their gradients all-reduced over it), K4
-    2 layers x 8 positions a step."""
+    2 layers x 8 positions x 2 (remat's recompute) a step."""
     from repro_torch.launch import train as launch_train
 
     reset_counts()
@@ -4598,7 +4857,8 @@ def phase_mesh_pod(dev) -> dict:
     k4 = read_counts()["k4"]
     hist, mesh, cfg = out["history"], out["mesh"], out["trainer"].cfg
     check(mesh.shape == {"pod": 2, "data": 2, "model": 2}, f"pod mesh {mesh.shape}")
-    check(k4 == cfg.num_layers * mesh.size * len(hist["step"]), f"pod run K4 {k4}")
+    check(k4 == cfg.num_layers * mesh.size * len(hist["step"]) * forward_runs(cfg),
+          f"pod run K4 {k4}")
     check(bool(np.isfinite(hist["loss"]).all()) and hist["loss"][-1] < hist["loss"][0] + 0.5,
           f"pod run losses {hist['loss']}")
     print(f"phase 17d: {cfg.name} on a {mesh.shape} mesh of 8 x {dev}: {len(hist['step'])} "
@@ -4703,6 +4963,15 @@ def launches_a_position(cfg) -> int:
                for b in block_plan(cfg))
 
 
+def forward_runs(cfg) -> int:
+    """How often a training step runs each remat unit's forward (its K4 and
+    K5 launches among it): twice where ``cfg`` rematerialises (the
+    backward's recompute, ``models/remat.py``), else once."""
+    from repro_torch.models import remat
+
+    return remat.forward_runs(cfg)
+
+
 def mesh_kernel(cfg) -> str:
     """The kernel a family's shards launch on the mesh: K5 for the ssm
     family's Mamba-1 scan, K4 for every other's attention."""
@@ -4752,7 +5021,7 @@ def phase_family_mesh_train(dev, arch: str, layers: int, seq: int, phase: str) -
     the ``Trainer`` and ``DataLoader`` that ``launch.train`` builds, ``fit``
     for ``FAMILY_STEPS`` steps, counts set to 0 just before and read just
     after: its kernel (``mesh_kernel``) exactly ``launches_a_position`` x 4
-    positions a step and no other kernel, no plain attention
+    positions x ``forward_runs`` a step and no other kernel, no plain attention
     (``dot_attention``) or plain scan (``ssm.selective_scan``) call; losses
     and grad norms finite, every parameter moved, every shard on its position's device; one more step under the
     profiler (its metrics: a moe model's ``moe_aux`` and ``moe_z``, finite).
@@ -4802,7 +5071,8 @@ def phase_family_mesh_train(dev, arch: str, layers: int, seq: int, phase: str) -
     n_params = trainer.model.param_count()
     check(n_params == FAMILY_MESH_PARAMS[arch], f"{cfg.name} at {layers} layers has "
                                                 f"{n_params:,} params")
-    per_step = launches_a_position(cfg) * mesh.size * trainer.tc.microbatches
+    per_step = (launches_a_position(cfg) * mesh.size * trainer.tc.microbatches
+                * forward_runs(cfg))
     check(counts[kernel] == per_step * FAMILY_STEPS,
           f"{cfg.name} mesh training launched {kernel.upper()} {counts[kernel]} times, not "
           f"{per_step * FAMILY_STEPS}")
@@ -4929,7 +5199,7 @@ def mesh_step_against_one(cfg, params, batch, single, trainer) -> dict:
     one-ulp control (``random_ulp_params``, and the frontends' inputs moved
     so: ``ulp_frontends``), held by phase 18's rule (``FAMILY_F64_TOL``'s
     comment): the losses within ``MESH_LOSS_RTOL``, its kernel launched
-    ``launches_a_position`` x 4 times, each leaf's gradient within
+    ``launches_a_position`` x 4 x ``forward_runs`` times, each leaf's gradient within
     ``MESH_GRAD_TOL`` of its largest value or ``MESH_ESCAPE`` x the
     control's. Returns each leaf's error and control by path, the losses'
     errors and the mesh's losses."""
@@ -4942,7 +5212,7 @@ def mesh_step_against_one(cfg, params, batch, single, trainer) -> dict:
     reset_counts()
     got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
     launched = read_counts()[kernel]
-    check(launched == launches_a_position(cfg) * trainer.mesh.size,
+    check(launched == launches_a_position(cfg) * trainer.mesh.size * forward_runs(cfg),
           f"{cfg.name}: the mesh's f32 step launched {kernel.upper()} {launched} times")
     del placed
     paths = ["/".join(p) for p, _ in leaves_with_path(params)]
@@ -5314,6 +5584,86 @@ def phase_mfu(single: dict, mesh: dict) -> dict:
     return dict(model_flops=flops, mfu=mfu, total_memory=total)
 
 
+# --- The twins of examples/* (phase 21) ------------------------------------------
+
+TWIN_CKPT = ROOT / "build" / "chip_smoke" / "train_lm_ckpt"
+TWINS = (("quickstart", []),
+         ("edge_service", ["--batch", "8", "--size", "2048"]),
+         ("serve_lm", []),
+         ("long_context", ["--tokens", "512"]),
+         ("train_lm", ["--preset", "100m", "--steps", "20", "--ckpt", str(TWIN_CKPT)]))
+
+
+def load_twin(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"twin_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_twins(dev) -> dict:
+    """Phase 21: each of ``examples_torch/*.py`` on the card through its
+    ``main`` (default ``--device cuda``), counts set to 0 just before and
+    read just after, its output printed. Held: quickstart launches K1 and
+    finds it bit-equal to the torch lane; edge_service (8 x 2048 x 2048)
+    launches K1 (K2 where phase 3d's tuned depth is 2) once a call a shard
+    (its 1x1 mesh: once a call, 4 calls);
+    serve_lm launches K4 (once a layer a prefill) and completes its 10
+    requests; long_context's decode (plain PyTorch, as the reference's is
+    XLA) launches nothing, on the card; train_lm's 100m preset (12 layers,
+    remat ``minimal``) launches K4 exactly 12 x 20 steps x 2 (the backward's
+    recompute), its losses finite."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.models import remat
+
+    out = {}
+    for name, argv in TWINS:
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = load_twin(name).main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts().items() if v}
+        text = buf.getvalue()
+        print("\n".join(f"phase 21 {name}| {ln}" for ln in text.splitlines()))
+        edge = counts.get("k1", 0) + counts.get("k2", 0)   # K2 where the tuned depth says
+        if name == "quickstart":
+            check(edge >= 1 and "(bit-equal)" in text,
+                  f"quickstart on the card: {counts}, K1 not bit-equal to the torch lane")
+        elif name == "edge_service":
+            check(edge == 4 and result.device.type == "cuda",
+                  f"edge_service launched {counts}, not K1 (or K2) once each of its 4 calls")
+        elif name == "serve_lm":
+            check(counts.get("k4", 0) >= 2 and len(result) == 10,
+                  f"serve_lm launched {counts} and completed {len(result)} requests")
+            check(counts["k4"] % 2 == 0, f"serve_lm's K4 launches {counts} are not 2 a prefill")
+        elif name == "long_context":
+            check(not counts and result["logits"].device.type == "cuda"
+                  and bool(torch.isfinite(result["logits"]).all()),
+                  f"long_context on the card launched {counts}")
+        else:
+            hist, trainer = result
+            want = trainer.cfg.num_layers * trainer.tc.steps * remat.forward_runs(trainer.cfg)
+            check(counts == {"k4": want} and remat.policy(trainer.cfg) == "minimal",
+                  f"train_lm's 100m preset launched {counts}, not K4 {want}")
+            check(all(np.isfinite(hist["loss"])), f"train_lm losses {hist['loss']}")
+            shutil.rmtree(TWIN_CKPT, ignore_errors=True)
+        out[name] = dict(launches=counts, seconds=seconds)
+        print(f"phase 21 {name}: {counts or 'no kernel launches'} in {seconds:.1f} s")
+        del result
+        free_weights()
+    return out
+
+
 def phase_analyzer():
     """Phase 10: the contract analyzer's whole sweep, CPU and card halves,
     against the committed baseline. Returns its summary."""
@@ -5416,8 +5766,8 @@ def main() -> None:
     t_ssm = time.perf_counter()
     k5_err = timed("8 K5 vs plain", phase_k5_vs_plain, dev)
     ssm = timed("9 ssm server", phase_ssm_server, dev)
-    ssm_long_launches = timed("9b ssm long prefill", phase_ssm_long_prefill, dev,
-                              ssm.pop("params"))
+    ssm_long_launches, ssm_bf16_launches = timed("9b ssm long prefill", phase_ssm_long_prefill,
+                                                 dev, ssm.pop("params"))
     free_weights()
     print(f"[phases 8-9b: {time.perf_counter() - t_ssm:.1f}s]")
     t_moe = time.perf_counter()
@@ -5471,6 +5821,7 @@ def main() -> None:
     mask = timed("4c stream step", phase_step_parts, runs["motion"], dev)
     timed("4d linking", phase_linking, runs["motion"], dev)
     chaos_runs = timed("4e chaos server", phase_chaos_server, dev)
+    twins = timed("21 examples_torch twins", phase_twins, dev)
     k4_mesh = {arch: st for arch, st in family_mesh.items() if st["kernel"] == "k4"}
     paths = {"launches": {f"{MOE_ARCH} engine": moe["k4"], f"{MOE_ARCH} long prefills": moe_long,
                           f"{PHI_ARCH} long prefills": phi_long, f"{MLA_ARCH} server": mla["k4"],
@@ -5479,6 +5830,9 @@ def main() -> None:
                           f"{HYBRID_ARCH} long prefills": hybrid["long_launches"],
                           f"{ENCDEC_ARCH} prefills": encdec["k4"],
                           f"{VLM_ARCH} prefills": vlm["k4"],
+                          "examples_torch/serve_lm.py": twins["serve_lm"]["launches"]["k4"],
+                          "examples_torch/train_lm.py --preset 100m":
+                              twins["train_lm"]["launches"]["k4"],
                           f"{TRAIN_ARCH} training": training["k4"],
                           f"{TRAIN_ARCH} mesh training": mesh_training["k4"],
                           **{f"{arch} mesh training": st["launches"]
@@ -5496,10 +5850,13 @@ def main() -> None:
                       launches_chaos_server={k: v["launches"] for k, v in chaos_runs.items()},
                       chaos_server=chaos_runs)
     kernels[1].update(launches_sharded_facade=shard_counts["k2"])
+    for i, key in ((0, "k1"), (1, "k2")):
+        kernels[i]["launches_examples_torch"] = {n: st["launches"].get(key, 0)
+                                                 for n, st in twins.items()}
     kernels.append(timed("5 K4 timing", phase_k4_timing, dev, lm, long_launches, k4_err, paths))
     kernels.append(timed("5 K5 timing", phase_k5_timing, dev, ssm, ssm_long_launches, k5_err,
                          {f"{arch} mesh training": st for arch, st in family_mesh.items()
-                          if st["kernel"] == "k5"}))
+                          if st["kernel"] == "k5"}, ssm_bf16_launches))
     timed("10 contract analyzer", phase_analyzer)
     timed("10b Fig. 7", phase_fig7, dev)
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f}s after the card check")

@@ -5,11 +5,12 @@ hybrid's shared attention, the encoder-decoder's and the modality frontend
 stubs'.
 
 ``--arch <id>`` resolves through :func:`get_config`; every config has a full
-form and a ``smoke`` reduction for CPU tests. The reference's ``remat``
-and ``scan_layers`` have no counterpart: the port's trainer runs eagerly
-and keeps every activation for the backward (``train/loop.py``;
-``remat_policy`` is kept, unread). ``SHAPES`` is the reference's LM shape
-set, the cells of the dry run (``launch/dryrun.py``).
+form and a ``smoke`` reduction for CPU tests. ``remat`` and
+``remat_policy`` are the reference's and take effect in every training
+forward (``models/remat.py``); the reference's ``scan_layers`` has no
+counterpart, since the port's layer stack is an eager loop. ``SHAPES`` is
+the reference's LM shape set, the cells of the dry run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ class ModelConfig:
     ssm_head_dim: int = 64           # mamba2
     ssm_dt_rank: int = 0             # mamba1 (0 -> ceil(d_model/16))
     ssm_chunk: int = 128             # scan/SSD chunk length (a shape gate of kernel K5)
-    ssm_scan_dtype: str = "float32"  # the reference's assoc-scan element dtype; the port scans in f32
+    ssm_scan_dtype: str = "float32"  # scan element dtype: float32 | bfloat16 (f32 carry)
 
     # --- hybrid (zamba-style shared attention) ---
     attn_every: int = 0              # 0 = no shared block
@@ -113,7 +114,8 @@ class ModelConfig:
     # --- runtime ---
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
-    remat_policy: str = "minimal"    # training only; the configs set it
+    remat: bool = True
+    remat_policy: str = "minimal"    # minimal (save the units' inputs) | dots | none
     sub_quadratic: bool = False      # True for SSM/hybrid: long_500k runnable
 
     def __post_init__(self):

@@ -13,7 +13,7 @@ FULL = ModelConfig(
     head_dim=64, d_ff=5120, vocab_size=51866, is_encoder_decoder=True,
     use_rope=False, norm_type="layernorm", mlp_type="gelu",
     frontend="audio_stub", encoder_len=1500,
-    remat_policy="dots",  # the reference's remat; the port trains (one device or a mesh) without
+    remat_policy="dots",  # the reference's remat, on one device and on a mesh
 )
 
 SMOKE = FULL.replace(

@@ -26,7 +26,9 @@ def make_sharded_edge_fn(
     **config_overrides,
 ):
     """Edge detector with the batch spread over ``batch_axes`` and image rows
-    over ``row_axis`` of an image mesh (``runtime.elastic.ImageMesh``).
+    over ``row_axis`` of an image mesh (``runtime.elastic.ImageMesh``) or of
+    an LM mesh (``runtime.elastic.make_mesh``: pass ``row_axis="model"``,
+    the reference's default, to band the rows over its ``model`` axis).
 
     The port of ``repro.core.pipeline.make_sharded_edge_fn``. The reference
     lets GSPMD insert the row halo over a JAX mesh; here the call runs the

@@ -49,6 +49,17 @@
 // not __expf; --fmad=false keeps h * da + bx two roundings, as the plain
 // version rounds them.
 //
+// bf16 elements (BF16E, the model's ssm_scan_dtype="bfloat16"): the
+// reference's chunked scan on bf16 elements with an f32 carry, taken step
+// by step. At every t with t % q == 0 (q: the scan's chunk) a thread keeps
+// hc = h and restarts the chunk's composed decay A and input Bc; then
+//   da = bf16(exp(dt * A_dn)), bx = bf16((dt * x) * B),
+//   A = bf16(A * da), Bc = bf16(da * Bc + bx) (the product rounded to f32
+//   first), h = A * hc + Bc in f32, y = sum_n C * h,
+// the chunk's first step taking A = da and Bc = bx. The elements live in
+// registers only, so this changes the rounding, not the traffic. It is an
+// instance of its own (a template flag): the f32 instance is unchanged.
+//
 // Build: nvcc -gencode arch=compute_90a,code=[sm_90a,compute_90a] -O3 --fmad=false
 
 #include <cuda_bf16.h>
@@ -66,6 +77,10 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// x rounded to bf16 (to nearest even), held in f32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // States a thread holds for a padded state size NP: K5_GROUP, or enough
 // that a channel's threads fit one warp.
@@ -142,12 +157,13 @@ __device__ __forceinline__ void copy_chunk(const T* __restrict__ xb, const T* __
 }
 
 // One CTA per (channel range of CH = THREADS / TPC channels, batch row).
-template <int NP, typename T, bool ASYNC>
+// BF16E: bf16 scan elements in chunks of q steps (see the header).
+template <int NP, typename T, bool ASYNC, bool BF16E>
 __global__ void __launch_bounds__(THREADS)
 selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                       const T* __restrict__ bm, const T* __restrict__ cm,
                       const float* __restrict__ a, T* __restrict__ y,
-                      float* __restrict__ h_last, int len, int di, int n) {
+                      float* __restrict__ h_last, int len, int di, int n, int q) {
   constexpr int G = group_of(NP);                   // states a thread holds
   constexpr int TPC = NP / G;                       // threads a channel
   constexpr int CH = THREADS / TPC;                 // channels a CTA
@@ -172,6 +188,8 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   T* yb = y + row * len * di;
 
   float h[G], av[G];
+  float hc[G], acc_a[G], acc_b[G];   // BF16E: the chunk's carry, composed decay and input
+  int left = 0;                      // BF16E: steps left in the scan's chunk
   bool live[G];
 #pragma unroll
   for (int i = 0; i < G; ++i) {
@@ -210,12 +228,34 @@ selective_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       for (int i = 0; i < G; ++i) {
         da[i] = expf(dtv * av[i]);
       }
+      if constexpr (BF16E) {
+        const bool first = left == 0;
+        left = (first ? q : left) - 1;
 #pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const float bv = live[i] ? to_f32(pb[s * n + i * TPC]) : 0.f;
-        const float cv = live[i] ? to_f32(pc[s * n + i * TPC]) : 0.f;
-        h[i] = h[i] * da[i] + dx * bv;
-        p[i] = h[i] * cv;
+        for (int i = 0; i < G; ++i) {
+          const float bv = live[i] ? to_f32(pb[s * n + i * TPC]) : 0.f;
+          const float cv = live[i] ? to_f32(pc[s * n + i * TPC]) : 0.f;
+          const float dab = bf16_round(da[i]);
+          const float bx = bf16_round(dx * bv);
+          if (first) {
+            hc[i] = h[i];
+            acc_a[i] = dab;
+            acc_b[i] = bx;
+          } else {
+            acc_a[i] = bf16_round(acc_a[i] * dab);
+            acc_b[i] = bf16_round(dab * acc_b[i] + bx);
+          }
+          h[i] = acc_a[i] * hc[i] + acc_b[i];
+          p[i] = h[i] * cv;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const float bv = live[i] ? to_f32(pb[s * n + i * TPC]) : 0.f;
+          const float cv = live[i] ? to_f32(pc[s * n + i * TPC]) : 0.f;
+          h[i] = h[i] * da[i] + dx * bv;
+          p[i] = h[i] * cv;
+        }
       }
       // The xor butterfly over NP lanes: offsets of TPC and more are adds
       // of the thread's own states, the rest shuffles.
@@ -259,26 +299,29 @@ static bool async_ok(const void* x, const void* dt, const void* b, const void* c
 template <int NP, typename T>
 static cudaError_t launch_np(const void* x, const void* dt, const void* b, const void* c,
                              const void* a, void* y, void* h_last, int bsz, int len, int di,
-                             int n, int* route, cudaStream_t st) {
+                             int n, bool bf16e, int q, int* route, cudaStream_t st) {
   constexpr int CH = THREADS / (NP / group_of(NP));
   const dim3 grid((di + CH - 1) / CH, bsz);
   const bool async = async_ok<NP, T>(x, dt, b, c, len, di, n);
   *route = async ? 1 : 0;
-  auto kernel = async ? selective_scan_kernel<NP, T, true> : selective_scan_kernel<NP, T, false>;
+  auto kernel = bf16e ? (async ? selective_scan_kernel<NP, T, true, true>
+                               : selective_scan_kernel<NP, T, false, true>)
+                      : (async ? selective_scan_kernel<NP, T, true, false>
+                               : selective_scan_kernel<NP, T, false, false>);
   kernel<<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const T*>(b),
       static_cast<const T*>(c), static_cast<const float*>(a), static_cast<T*>(y),
-      static_cast<float*>(h_last), len, di, n);
+      static_cast<float*>(h_last), len, di, n, q);
   return cudaGetLastError();
 }
 
 template <typename T>
 static cudaError_t launch_t(const void* x, const void* dt, const void* b, const void* c,
                             const void* a, void* y, void* h_last, int bsz, int len, int di,
-                            int n, int* route, cudaStream_t st) {
+                            int n, bool bf16e, int q, int* route, cudaStream_t st) {
 #define K5_NP(NPV)                                                                           \
   if (n <= NPV)                                                                              \
-    return launch_np<NPV, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
+    return launch_np<NPV, T>(x, dt, b, c, a, y, h_last, bsz, len, di, n, bf16e, q, route, st);
   K5_NP(1) K5_NP(2) K5_NP(4) K5_NP(8) K5_NP(16) K5_NP(32) K5_NP(64) K5_NP(128) K5_NP(256)
   K5_NP(512) K5_NP(1024)
 #undef K5_NP
@@ -287,18 +330,24 @@ static cudaError_t launch_t(const void* x, const void* dt, const void* b, const 
 
 // x, dt (B, L, d_inner), b, c (B, L, N): all f32 or all bf16 (bf16 != 0),
 // contiguous; a (d_inner, N) f32; y like x; h_last (B, d_inner, N) f32.
-// Launches on `stream` and returns the launch's cudaError_t; *route is set
-// to the copy route taken (1: 16-byte cp.async, 0: plain loads).
+// bf16_elements != 0: the scan on bf16 elements in chunks of q steps (q
+// divides len). Launches on `stream` and returns the launch's cudaError_t;
+// *route is set to the copy route taken (1: 16-byte cp.async, 0: plain
+// loads).
 extern "C" int repro_selective_scan_launch(const void* x, const void* dt, const void* b,
                                            const void* c, const void* a, void* y,
                                            void* h_last, int bsz, int len, int di, int n,
-                                           int bf16, int* route, void* stream) {
-  if (bsz <= 0 || len <= 0 || di <= 0 || n <= 0 || n > NMAX || bsz > 65535)
+                                           int bf16, int bf16_elements, int q, int* route,
+                                           void* stream) {
+  if (bsz <= 0 || len <= 0 || di <= 0 || n <= 0 || n > NMAX || bsz > 65535 || q <= 0 ||
+      len % q)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool e = bf16_elements != 0;
   if (bf16)
-    return (int)launch_t<__nv_bfloat16>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
-  return (int)launch_t<float>(x, dt, b, c, a, y, h_last, bsz, len, di, n, route, st);
+    return (int)launch_t<__nv_bfloat16>(x, dt, b, c, a, y, h_last, bsz, len, di, n, e, q, route,
+                                        st);
+  return (int)launch_t<float>(x, dt, b, c, a, y, h_last, bsz, len, di, n, e, q, route, st);
 }
 
 extern "C" int repro_selective_scan_max_state(void) { return NMAX; }

@@ -43,7 +43,9 @@ nothing and touches no device. One JSON record a cell,
       Each argument is read once and each output written once. For
       train, ``activations`` is the bytes of the tensors the step keeps
       for the backward, counted by a saved-tensors hook with each storage
-      once and the arguments left out, over the chips. They are written
+      once and the arguments left out, over the chips; inside a remat unit
+      (``models/remat.py``), what the config's policy keeps: the unit's
+      inputs, and under ``dots`` its products' outputs. They are written
       in the forward and read in the backward. This is an even spread, a
       lower bound where ``model`` replicates the residual stream.
 * ``collective_bytes`` a device, by op and ``total``: one analytic formula
@@ -54,7 +56,8 @@ nothing and touches no device. One JSON record a cell,
     - train: the FSDP all-gathers of the weights over ``data`` and the
       reduce-scatters of their gradients (the gathers' backward); the
       ``model`` all-gathers and all-reduces of each block, forward and
-      backward; the replicas' gradient all-reduces
+      backward, and the forward's again where remat recomputes the block's
+      unit in the backward; the replicas' gradient all-reduces
       (``placed.reduce_replicas``). All of these, for every microbatch.
       Moving a leaf between layouts (``placed.place``, ZeRO-1's moments)
       and the gather of vocab-parallel logits are copies, not placed
@@ -94,7 +97,7 @@ from repro_torch.launch.specs import (
     cell_plan,
     input_specs,
 )
-from repro_torch.models import Model, attention, ssm
+from repro_torch.models import Model, attention, remat, ssm
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.moe import group_size
 from repro_torch.models.transformer import block_plan
@@ -294,7 +297,11 @@ def _cut(cfg: ModelConfig, units: Tuple[int, ...]) -> ModelConfig:
 def _run_step(cfg: ModelConfig, kind: str, batch: Dict[str, torch.Tensor], seq_len: int
               ) -> Tuple[float, int]:
     """(products' flops, bytes of the tensors kept for the backward) of one
-    step of ``cfg`` on ``meta`` tensors, the plain lane."""
+    step of ``cfg`` on ``meta`` tensors, the plain lane. Inside a remat
+    unit the checkpoint's own hooks take the saved tensors, so there the
+    keep is counted from the units' arguments (``remat.tally_keep``): each
+    unit's inputs, and under ``dots`` the outputs of its kept products.
+    The flops count the backward's recompute of every unit too."""
     model = Model(cfg, backend="torch")
     b = next(iter(batch.values())).shape[0]
     dtype = torch.float32 if kind == "train" else torch.bfloat16
@@ -312,8 +319,12 @@ def _run_step(cfg: ModelConfig, kind: str, batch: Dict[str, torch.Tensor], seq_l
     with FlopCounterMode(display=False) as counter, _card_lane_shapes():
         if kind == "train":
             flat = [p.requires_grad_(True) for p in leaves(params)]
-            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), \
+                    remat.tally_keep() as units:
                 loss, _ = model.loss_fn(unflatten(params, flat), batch)
+            for key, kept in units.inputs.items():
+                if key not in owned:
+                    saved.setdefault(key, kept)
             torch.autograd.grad(loss, flat, allow_unused=True)
         elif kind == "prefill":
             model.prefill(params, batch, abstract_cache(cfg, b, seq_len))
@@ -321,7 +332,8 @@ def _run_step(cfg: ModelConfig, kind: str, batch: Dict[str, torch.Tensor], seq_l
             # (B,) per-slot positions: a scalar index would be read on the host
             model.decode_step(params, abstract_cache(cfg, b, seq_len), batch["tokens"],
                               _meta((b,), torch.int32))
-    return float(counter.get_total_flops()), sum(n for n, _t in saved.values())
+    kept = sum(n for n, _t in saved.values())
+    return float(counter.get_total_flops()), kept + (units.saved_bytes if kind == "train" else 0)
 
 
 def scan_flops(cfg: ModelConfig, kind: str, batch: int, seq: int) -> float:
@@ -406,19 +418,22 @@ def _block_leaves(params, specs, path: Tuple[str, ...], mesh, stacked: bool) -> 
 class _Tally:
     """Bytes a device by op. ``backward``: the collective's autograd twin
     moves the same bytes again (an all-gather's is a reduce-scatter, an
-    all-reduce's an all-reduce)."""
+    all-reduce's an all-reduce). ``runs``: how often the forward's
+    collective runs (twice inside a remat unit, whose forward the backward
+    runs again)."""
 
     def __init__(self, backward: bool):
         self.backward = backward
+        self.runs = 1
         self.bytes = {op: 0.0 for op in _OPS}
 
     def gather(self, nbytes: float, times: float) -> None:
-        self.bytes["all-gather"] += nbytes * times
+        self.bytes["all-gather"] += nbytes * times * self.runs
         if self.backward:
             self.bytes["reduce-scatter"] += nbytes * times
 
     def reduce(self, nbytes: float, times: float) -> None:
-        self.bytes["all-reduce"] += nbytes * times * (2 if self.backward else 1)
+        self.bytes["all-reduce"] += nbytes * times * (self.runs + int(self.backward))
 
 
 def _block_collectives(tally: _Tally, cfg: ModelConfig, lp: Dict[str, Tuple[int, ...]],
@@ -485,6 +500,8 @@ def collective_plan(cfg: ModelConfig, kind: str, mesh, params: Any, specs: Any, 
         tally.gather(b_l * s * cfg.d_model * elt, reps)
     if cfg.family == "vlm" and kind != "decode":
         s += cfg.num_patches
+    if train:                                     # the blocks: remat units
+        tally.runs = remat.forward_runs(cfg)
     if cfg.family == "encdec" and kind != "decode":                       # mesh_encode
         lp = _block_leaves(params, specs, ("encoder", "layers"), mesh, stacked=True)
         _block_collectives(tally, cfg, lp, b_l, cfg.encoder_len, elt,
@@ -495,6 +512,7 @@ def collective_plan(cfg: ModelConfig, kind: str, mesh, params: Any, specs: Any, 
               if blk.layer == "shared" else layer)
         _block_collectives(tally, cfg, lp, b_l, s, elt, reps, batch_shards,
                            cross=cfg.family == "encdec" and blk.layer != "shared")
+    tally.runs = 1
     if train:                                     # placed.reduce_replicas of every gradient
         for t, sp in zip(leaves(params), leaves(specs)):
             used = set(sp.used())

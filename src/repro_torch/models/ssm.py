@@ -18,9 +18,15 @@ and the row-parallel products are summed over ``model``.
 Decode is O(1) a token and plain PyTorch: the cache carries the SSM state
 ``h`` (f32) and the depthwise conv's tail.
 
-The reference's ``ssm_scan_dtype="bfloat16"`` (bf16 associative-scan
-elements, a TPU memory-traffic option) has no counterpart: the port's scan
-keeps its elements in f32, and a config that asks for bf16 raises.
+``ssm_scan_dtype="bfloat16"`` runs the prefill's scan as the reference
+does: chunks of ``_pick_chunk(L, ssm_chunk)`` steps (falcon-mamba: 16)
+whose decays and inputs are composed in bf16, carried across chunks in
+f32 (K5's bf16-element mode on the card, ``selective_scan_plain``'s on
+the CPU; ``kernels/selective_scan.py`` gives the arithmetic). In K5 the
+elements never leave registers, so bf16 elements change the rounding,
+not the memory traffic (in the reference they halved the scan's HBM
+traffic). The decode step stays f32, as the reference's does; any other
+element type raises.
 
 Mamba-2 (zamba2's backbone) follows the reference's SSD block
 decomposition: within a chunk a masked quadratic term, across chunks a
@@ -41,7 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_backend, resolve_device
-from repro_torch.kernels.selective_scan import k5_scan, selective_scan
+from repro_torch.kernels.selective_scan import SCAN_DTYPES, k5_scan, selective_scan
 from repro_torch.models.layers import Spec
 
 __all__ = [
@@ -137,11 +143,13 @@ def _mamba1_inputs(params, cfg: ModelConfig, x: torch.Tensor, conv_tail=None):
 
 
 def _mamba1_scan(params, cfg: ModelConfig, xc, z, dt, a, b_mat, c_mat, backend: str):
-    """The selective scan over the channels of xc (K5 on the card lane),
-    the skip term and the gate: (y in xc's dtype, the final state)."""
+    """The selective scan over the channels of xc (K5 on the card lane) on
+    ``cfg.ssm_scan_dtype`` elements, the skip term and the gate: (y in
+    xc's dtype, the final state)."""
     dtype = xc.dtype
     xf = xc.float()
-    gates = dict(chunk=_pick_chunk(xc.shape[1], cfg.ssm_chunk), block_d=xc.shape[-1])
+    gates = dict(chunk=_pick_chunk(xc.shape[1], cfg.ssm_chunk), block_d=xc.shape[-1],
+                 scan_dtype=_scan_dtype(cfg))
     if resolve_backend(backend, xc.device) == "cuda":
         y, h_last = k5_scan(xf, dt, b_mat, c_mat, a, **gates)       # differentiable
     else:
@@ -160,10 +168,10 @@ def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     ``backend``: ``auto`` (K5 for a CUDA tensor, the plain scan for a CPU
     one), ``cuda`` or ``torch`` (the plain scan on any device). K5's
     ``chunk`` is the reference's scan chunk (``_pick_chunk(L,
-    ssm_chunk)``) and its ``block_d`` is d_inner: both divide, and both
-    only gate the kernel.
+    ssm_chunk)``) and its ``block_d`` is d_inner: both divide; on f32
+    elements both only gate the kernel, on bf16 ones the chunk is where
+    the f32 carry is taken.
     """
-    _check_scan_dtype(cfg)
     xc, z, dt, a, b_mat, c_mat, new_tail, _ = _mamba1_inputs(params, cfg, x)
     y, h_last = _mamba1_scan(params, cfg, xc, z, dt, a, b_mat, c_mat, backend)
     out = y @ params["out_proj"].to(x.dtype)
@@ -172,10 +180,13 @@ def apply_mamba1(params: Dict, cfg: ModelConfig, x: torch.Tensor, return_cache: 
     return out
 
 
-def _check_scan_dtype(cfg: ModelConfig) -> None:
-    if cfg.ssm_scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port scans in f32 elements only")
+def _scan_dtype(cfg: ModelConfig) -> str:
+    """The prefill scan's element type, ``float32`` or ``bfloat16``;
+    raises for any other."""
+    if cfg.ssm_scan_dtype not in SCAN_DTYPES:
+        raise NotImplementedError(f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port scans on "
+                                  f"{' or '.join(SCAN_DTYPES)} elements")
+    return cfg.ssm_scan_dtype
 
 
 def mamba1_mesh(lps: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tensor], mesh, *,
@@ -196,7 +207,6 @@ def mamba1_mesh(lps: Dict[Any, Dict], cfg: ModelConfig, x: Dict[Any, torch.Tenso
     whole block and nothing is summed. Returns each position's output."""
     from repro_torch.sharding.placed import all_gather, all_reduce
 
-    _check_scan_dtype(cfg)
     di = cfg.d_inner
     mi = mesh.axis_names.index("model") if "model" in mesh.axis_names else None
     lp0 = next(iter(lps.values()))

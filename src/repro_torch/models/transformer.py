@@ -18,9 +18,13 @@ The port of ``repro.models.transformer``. Families:
 
 The reference's ``lax.scan`` over the stacked parameters (nested, outer
 over the hybrid's groups) is a Python loop over the leading layer axis
-here; remat is a training matter and is not ported. A moe model's forward
-returns the per-layer auxiliary losses summed over the layers (``moe_aux``,
-``moe_z``); its prefill and decode step drop them, as the reference's do.
+here. Its remat is :mod:`~repro_torch.models.remat`: the forward and
+:func:`mesh_forward` run each of :func:`remat_units` (a block, an encoder
+layer, a hybrid group) through ``remat.unit``, which checkpoints it under
+autograd as the config's ``remat`` and ``remat_policy`` say. A moe model's
+forward returns the per-layer auxiliary losses summed over the layers
+(``moe_aux``, ``moe_z``); its prefill and decode step drop them, as the
+reference's do.
 
 Every function takes ``backend`` (``auto`` | ``cuda`` | ``torch``) and hands
 it to ``attention.apply_attention``, ``attention.apply_cross_attention`` or
@@ -51,13 +55,14 @@ calls K4 on each position's own heads and K5 on its own channels.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm
+from repro_torch.models import remat, ssm
 from repro_torch.models.attention import (
     apply_attention,
     apply_cross_attention,
@@ -88,6 +93,7 @@ __all__ = [
     "check_family",
     "Block",
     "block_plan",
+    "remat_units",
     "mesh_block",
     "mesh_embed",
     "mesh_encode",
@@ -226,6 +232,19 @@ def block_plan(cfg: ModelConfig, stream: Optional[str] = None) -> list:
     return [b for b in plan if stream in (None, b.stream)]
 
 
+def remat_units(cfg: ModelConfig, stream: Optional[str] = None) -> list:
+    """:func:`block_plan` cut into the units that remat checkpoints, the
+    reference's: one block each, but the hybrid's group (its ``attn_every``
+    Mamba-2 layers and then the shared block) is one unit."""
+    units: list = []
+    for blk in block_plan(cfg, stream):
+        if units and cfg.family == "hybrid" and units[-1][-1].layer != "shared":
+            units[-1].append(blk)
+        else:
+            units.append([blk])
+    return units
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -273,13 +292,11 @@ def _apply_mamba_block(lp, cfg: ModelConfig, x, *, cache=None, return_cache=Fals
     return x + out, None
 
 
-def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend="auto"):
-    """The main layer stack without a cache (the reference's ``lax.scan``).
-    Returns (x, the auxiliary losses summed over the layers)."""
-    layers = _layers(params["layers"], cfg.num_layers)
+def _run_unit(blocks, cfg: ModelConfig, backend, x, lps, positions, enc_out):
+    """The blocks of one remat unit, in order, on x (no cache). Returns (x,
+    the unit's auxiliary losses: a list of values by name)."""
     auxs: Dict[str, list] = {}
-    for blk in block_plan(cfg, "dec"):
-        lp = params["shared"] if blk.layer == "shared" else layers[blk.layer]
+    for blk, lp in zip(blocks, lps):
         if "mamba" in lp:
             x, _ = _apply_mamba_block(lp, cfg, x, backend=backend)
             continue
@@ -288,6 +305,21 @@ def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend=
                                       backend=backend)
         for name, v in aux.items():
             auxs.setdefault(name, []).append(v)
+    return x, auxs
+
+
+def _scan_decoder(params, cfg: ModelConfig, x, positions, enc_out=None, backend="auto"):
+    """The main layer stack without a cache (the reference's ``lax.scan``),
+    a remat unit at a time. Returns (x, the auxiliary losses summed over
+    the layers)."""
+    layers = _layers(params["layers"], cfg.num_layers)
+    auxs: Dict[str, list] = {}
+    for blocks in remat_units(cfg, "dec"):
+        lps = [params["shared"] if blk.layer == "shared" else layers[blk.layer] for blk in blocks]
+        x, aux = remat.unit(functools.partial(_run_unit, blocks, cfg, backend), cfg, x, lps,
+                            positions, enc_out)
+        for name, vs in aux.items():
+            auxs.setdefault(name, []).extend(vs)
     # the reference sums each loss over its scan's stacked per-layer values
     return x, {name: torch.stack(vs).sum() for name, vs in auxs.items()}
 
@@ -320,9 +352,9 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, dtype, backend="
     x = enc_embeds.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
     enc = params["encoder"]
     layers = _layers(enc["layers"], cfg.encoder_layers)
-    for blk in block_plan(cfg, "enc"):
-        x, _, _ = _apply_attn_block(layers[blk.layer], cfg, x, pos, causal=blk.causal,
-                                    backend=backend)
+    for blocks in remat_units(cfg, "enc"):
+        x, _ = remat.unit(functools.partial(_run_unit, blocks, cfg, backend), cfg, x,
+                          [layers[blk.layer] for blk in blocks], pos, None)
     return apply_norm(enc["final_norm"], cfg, x)
 
 
@@ -581,6 +613,20 @@ def mesh_block(lps: Dict[Any, Any], cfg: ModelConfig, x: Dict[Any, torch.Tensor]
     return {pos: x[pos] + part[pos] for pos in lps}, aux
 
 
+def _mesh_unit(blocks, cfg: ModelConfig, mesh, backend, x, lps, pos_ids, enc):
+    """The blocks of one remat unit on a mesh (:func:`mesh_block` each, the
+    encoder output ``enc`` read by every decoder layer but the hybrid's
+    shared block). Returns (x, the unit's auxiliary losses: a list of
+    values by name)."""
+    auxs: Dict[str, list] = {}
+    for blk, lp in zip(blocks, lps):
+        x, aux = mesh_block(lp, cfg, x, pos_ids, mesh, causal=blk.causal,
+                            enc=None if blk.layer == "shared" else enc, backend=backend)
+        for name, v in aux.items():
+            auxs.setdefault(name, []).append(v)
+    return x, auxs
+
+
 def _arange_positions(x: torch.Tensor) -> torch.Tensor:
     b, s = x.shape[:2]
     return torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -623,9 +669,10 @@ def mesh_encode(w: Dict[Any, Any], cfg: ModelConfig, enc_embeds, mesh, dtype, *,
     pos_ids = {pos: _arange_positions(t) for pos, t in x.items()}
     x = {pos: t + _sinusoid(pos_ids[pos], cfg.d_model).to(dtype) for pos, t in x.items()}
     layers = {pos: _layers(wp["encoder"]["layers"], cfg.encoder_layers) for pos, wp in w.items()}
-    for blk in block_plan(cfg, "enc"):
-        x, _ = mesh_block({pos: layers[pos][blk.layer] for pos in w}, cfg, x, pos_ids, mesh,
-                          causal=blk.causal, backend=backend)
+    for blocks in remat_units(cfg, "enc"):
+        x, _ = remat.unit(functools.partial(_mesh_unit, blocks, cfg, mesh, backend), cfg, x,
+                          [{pos: layers[pos][blk.layer] for pos in w} for blk in blocks],
+                          pos_ids, None)
     return {pos: apply_norm(wp["encoder"]["final_norm"], cfg, x[pos]) for pos, wp in w.items()}
 
 
@@ -704,13 +751,13 @@ def mesh_forward(params, cfg: ModelConfig, batch: Dict, mesh, *,
            if cfg.family == "encdec" else None)
     layers = {pos: _layers(w[pos]["layers"], cfg.num_layers) for pos in active}
     auxs: Dict[str, list] = {}
-    for blk in block_plan(cfg, "dec"):
-        lps = {pos: w[pos]["shared"] if blk.layer == "shared" else layers[pos][blk.layer]
-               for pos in active}
-        x, aux = mesh_block(lps, cfg, x, pos_ids, mesh, causal=blk.causal,
-                            enc=None if blk.layer == "shared" else enc, backend=backend)
-        for name, v in aux.items():
-            auxs.setdefault(name, []).append(v)
+    for blocks in remat_units(cfg, "dec"):
+        lps = [{pos: w[pos]["shared"] if blk.layer == "shared" else layers[pos][blk.layer]
+                for pos in active} for blk in blocks]
+        x, aux = remat.unit(functools.partial(_mesh_unit, blocks, cfg, mesh, backend), cfg, x,
+                            lps, pos_ids, enc)
+        for name, vs in aux.items():
+            auxs.setdefault(name, []).extend(vs)
     # as _scan_decoder: each loss summed over the stacked per-layer values
     return (mesh_unembed(w, params, cfg, x, mesh),
             {name: torch.stack(vs).sum() for name, vs in auxs.items()})

@@ -115,6 +115,10 @@ class Mesh:
             flat = flat * n + i
         return self._devices[flat]
 
+    def flat(self) -> List[torch.device]:
+        """Every position's device, in position order (as ``ImageMesh.flat``)."""
+        return list(self._devices)
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self._devices]})"
 

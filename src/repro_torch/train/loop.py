@@ -31,12 +31,14 @@ on the placed state. The reference jits the step with the same
 shardings and lets GSPMD insert the collectives; the port calls them.
 
 The reference donates the state to the step; the port keeps the old state
-until the step returns (a retried step reuses it). ``remat_policy``
-(``configs/base.py``) has no counterpart: PyTorch keeps every activation
-of the forward for the backward, as the reference's policy-free step
-would. ``TrainConfig`` leaves out the reference's ``checkpoint_dir`` and
-``keep_checkpoints``, which nothing there reads: the ``CheckpointManager``
-given to ``fit`` holds the directory and the retention.
+until the step returns (a retried step reuses it). The forward of either
+step rematerialises as the config's ``remat`` and ``remat_policy`` say
+(``models/remat.py``: a unit's inputs kept and its forward run again in
+the backward, or, under ``dots``, its products with a weight kept too),
+as the reference's ``jax.checkpoint`` does. ``TrainConfig`` leaves out the
+reference's ``checkpoint_dir`` and ``keep_checkpoints``, which nothing
+there reads: the ``CheckpointManager`` given to ``fit`` holds the
+directory and the retention.
 """
 from __future__ import annotations
 

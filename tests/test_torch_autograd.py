@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import selective_scan as SS
 from repro_torch.models import Model
 from repro_torch.models import attention as A
+from repro_torch.models import remat
 from repro_torch.models import ssm as S
 from repro_torch.tree import leaves, leaves_with_path, unflatten
 
@@ -27,10 +28,10 @@ def stand_in(monkeypatch):
         with torch.no_grad():
             return FA.flash_attention_plain(q, k, v, causal=causal)
 
-    def k5(x, dt, b_mat, c_mat, a):
+    def k5(x, dt, b_mat, c_mat, a, **kw):
         SS.selective_scan.launches += 1
         with torch.no_grad():
-            return SS.selective_scan_plain(x, dt, b_mat, c_mat, a)
+            return SS.selective_scan_plain(x, dt, b_mat, c_mat, a, **kw)
 
     monkeypatch.setattr(FA, "_launch", k4)
     monkeypatch.setattr(SS, "_launch", k5)
@@ -128,13 +129,16 @@ GRAD_TOL = 1e-4
 
 
 def _launches_a_forward(cfg):
+    """(K4, K5) launches of one training step: each unit's forward runs
+    ``remat.forward_runs`` times (twice where the config rematerialises)."""
+    runs = remat.forward_runs(cfg)
     if cfg.family == "ssm":
-        return 0, cfg.num_layers
+        return 0, cfg.num_layers * runs
     if cfg.family == "hybrid":
-        return cfg.num_layers // cfg.attn_every, 0
+        return cfg.num_layers // cfg.attn_every * runs, 0
     if cfg.family == "encdec":
-        return cfg.encoder_layers + 2 * cfg.num_layers, 0
-    return cfg.num_layers, 0
+        return (cfg.encoder_layers + 2 * cfg.num_layers) * runs, 0
+    return cfg.num_layers * runs, 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1319,12 +1319,13 @@ def test_bare_kernel_calls_under_autograd_raise(cuda_device):
 def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, arch):
     """SMOKE f32: one step's loss and gradients through K4 (K5 for the ssm
     model) against the plain lane on the card; the kernels launch once a
-    layer (whisper: encoder, decoder and cross-attention)."""
+    layer (whisper: encoder, decoder and cross-attention) in the forward and
+    once more in the backward (remat's recompute)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.selective_scan import selective_scan
-    from repro_torch.models import Model
+    from repro_torch.models import Model, remat
     from repro_torch.tree import leaves, unflatten
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1342,7 +1343,8 @@ def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, ar
     torch.cuda.synchronize()
     launched = (flash_attention.launches - k4, selective_scan.launches - k5)
     want = {"ssm": (0, cfg.num_layers), "encdec": (cfg.encoder_layers + 2 * cfg.num_layers, 0)}
-    assert launched == want.get(cfg.family, (cfg.num_layers, 0))
+    runs = remat.forward_runs(cfg)
+    assert launched == tuple(n * runs for n in want.get(cfg.family, (cfg.num_layers, 0)))
     plain_loss, plain = step("torch")
     assert abs(float(loss) - float(plain_loss)) <= 1e-4
     for g, w in zip(grads, plain):
@@ -1354,14 +1356,15 @@ def test_a_training_step_on_the_card_lane_matches_the_plain_lane(cuda_device, ar
                                   "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"])
 def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device, arch):
     """SMOKE f32 on a 2x2 (data, model) mesh of ``[cuda] * 4``: K4 (K5 for
-    the ssm family) once a layer a position and no other kernel, the loss
+    the ssm family) once a layer a position, twice under remat, and no
+    other kernel, the loss
     (a moe model's aux terms with it) and every gathered gradient against
     the one-device step on the card, every shard on the card."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.selective_scan import selective_scan
-    from repro_torch.models import Model
+    from repro_torch.models import Model, remat
     from repro_torch.runtime.elastic import make_mesh
     from repro_torch.sharding.placed import gather, place
     from repro_torch.train import TrainConfig, Trainer
@@ -1380,7 +1383,7 @@ def test_a_training_step_on_a_mesh_of_the_card_matches_one_device(cuda_device, a
     got, got_m = trainer.mesh_grads_of(placed, trainer._microbatches(batch)[0])
     torch.cuda.synchronize()
     launched = (flash_attention.launches - before[0], selective_scan.launches - before[1])
-    per_step = cfg.num_layers * mesh.size
+    per_step = cfg.num_layers * mesh.size * remat.forward_runs(cfg)
     assert launched == ((0, per_step) if cfg.family == "ssm" else (per_step, 0))
     assert set(got_m) == set(want_m)
     for k in want_m:

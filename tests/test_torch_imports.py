@@ -1,5 +1,6 @@
 """The port stands alone: neither ``jax`` nor the ``repro`` package is
-imported by ``src/repro_torch`` or ``chip_smoke.py``."""
+imported by ``src/repro_torch``, ``chip_smoke.py`` or the twins of the
+examples (``examples_torch/``)."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"] + sorted(
+    (ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -53,7 +55,7 @@ def test_importing_the_port_leaves_jax_out():
         "repro_torch.sharding.partition, repro_torch.sharding.placed, "
         "repro_torch.optim.compress, repro_torch.serve.paged, repro_torch.launch.specs, "
         "repro_torch.launch.dryrun, repro_torch.roofline, repro_torch.roofline.constants, "
-        "repro_torch.roofline.analysis; "
+        "repro_torch.roofline.analysis, repro_torch.models.remat; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

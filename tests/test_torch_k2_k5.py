@@ -221,11 +221,25 @@ def test_selective_scan_passes_a_route_slot_and_counts_it(fake_lib, monkeypatch,
     before = (k5.selective_scan.launches, k5.selective_scan.async_launches)
     y, h = k5.selective_scan(*args)
     (name, cargs), = fake_lib.calls
-    assert name == "scan" and cargs[7:12] == (1, 8, 64, 33, 0)
-    assert isinstance(cargs[12], type(ctypes.byref(ctypes.c_int())))
+    # (B, L, d_inner, N, bf16 inputs, bf16 elements, the bf16 mode's chunk)
+    assert name == "scan" and cargs[7:14] == (1, 8, 64, 33, 0, 0, 8)
+    assert isinstance(cargs[14], type(ctypes.byref(ctypes.c_int())))
     assert y.shape == x.shape and h.shape == (1, 64, 33)
     assert (k5.selective_scan.launches, k5.selective_scan.async_launches) == (
         before[0] + 1, before[1] + route)
+
+
+def test_selective_scan_passes_the_bf16_element_mode(fake_lib, monkeypatch):
+    monkeypatch.setattr(k5, "resolve_backend", lambda backend, device: "cuda")
+    x = torch.zeros((1, 32, 64))
+    args = (x, x, torch.zeros((1, 32, 16)), torch.zeros((1, 32, 16)), torch.zeros((64, 16)))
+    before = (k5.selective_scan.launches, k5.selective_scan.bf16_launches)
+    k5.selective_scan(*args, chunk=16, block_d=64, scan_dtype="bfloat16")
+    k5.selective_scan(*args, chunk=16, block_d=64)
+    (_, bf16), (_, f32) = fake_lib.calls
+    assert bf16[7:14] == (1, 32, 64, 16, 0, 1, 16) and f32[7:14] == (1, 32, 64, 16, 0, 0, 16)
+    assert (k5.selective_scan.launches, k5.selective_scan.bf16_launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 def test_k5_limits_match_the_source():

@@ -32,6 +32,7 @@ from repro_torch.kernels import selective_scan as SS
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Model, carry_params
 from repro_torch.models import attention as A
+from repro_torch.models import remat
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -149,7 +150,9 @@ def test_moe_routing_groups_are_the_microbatchs(arch, group):
     The MoE on the mesh (``moe.moe_mesh``, from one device's input split
     into its batch shards) keeps exactly one device's (token, expert)
     slots, and its output and aux losses match; a whole mesh step logs the
-    same slots in every layer, and its aux losses match one device's."""
+    same slots in every layer, and its aux losses match one device's. Under
+    remat the backward runs each layer's MoE again (the layers in reverse
+    order) and logs the same slots again."""
     cfg = _cfg(arch).replace(moe_group_size=64 if group == "spans the shards" else 16,
                              moe_capacity_factor=0.5)
     mesh = _mesh("2x2")
@@ -184,11 +187,12 @@ def test_moe_routing_groups_are_the_microbatchs(arch, group):
         _, got_m = tr.mesh_grads_of(tree_map(P.place, params, tr.state_shardings().params),
                                     tr._microbatches(batch)[0])
     n = cfg.num_layers
-    per_layer = len(got) // n
-    assert len(one) == n and per_layer * n == len(got)
-    for i in range(n):
-        mesh_kept = torch.cat([k for _, _, k in got[i * per_layer:(i + 1) * per_layer]])
-        assert torch.equal(mesh_kept, one[i][2]), i
+    order = list(range(n)) + list(reversed(range(n)))[:n * (remat.forward_runs(cfg) - 1)]
+    per_layer = len(got) // len(order)
+    assert len(one) == len(order) and per_layer * len(order) == len(got)
+    for j, i in enumerate(order):
+        mesh_kept = torch.cat([k for _, _, k in got[j * per_layer:(j + 1) * per_layer]])
+        assert torch.equal(mesh_kept, one[i][2]) and torch.equal(one[j][2], one[i][2]), (j, i)
     for k in ("moe_aux", "moe_z"):
         assert _close(got_m[k], want_m[k], LOSS_RTOL), k
 
@@ -256,11 +260,11 @@ def test_kernels_launch_once_a_layer_a_position_a_microbatch(arch, monkeypatch):
         with torch.no_grad():
             return FA.flash_attention_plain(q, k, v, causal=causal)
 
-    def k5(x, dt, b, c, a):
+    def k5(x, dt, b, c, a, **kw):
         SS.selective_scan.launches += 1
         shapes.append(tuple(x.shape) + (b.shape[-1],))
         with torch.no_grad():
-            return SS.selective_scan_plain(x, dt, b, c, a)
+            return SS.selective_scan_plain(x, dt, b, c, a, **kw)
 
     def no_plain(*a, **kw):
         raise AssertionError("a plain attention or scan ran on the card lane")
@@ -280,7 +284,8 @@ def test_kernels_launch_once_a_layer_a_position_a_microbatch(arch, monkeypatch):
     other = FA.flash_attention if cfg.family == "ssm" else SS.selective_scan
     before, before_other = counter.launches, other.launches
     hist = tr.fit(DataLoader(cfg, 4, 16, mesh=mesh, seed=0))
-    assert counter.launches - before == 2 * cfg.num_layers * mesh.size * 2
+    runs = remat.forward_runs(cfg)      # the unit's forward again in the backward
+    assert counter.launches - before == 2 * cfg.num_layers * mesh.size * 2 * runs
     assert other.launches == before_other
     # (B/|data|/microbatches, the position's heads or channels, S, D or N)
     if cfg.family == "ssm":

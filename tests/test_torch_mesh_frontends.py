@@ -42,6 +42,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import Model, carry_params
 from repro_torch.models.model import cross_entropy
 from repro_torch.models import attention as A
+from repro_torch.models import remat
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.runtime.elastic import make_mesh, reshard
@@ -323,7 +324,8 @@ def test_block_plan_is_the_schedule_both_forwards_run(arch, monkeypatch):
     layers then the shared block once a group, and pixtral's layers; one
     device's forward and the mesh's run exactly those blocks in that order,
     each with its causality and, for whisper's decoder, its
-    cross-attention."""
+    cross-attention; and, where the config rematerialises, the backward
+    runs each remat unit's blocks again, the units in reverse order."""
     cfg = _cfg(arch)
     want = [T.Block("enc", i, False) for i in range(cfg.encoder_layers) if arch == ENCDEC]
     if arch == HYBRID:
@@ -336,6 +338,9 @@ def test_block_plan_is_the_schedule_both_forwards_run(arch, monkeypatch):
     assert T.block_plan(cfg, "enc") == [b for b in want if b.stream == "enc"]
     kinds = [(arch == HYBRID and b.layer != "shared", arch == ENCDEC and b.stream == "dec",
               b.causal) for b in want]
+    if remat.forward_runs(cfg) == 2:
+        kind = dict(zip(want, kinds))
+        kinds += [kind[b] for unit in reversed(T.remat_units(cfg)) for b in unit]
 
     single, mesh = [], []
     real_attn, real_mamba, real_block = T._apply_attn_block, T._apply_mamba_block, T.mesh_block
@@ -486,7 +491,8 @@ def test_k4_launches_once_an_attention_a_position_a_microbatch(arch, monkeypatch
     tr = Trainer(cfg, tc, mesh=mesh)
     before, before_k5 = FA.flash_attention.launches, SS.selective_scan.launches
     hist = tr.fit(DataLoader(cfg, 4, 16, mesh=mesh, seed=0))
-    runs = 2 * mesh.size * 2                               # steps x positions x microbatches
+    # steps x positions x microbatches x the unit's forward runs (remat: twice)
+    runs = 2 * mesh.size * 2 * remat.forward_runs(cfg)
     q = (1, cfg.num_heads // 2, 16, cfg.head_dim)
     if arch == HYBRID:
         want = {(q, q, True): T._groups(cfg) * runs}

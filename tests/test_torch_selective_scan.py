@@ -142,3 +142,82 @@ def test_plain_matches_reference_past_32_states(n):
     np.testing.assert_allclose(y.numpy(), ny, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(h.numpy(), nh, rtol=TOL, atol=TOL)
     assert n <= k5.NMAX and h.shape == (2, 40, n)
+
+
+# ---------------------------------------------------------------------------
+# bf16 scan elements (scan_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+def _naive_bf16(x, dt, bm, cm, a, q):
+    """The bf16-element recurrence in numpy f32 (``ml_dtypes`` rounds to
+    bf16): at t % q == 0 hc = h and the chunk restarts from da and bx; then
+    A = bf16(A * da), Bc = bf16(da * Bc + bx), h = A * hc + Bc."""
+    import ml_dtypes
+
+    def rn(v):
+        return v.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+    bsz, l, di = x.shape
+    h = np.zeros((bsz, di, a.shape[-1]), np.float32)
+    ys = []
+    for t in range(l):
+        da = rn(np.exp(dt[:, t, :, None] * a))
+        bx = rn((dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :])
+        if t % q == 0:
+            hc, acc_a, acc_b = h, da, bx
+        else:
+            acc_a, acc_b = rn(acc_a * da), rn(da * acc_b + bx)
+        h = acc_a * hc + acc_b
+        ys.append((h * cm[:, t, None, :]).sum(-1))
+    return np.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("q", [1, 4, 16])
+def test_plain_bf16_elements_follow_the_recurrence(q):
+    """The state bit-equal to the numpy recurrence (the same f32 operations
+    in the same order), y within the f32 tolerance (numpy sums the states in
+    another order); the f32 lane unchanged by the chunk."""
+    arrays = _inputs((2, 16, 24, 4), seed=3)
+    y, h = selective_scan_plain(*_torch(arrays), scan_dtype="bfloat16", chunk=q)
+    ny, nh = _naive_bf16(*arrays, q)
+    np.testing.assert_array_equal(h.numpy(), nh)
+    np.testing.assert_allclose(y.numpy(), ny, rtol=TOL, atol=TOL)
+    wy, wh = selective_scan_plain(*_torch(arrays))
+    assert not torch.equal(h, wh)
+    assert torch.equal(selective_scan(*_torch(arrays), chunk=q, block_d=24)[0], wy)
+    got = selective_scan(*_torch(arrays), chunk=q, block_d=24, scan_dtype="bfloat16")
+    assert torch.equal(got[0], y) and torch.equal(got[1], h)
+
+
+def test_bf16_elements_refusals():
+    args = _torch(_inputs((1, 8, 8, 4)))
+    with pytest.raises(ValueError, match="scan_dtype='float16'"):
+        selective_scan(*args, chunk=8, block_d=8, scan_dtype="float16")
+    with pytest.raises(ValueError, match="chunk=3 must divide L=8"):
+        selective_scan(*args, chunk=3, block_d=8, scan_dtype="bfloat16")
+
+
+def test_k5_function_in_bf16_elements_gives_the_plain_gradients(monkeypatch):
+    """``k5_scan(scan_dtype="bfloat16")`` with the kernel replaced by a
+    counting plain call: one launch in the bf16 mode, and the gradients of
+    autograd through the bf16 plain scan (its casts pass gradients through)."""
+    calls = []
+
+    def fake(x, dt, b_mat, c_mat, a, **kw):
+        calls.append(kw)
+        with torch.no_grad():
+            return selective_scan_plain(x, dt, b_mat, c_mat, a, **kw)
+
+    monkeypatch.setattr(k5, "_launch", fake)
+    args = [t.requires_grad_(True) for t in _torch(_inputs((2, 8, 16, 4), seed=9))]
+    g = torch.Generator().manual_seed(0)
+    gy, gh = torch.randn((2, 8, 16), generator=g), torch.randn((2, 16, 4), generator=g)
+    y, h = k5.k5_scan(*args, chunk=4, block_d=16, scan_dtype="bfloat16")
+    assert calls == [dict(scan_dtype="bfloat16", chunk=4)]
+    got = torch.autograd.grad((y, h), args, (gy, gh))
+    wy, wh = selective_scan_plain(*args, scan_dtype="bfloat16", chunk=4)
+    assert torch.equal(y, wy.detach()) and torch.equal(h, wh.detach())
+    want = torch.autograd.grad((wy, wh), args, (gy, gh))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    k5.k5_scan(*[t.detach() for t in args], chunk=4, block_d=16)
+    assert calls[-1] == dict(scan_dtype="float32", chunk=4)

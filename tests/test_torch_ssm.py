@@ -121,8 +121,8 @@ def test_init_cache_and_refusals(block):
     rcache = rssm.init_mamba1_cache(rcfg, 3, jnp.float32)
     for name in ("h", "conv"):
         assert tuple(cache[name].shape) == rcache[name].shape and not cache[name].any()
-    with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):
-        ssm.apply_mamba1(block[2], cfg.replace(ssm_scan_dtype="bfloat16"),
+    with pytest.raises(NotImplementedError, match="ssm_scan_dtype='float16'"):
+        ssm.apply_mamba1(block[2], cfg.replace(ssm_scan_dtype="float16"),
                          torch.from_numpy(block[4]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -233,3 +233,86 @@ def test_init_mamba2_cache(block2):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ssm.init_mamba2_cache(cfg, 1)
+
+
+# ---------------------------------------------------------------------------
+# bf16 scan elements (ssm_scan_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+# The reference composes a chunk with an associative scan (a tree of bf16
+# products), the port step by step: the two round at other places and
+# cannot be bit-equal. The bound is the reference's own distance from its
+# f32 scan on the same inputs (L2 over the whole output), twice over:
+# observed 0.32-1.53 of it on these weights at L = 32, chunks 4-16, 12
+# input seeds. The weights are the port's draw (the reference's
+# initializer salts its draws with the process's hash), the conv taps x5
+# so that the scan's inputs, not f32 noise, set the distances.
+BF16_CONTROL_FACTOR = 2.0
+
+
+def _l2(a, b) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64)))
+
+
+@pytest.fixture(scope="module")
+def block_bf16():
+    cfg, rcfg = _cfgs(d_model=16, state=4)
+    params = init_tree(ssm.mamba1_params(cfg), 0, device="cpu")
+    params["conv_w"] = params["conv_w"] * 5
+    rparams = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    x = np.random.default_rng(0).standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    return cfg, rcfg, params, rparams, x
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 16])
+def test_bf16_scan_prefill_and_state_match_reference(block_bf16, chunk):
+    cfg, rcfg, params, rparams, x = block_bf16
+    c16 = cfg.replace(ssm_chunk=chunk, ssm_scan_dtype="bfloat16")
+    r16 = rcfg.replace(ssm_chunk=chunk, ssm_scan_dtype="bfloat16")
+    got, cache = ssm.apply_mamba1(params, c16, torch.from_numpy(x), return_cache=True)
+    want, rcache = rssm.apply_mamba1(rparams, r16, jnp.asarray(x), return_cache=True)
+    ctl, ccache = rssm.apply_mamba1(rparams, rcfg.replace(ssm_chunk=chunk), jnp.asarray(x),
+                                    return_cache=True)
+    for name, g, w, c in (("out", got, want, ctl), ("h", cache["h"], rcache["h"], ccache["h"])):
+        control = _l2(w, c)
+        assert 0 < _l2(g.numpy(), w) <= BF16_CONTROL_FACTOR * control, (name, _l2(g, w), control)
+    np.testing.assert_array_equal(cache["conv"].numpy(), np.asarray(rcache["conv"]))
+    f32 = ssm.apply_mamba1(params, cfg.replace(ssm_chunk=chunk), torch.from_numpy(x))
+    assert not torch.equal(got, f32)              # the mode rounds
+    # the decode step stays f32 whatever the scan's elements
+    y16, new16 = ssm.mamba1_decode(params, c16, torch.from_numpy(x[:, :1]), cache)
+    y32, new32 = ssm.mamba1_decode(params, cfg, torch.from_numpy(x[:, :1]), cache)
+    assert torch.equal(y16, y32) and torch.equal(new16["h"], new32["h"])
+
+
+def test_bf16_scan_trains_on_a_mesh_as_on_one_device():
+    """falcon-mamba SMOKE with ``ssm_scan_dtype="bfloat16"``: one step's
+    loss and gradients on a 1x2 mesh (each position scans its own
+    channels) against one device, at the mesh tests' f32 tolerances (the
+    loss within 1e-5 relative, each gradient within 5e-5 of its largest)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import DataLoader
+    from repro_torch.models import Model
+    from repro_torch.runtime.elastic import make_mesh
+    from repro_torch.sharding.placed import gather, place
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+    cfg = get_config("falcon-mamba-7b", smoke=True).replace(dtype="float32",
+                                                            ssm_scan_dtype="bfloat16")
+    params = Model(cfg).init(1, device="cpu")
+    loader = DataLoader(cfg, 2, 16, seed=0, device="cpu")
+    batch = next(loader)
+    loader.close()
+    tc = TrainConfig(batch=2, seq_len=16)
+    want, want_m = Trainer(cfg, tc, device="cpu").grads_of(params, batch)
+    f32, _ = Trainer(cfg.replace(ssm_scan_dtype="float32"), tc, device="cpu").grads_of(params,
+                                                                                      batch)
+    tr = Trainer(cfg, tc, mesh=make_mesh([torch.device("cpu")] * 2, model_parallel=2))
+    got, got_m = tr.mesh_grads_of(tree_map(place, params, tr.state_shardings().params),
+                                  tr._microbatches(batch)[0])
+    assert abs(float(got_m["loss"]) - float(want_m["loss"])) <= 1e-5 * float(want_m["loss"])
+    for (path, g), w in zip(leaves_with_path(got), leaves(want)):
+        g = gather(g).double()
+        assert float((g - w.double()).abs().max()) <= 5e-5 * float(w.abs().max()), path
+    assert any(not torch.equal(a, b) for a, b in zip(leaves(want), leaves(f32)))

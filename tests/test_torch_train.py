@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Model, carry_params
 from repro_torch.models import attention as A
+from repro_torch.models import remat
 from repro_torch.runtime import FaultPolicy, StepFailure
 from repro_torch.train import TrainConfig, Trainer, TrainState
 from repro_torch.train import loop as train_loop
@@ -182,8 +183,10 @@ def test_resume_from_checkpoint_continues_the_same_run(tmp_path):
 
 def test_card_lane_launches_k4_once_a_layer_a_microbatch(monkeypatch):
     """On the card lane (``models.attention`` told so; K4's ``_launch`` a
-    counting plain version) a step launches K4 layers x microbatches times
-    and trains: every parameter moves by step 2."""
+    counting plain version) a step launches K4 once a layer a microbatch in
+    its forward, and once more in the backward where the config
+    rematerialises (``remat.forward_runs``), and trains: every parameter
+    moves by step 2."""
     def k4(q, k, v, causal):
         FA.flash_attention.launches += 1
         with torch.no_grad():
@@ -198,7 +201,8 @@ def test_card_lane_launches_k4_once_a_layer_a_microbatch(monkeypatch):
     init = tr.init_state()
     before = FA.flash_attention.launches
     hist = tr.fit(DataLoader(cfg, 4, 16, device="cpu"), params=init.params)
-    assert FA.flash_attention.launches - before == 3 * cfg.num_layers * 2
+    assert FA.flash_attention.launches - before == 3 * cfg.num_layers * 2 * remat.forward_runs(
+        cfg)
     assert np.isfinite(hist["loss"]).all() and hist["lr"][0] == 0.0
     for (path, a), b in zip(leaves_with_path(tr.state.params), leaves(init.params)):
         assert not torch.equal(a, b), path
